@@ -1,0 +1,67 @@
+"""Dispatch of the four kernels by the device of their tensors.
+
+A CPU tensor goes to the kernel's plain version in ``ref`` — that is the
+only reason the plain version runs.  A CUDA tensor goes to the hand-written
+kernel, or the call raises: there is no fallback.  Each kernel module keeps
+a plain-int ``launches`` count that its wrapper bumps once per launch;
+``launch_counts`` / ``reset_launch_counts`` read and clear them, so a run
+can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import queue_tick as _qt
+from repro_torch.kernels import ref
+from repro_torch.kernels import reps_update as _ru
+from repro_torch.kernels import seg_rank as _sr
+from repro_torch.kernels import seg_sum as _ss
+
+KERNEL_MODULES = {"seg_sum": _ss, "seg_rank": _sr, "reps_tick": _ru, "queue_tick": _qt}
+
+
+def _on_cuda(t: torch.Tensor, kernel: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{kernel}: no kernel or plain version for device {t.device}")
+
+
+def seg_sum(seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """``(K,)``, ``(F, K)`` int32 -> ``(F, n_segments)`` stacked segment sums
+    (optional leading row axis); ids outside ``[0, n_segments)`` drop."""
+    if _on_cuda(seg, "seg_sum"):
+        return _ss.seg_sum_cuda(seg, vals, n_segments)
+    return ref.seg_sum_ref(seg, vals, n_segments)
+
+
+def seg_rank(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """``(K,)`` int32 -> stable FIFO rank within each segment (ids outside
+    ``[0, n_segments)`` rank 0); optional leading row axis."""
+    if _on_cuda(seg, "seg_rank"):
+        return _sr.seg_rank_cuda(seg, n_segments)
+    return ref.seg_rank_ref(seg, n_segments)
+
+
+def reps_tick(*args):
+    """Fused REPS per-tick update; arguments as ``ref.reps_tick_ref``."""
+    if _on_cuda(args[2], "reps_tick"):
+        return _ru.reps_tick_cuda(*args)
+    return ref.reps_tick_ref(*args)
+
+
+def queue_tick(target, u, qlen, serve, capacity, kmin, kmax):
+    """One switch tick: serve + enqueue + RED; see ``ref.queue_tick_ref``."""
+    if _on_cuda(target, "queue_tick"):
+        return _qt.queue_tick_cuda(target, u, qlen, serve, capacity, kmin, kmax)
+    return ref.queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=_qt.TILE)
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the four hand-written kernels.
+
+Each ``<name>_ref`` computes exactly what the CUDA kernel behind
+``repro_torch.kernels.<name>`` must produce, and follows the reference's
+oracle in ``repro.kernels.ref``.  They run on the CPU wherever the engine's
+kernel path meets a CPU tensor, and ``chip_smoke.py`` holds each kernel
+against its plain version on the card.  All take an optional leading row
+axis ``B`` like the kernels do.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import reps as reps_core
+
+
+# ---------------------------------------------------------------------------
+def seg_sum_ref(seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """``out[..., f, s] = sum_k vals[..., f, k] * (seg[..., k] == s)`` as a
+    dense one-hot masked reduction; ids outside ``[0, n_segments)`` fall in
+    no bucket.  ``seg (..., K)``, ``vals (..., F, K)`` -> ``(..., F, S)``."""
+    s = torch.arange(n_segments, dtype=seg.dtype, device=seg.device)
+    onehot = seg[..., :, None] == s  # (..., K, S)
+    picked = torch.where(onehot[..., None, :, :], vals[..., :, :, None], 0)
+    return picked.sum(dim=-2, dtype=torch.int32)
+
+
+def seg_rank_ref(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Stable FIFO rank ``#{j < i : seg_j == seg_i}`` by pairwise compare;
+    ids outside ``[0, n_segments)`` rank 0 (as the kernel returns them)."""
+    K = seg.shape[-1]
+    earlier = torch.ones((K, K), dtype=torch.bool, device=seg.device).tril(-1)
+    same = seg[..., None, :] == seg[..., :, None]
+    rank = (same & earlier).sum(dim=-1, dtype=torch.int32)
+    in_range = (seg >= 0) & (seg < n_segments)
+    return torch.where(in_range, rank, 0)
+
+
+# ---------------------------------------------------------------------------
+def reps_tick_ref(
+    buf_ev, buf_valid, head, num_valid, explore, freezing, exit_freeze,
+    n_cached, ack_mask, ack_ev, ack_ecn, timeout_mask, send_mask, rand_ev,
+    now, num_pkts_bdp, freezing_timeout,
+):
+    """Fused tick = on_ack -> on_failure_detection -> choose_ev, through
+    ``repro_torch.core.reps``.  Masks and flags are bool tensors; an event
+    class passed as ``None`` is all-zero, which makes its algorithm a no-op.
+    Returns the new state fields and the chosen EVs, shaped like the
+    inputs."""
+    cfg = reps_core.REPSConfig(
+        buffer_size=buf_ev.shape[-1],
+        evs_size=2**31 - 1,  # rand_ev supplied externally
+        num_pkts_bdp=int(num_pkts_bdp),
+        freezing_timeout=int(freezing_timeout),
+    )
+    shape = head.shape
+    flat = lambda t: t.reshape(-1)
+    state = reps_core.REPSState(
+        buf_ev=buf_ev.reshape(-1, cfg.buffer_size),
+        buf_valid=buf_valid.reshape(-1, cfg.buffer_size),
+        head=flat(head), num_valid=flat(num_valid),
+        explore_counter=flat(explore), is_freezing=flat(freezing),
+        exit_freezing=flat(exit_freeze), n_cached=flat(n_cached),
+    )
+    n = state.head.shape[0]
+    no = torch.zeros((n,), dtype=torch.bool, device=head.device)
+    zi = torch.zeros((n,), dtype=torch.int32, device=head.device)
+    pick = lambda t, z: z if t is None else flat(t)
+    state = reps_core.on_ack(
+        cfg, state, pick(ack_mask, no), pick(ack_ev, zi), pick(ack_ecn, no), now
+    )
+    state = reps_core.on_failure_detection(cfg, state, pick(timeout_mask, no), now)
+    ev, state = reps_core.choose_ev(
+        cfg, state, pick(send_mask, no), rand_ev=pick(rand_ev, zi)
+    )
+    b2 = lambda t: t.reshape(*shape, cfg.buffer_size)
+    b1 = lambda t: t.reshape(shape)
+    return (
+        b2(state.buf_ev), b2(state.buf_valid), b1(state.head),
+        b1(state.num_valid), b1(state.explore_counter), b1(state.is_freezing),
+        b1(state.exit_freezing), b1(state.n_cached), b1(ev),
+    )
+
+
+# ---------------------------------------------------------------------------
+def queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=128):
+    """Serve-then-enqueue with FIFO ranking, tail drop and RED marking, in
+    the reference kernel's ``tile``-sized arrival chunks: each chunk's insert
+    positions are computed against the running occupancy (lengths at tick
+    start, minus service, plus the *accepted* arrivals of earlier chunks), so
+    the chunking decides ``pos`` of rejected arrivals.  ``serve=None`` serves
+    nothing.  Returns ``(new_qlen, accept, mark, pos)``; ``target (..., K)``,
+    ``qlen (..., Q)``."""
+    Q, K = qlen.shape[-1], target.shape[-1]
+    dev = qlen.device
+    run = qlen.to(torch.int32)
+    if serve is not None:
+        run = run - ((qlen > 0) & (serve == 1)).to(torch.int32)
+    qs = torch.arange(Q, dtype=torch.int32, device=dev)
+    # IEEE division by a tensor of the same device: a python-scalar divisor
+    # lets CUDA's div kernel multiply by the reciprocal instead
+    span = torch.full((), float(max(kmax - kmin, 1)), dtype=torch.float32, device=dev)
+    accepts, marks, poss = [], [], []
+    for s in range(0, K, tile):
+        t = target[..., s : s + tile]
+        onehot = (t[..., :, None] == qs).to(torch.int32)  # (..., T, Q)
+        rank = torch.cumsum(onehot, dim=-2, dtype=torch.int32) - onehot
+        base = (run[..., None, :] * onehot).sum(dim=-1, dtype=torch.int32)
+        pos = base + (rank * onehot).sum(dim=-1, dtype=torch.int32)
+        is_real = onehot.sum(dim=-1) > 0
+        accept = is_real & (pos < capacity)
+        ramp = torch.clamp((pos - kmin).to(torch.float32) / span, 0.0, 1.0)
+        marks.append(accept & (u[..., s : s + tile] < ramp))
+        run = run + (onehot * accept[..., None]).sum(dim=-2, dtype=torch.int32)
+        accepts.append(accept)
+        poss.append(pos)
+    return run, torch.cat(accepts, -1), torch.cat(marks, -1), torch.cat(poss, -1)

@@ -1,0 +1,1054 @@
+"""Discrete-time packet-level fat-tree simulator (counterpart of
+``repro.netsim.engine``, dense path).
+
+One tick runs five stages in the reference's order (the order is part of
+the model):
+
+  1. feedback  — ACK/NACK events due now update transport (inflight, rtx),
+                 congestion control and the load balancer;
+  2. RTO       — per-packet timeouts mark retransmits, report timeouts to
+                 the load balancer (REPS freezing) and shrink the window;
+  3. service   — every queue dequeues <= 1 packet (degraded links serve on
+                 even ticks only; failed links blackhole); final-hop dequeues
+                 deliver, dedupe through the receive bitmap, coalesce ACKs;
+  4. arrivals  — packets due now enqueue at their next hop with FIFO
+                 ranking, RED/ECN marking and tail drop;
+  5. injection — each host injects <= 1 packet (round robin over its
+                 eligible connections, window-limited); the load balancer
+                 stamps the EV (REPS Algorithm 2).
+
+Every size, every draw and every rounding is the reference's, so a port
+state equals the JAX state leaf for leaf after every tick.  How the port
+gets there with PyTorch:
+
+  * Sentinels.  jnp's ``.at[...]`` modes ``"fill"`` (gather) and ``"drop"``
+    (scatter) have no torch counterpart.  Gathers clamp the index and select
+    the fill value with ``where``; scatters send dropped lanes to an extra
+    sentinel row or column that is never read: the packet table is
+    ``(PF, NP + 1)``, the bitmaps ``(NC + 1, MSG)``, the queue buffer
+    ``(NQ + 1, QCAP)``, the free list ``(NP + 1,)``.  ``netsim.interop``
+    slices them off when handing a state to numpy.
+  * Duplicate-index scatters.  ``index_put_`` with repeated indices is
+    nondeterministic on CUDA.  Every ``.set`` below writes unique indices
+    (a served packet, an accepted queue slot, one allocation per host, one
+    pick per connection); only the sentinel repeats.  The one scatter-max
+    (bitmap OR) writes the constant ``True``.
+  * Float rounding.  XLA on the CPU contracts the DCTCP update
+    ``(1-g)*alpha + g*ecn`` into one fused multiply-add and flushes
+    subnormal inputs and results to zero, while it rounds the delay-CC
+    ``cwnd - beta*x`` twice; it also turns a division by a constant into a
+    multiplication by the float32 reciprocal (the RED ramp, the delay
+    target).  ``_fma_f32`` and the reciprocals below reproduce exactly
+    that, the same way on the CPU and on the card
+    (tests/test_torch_netsim.py holds each site against the jitted
+    reference).
+  * No host syncs.  Nothing in a tick reads a device value on the host:
+    compaction is ``searchsorted`` over a running count, every shape is
+    static.  The failure windows are host data, so the per-queue fault
+    masks are recomputed on the host and uploaded only when the set of
+    active windows changes.
+  * The random draws depend on the tick, not on the state, so ``run`` makes
+    them for a chunk of ticks at once (``tick_draws``); a tick stepped alone
+    draws for itself and gets the same bits.
+
+Not ported yet: conn-scale mode (``conn_sharding`` / the active set), the
+conn-axis mesh and the flight recorder's events (``emit_events``); each
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import rng
+from repro_torch.core.load_balancers import LoadBalancer
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.netsim.config import INT32_MAX, SimConfig, checked_auto_pkt_slots
+from repro_torch.netsim.topology import Topology
+
+# packet states
+FREE, FLYING, QUEUED, IN_ACK, IN_NACK, LOST_WAIT = 0, 1, 2, 3, 4, 5
+
+BIG = 2**30
+
+# packed packet-table rows: pkt[field, slot], all int32 (bools 0/1)
+PS, PCONN, PEV, PSEQ, PHOP, PCURQ, PSEND, PEVT, PECN, PORPH, PACK = range(11)
+PF = 11
+
+# fused stats vector indices
+(
+    ST_DROPS_CONG, ST_DROPS_FAIL, ST_TIMEOUTS, ST_DELIVERED, ST_ECN,
+    ST_INJECTED, ST_UNPROC, ST_ALLOC_FAIL,
+) = range(8)
+N_STATS = 8
+
+I32 = torch.int32
+F32 = torch.float32
+DRAW_CHUNK = 256  # ticks whose random inputs ``run`` draws in one pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """Static connection table (built by ``repro_torch.netsim.workloads``)."""
+
+    src: np.ndarray  # (NC,) int32 source host
+    dst: np.ndarray  # (NC,) int32 destination host
+    msg_pkts: np.ndarray  # (NC,) int32 message size in packets
+    start: np.ndarray  # (NC,) int32 start tick
+    dep: np.ndarray  # (NC,) int32 index of prerequisite conn or -1
+    name: str = "custom"
+
+    @property
+    def n_conns(self) -> int:
+        return len(self.src)
+
+
+# failure kind codes (FailureSchedule.kind)
+K_DOWN, K_DEGRADED, K_GRAY = 0, 1, 2
+KNOWN_KINDS = {K_DOWN: "down", K_DEGRADED: "degraded", K_GRAY: "gray_loss"}
+GRAY_SCALE = 65536  # gray-loss drop probability is param / GRAY_SCALE
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureSchedule:
+    """Link events: kind 0 = down (blackhole), 1 = degraded to half rate,
+    2 = gray loss (silent per-packet drop with probability ``param /
+    GRAY_SCALE``).  A row is active at tick ``t`` iff ``start <= t < end``.
+    Rows are real windows (``end > start``) or inert pads (all zero); a
+    window's ``end`` is never clipped, which would resurrect the link."""
+
+    queue: np.ndarray  # (F,) int32 queue id
+    start: np.ndarray  # (F,) int32 tick
+    end: np.ndarray  # (F,) int32 tick
+    kind: np.ndarray  # (F,) int32
+    param: np.ndarray | None = None  # (F,) int32 kind parameter
+
+    def __post_init__(self) -> None:
+        if self.param is None:
+            object.__setattr__(self, "param", np.zeros((len(self.queue),), np.int32))
+
+    def __len__(self) -> int:
+        return len(self.queue)
+
+    @staticmethod
+    def none() -> "FailureSchedule":
+        z = np.zeros((0,), np.int32)
+        return FailureSchedule(z, z, z, z, z)
+
+    @staticmethod
+    def concat(*scheds: "FailureSchedule") -> "FailureSchedule":
+        return FailureSchedule(
+            *(np.concatenate([getattr(s, f) for s in scheds]).astype(np.int32)
+              for f in ("queue", "start", "end", "kind", "param"))
+        )
+
+    def pad_to(self, f: int) -> "FailureSchedule":
+        """Append inert rows (start == end == 0) up to ``f`` rows in total."""
+        extra = f - len(self.queue)
+        if extra < 0:
+            raise ValueError(
+                f"cannot pad a {len(self.queue)}-event schedule down to {f} rows; "
+                "drop provably-dead events first (failures.truncate_dead)"
+            )
+        if extra == 0:
+            return self
+        z = np.zeros((extra,), np.int32)
+        return FailureSchedule(
+            *(np.concatenate([getattr(self, f).astype(np.int32), z])
+              for f in ("queue", "start", "end", "kind", "param"))
+        )
+
+    def validate(self, n_queues: int | None = None) -> None:
+        """Raise ``ValueError`` naming the first offending row: neither a
+        real window nor an inert pad, a negative start, an unknown kind, a
+        bad gray-loss parameter or a queue outside the topology."""
+        s, e, q, k, p = (np.asarray(getattr(self, f))
+                         for f in ("start", "end", "queue", "kind", "param"))
+        live = e > s
+        inert = (s == 0) & (e == 0) & (q == 0) & (k == 0) & (p == 0)
+        bad = ~(live | inert)
+        if bad.any():
+            i = int(np.nonzero(bad)[0][0])
+            raise ValueError(
+                "failure rows must be real windows (end > start) or inert "
+                "pads (queue == start == end == kind == param == 0); "
+                f"offending rows {np.nonzero(bad)[0].tolist()} (first: row "
+                f"{i} queue={int(q[i])} start={int(s[i])} end={int(e[i])} "
+                f"kind={int(k[i])}) look like a clipped/truncated schedule, "
+                "which would resurrect the link at the clip boundary"
+            )
+        if (s < 0).any():
+            i = int(np.nonzero(s < 0)[0][0])
+            raise ValueError(
+                f"failure row {i} (queue {int(q[i])}) starts at tick "
+                f"{int(s[i])}: windows cannot start before tick 0"
+            )
+        unknown = live & ~np.isin(k, list(KNOWN_KINDS))
+        if unknown.any():
+            i = int(np.nonzero(unknown)[0][0])
+            raise ValueError(
+                f"failure row {i} (queue {int(q[i])}, [{int(s[i])}, {int(e[i])})) "
+                f"has unknown kind {int(k[i])}; known kinds: "
+                + ", ".join(f"{c}={n}" for c, n in sorted(KNOWN_KINDS.items()))
+            )
+        bad_p = live & (
+            ((k == K_GRAY) & ((p <= 0) | (p > GRAY_SCALE))) | ((k != K_GRAY) & (p != 0))
+        )
+        if bad_p.any():
+            i = int(np.nonzero(bad_p)[0][0])
+            raise ValueError(
+                f"failure row {i} (queue {int(q[i])}, kind {int(k[i])}) has "
+                f"param {int(p[i])}: gray-loss rows need 0 < param <= "
+                f"{GRAY_SCALE}; other kinds take param == 0"
+            )
+        if n_queues is not None:
+            bad_q = live & ((q < 0) | (q >= n_queues))
+            if bad_q.any():
+                i = int(np.nonzero(bad_q)[0][0])
+                raise ValueError(
+                    f"failure row {i} targets queue {int(q[i])}, outside "
+                    f"the topology's [0, {n_queues}) queue range"
+                )
+
+    def merge(
+        self, delta: "FailureSchedule", at_tick: int = 0, n_queues: int | None = None
+    ) -> "FailureSchedule":
+        """Append ``delta``'s live rows to this schedule after checking them:
+        no row may start before ``at_tick``, overlap a down window on the
+        same queue (its end would resurrect the link) or overlap a same-kind
+        window (a double-scheduled event).  Rows of ``self`` are kept as
+        they are, so the result equals the pre-declared composite."""
+        delta.validate(n_queues)
+        self.validate(n_queues)
+        d_s = np.asarray(delta.start, np.int64)
+        d_e = np.asarray(delta.end, np.int64)
+        d_live = d_e > d_s
+        if not np.all(d_s[d_live] >= at_tick):
+            bad = np.nonzero(d_live & (d_s < at_tick))[0].tolist()
+            raise ValueError(
+                f"delta rows {bad} start before tick {at_tick}: events "
+                "cannot be injected into the already-simulated past"
+            )
+        b_q, b_s, b_e, b_k = (np.asarray(getattr(self, f), np.int64)
+                              for f in ("queue", "start", "end", "kind"))
+        b_live = b_e > b_s
+        d_q = np.asarray(delta.queue, np.int64)
+        d_k = np.asarray(delta.kind, np.int64)
+        for i in np.nonzero(d_live)[0]:
+            overlap = b_live & (b_q == d_q[i]) & (b_s < d_e[i]) & (d_s[i] < b_e)
+            if np.any(overlap & (b_k == K_DOWN)):
+                j = np.nonzero(overlap & (b_k == K_DOWN))[0].tolist()
+                raise ValueError(
+                    f"delta row {int(i)} (queue {int(d_q[i])}, "
+                    f"[{int(d_s[i])}, {int(d_e[i])})) overlaps existing "
+                    f"down window(s) {j}: the link is already dead there, "
+                    "and the delta's end tick would resurrect it"
+                )
+            if np.any(overlap & (b_k == d_k[i])):
+                j = np.nonzero(overlap & (b_k == d_k[i]))[0].tolist()
+                raise ValueError(
+                    f"delta row {int(i)} (queue {int(d_q[i])}) overlaps "
+                    f"same-kind window(s) {j}: double-scheduled event"
+                )
+            # accepted rows join the base, so a delta overlapping itself fails too
+            b_q, b_s, b_e, b_k = (np.append(a, v[i]) for a, v in
+                                  ((b_q, d_q), (b_s, d_s), (b_e, d_e), (b_k, d_k)))
+            b_live = np.append(b_live, True)
+        live_delta = FailureSchedule(
+            *(np.asarray(getattr(delta, f), np.int32)[d_live]
+              for f in ("queue", "start", "end", "kind", "param"))
+        )
+        merged = FailureSchedule.concat(self, live_delta)
+        merged.validate(n_queues)
+        return merged
+
+
+@dataclasses.dataclass(frozen=True)
+class SimState:
+    """Per-run dynamic state; field order and dtypes are the reference's.
+
+    Four leaves carry one extra sentinel slot that absorbs dropped scatter
+    lanes and is never read: ``pkt`` is ``(PF, NP + 1)``, ``qbuf`` ``(NQ +
+    1, QCAP)``, ``c_rtx``/``c_rcv`` ``(NC + 1, MSG)`` and ``fl`` ``(NP +
+    1,)``.  ``as_idx``/``as_count`` are the reference's dense-mode
+    placeholders (empty and 0), kept so the two leaf sets match."""
+
+    pkt: torch.Tensor  # (PF, NP + 1) int32 packed packet table
+    qbuf: torch.Tensor  # (NQ + 1, QCAP) int32
+    q_head: torch.Tensor  # (NQ,) int32
+    q_len: torch.Tensor
+    q_served: torch.Tensor  # cumulative serve count per queue
+    c_inflight: torch.Tensor  # (NC,) int32
+    c_next_new: torch.Tensor
+    c_delivered: torch.Tensor
+    c_rx_pending: torch.Tensor
+    c_done: torch.Tensor  # (NC,) bool
+    c_done_tick: torch.Tensor
+    c_rtx_count: torch.Tensor
+    c_rtx: torch.Tensor  # (NC + 1, MSG) bool
+    c_rcv: torch.Tensor  # (NC + 1, MSG) bool
+    c_cwnd: torch.Tensor  # (NC,) float32
+    c_alpha: torch.Tensor  # (NC,) float32
+    h_rr: torch.Tensor  # (NH,) int32
+    lb_state: Any
+    fl: torch.Tensor  # (NP + 1,) int32 free-slot ring
+    fl_head: torch.Tensor  # () int32
+    fl_count: torch.Tensor  # () int32
+    s_stats: torch.Tensor  # (N_STATS,) int32 cumulative stats
+    as_idx: torch.Tensor  # (0,) int32
+    as_count: torch.Tensor  # () int32
+
+    def replace(self, **kw) -> "SimState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def s_drops_cong(self):
+        return self.s_stats[ST_DROPS_CONG]
+
+    @property
+    def s_drops_fail(self):
+        return self.s_stats[ST_DROPS_FAIL]
+
+    @property
+    def s_timeouts(self):
+        return self.s_stats[ST_TIMEOUTS]
+
+    @property
+    def s_delivered(self):
+        return self.s_stats[ST_DELIVERED]
+
+    @property
+    def s_ecn_marks(self):
+        return self.s_stats[ST_ECN]
+
+    @property
+    def s_injected(self):
+        return self.s_stats[ST_INJECTED]
+
+    @property
+    def s_unprocessed(self):
+        return self.s_stats[ST_UNPROC]
+
+    @property
+    def s_alloc_fail(self):
+        return self.s_stats[ST_ALLOC_FAIL]
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+
+
+class TickTrace(NamedTuple):
+    max_qlen: torch.Tensor
+    sum_qlen: torch.Tensor
+    drops: torch.Tensor
+    timeouts: torch.Tensor
+    delivered: torch.Tensor
+    injected: torch.Tensor
+    watch_qlen: torch.Tensor  # (W,)
+    watch_served: torch.Tensor  # (W,) int32 0/1
+
+
+class TickDraws(NamedTuple):
+    """Every random input of a run of ticks, drawn from the tick keys ahead
+    of the ticks (leading axis T)."""
+
+    u_red: torch.Tensor  # (T, MAX_ARR) float32, fold 1
+    u_gray: torch.Tensor | None  # (T, NQ) float32, fold 3 (None: no gray rows)
+    lb: Any  # (T, NC) the LB's fold-2 draw, or None
+    k_ack: torch.Tensor  # (T, R, 2) fold(fold(tick, 4), round)
+    k_timeout: torch.Tensor  # (T, 2) fold 5
+
+    def row(self, i: int) -> "TickDraws":
+        return TickDraws(*(None if x is None else x[i] for x in self))
+
+
+# ---------------------------------------------------------------------------
+# float32 arithmetic as XLA:CPU rounds it
+_TINY = 2.0**-126  # smallest normal float32
+
+
+def _daz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 inputs read as zero (XLA:CPU sets DAZ)."""
+    return torch.where(x.abs() < _TINY, 0.0, x)
+
+
+def _fma_f32(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * x + c`` rounded once, as XLA contracts it into a fused
+    multiply-add, with XLA:CPU's flush of subnormal inputs and results.
+
+    ``a`` is a float32 value, so ``a * x`` is exact in float64 (24 + 24 bits).
+    The float64 sum is rounded to odd (TwoSum gives its error; an inexact
+    sum with an even last bit steps one ulp toward the error), and a
+    float64 rounded to odd rounds to float32 exactly as the exact sum would
+    (53 >= 24 + 2 bits).  A result that is tiny before float32 rounding — at
+    24 bits with unbounded exponent, the x86 rule — is flushed to zero."""
+    x64 = _daz(x).double()
+    c64 = _daz(c).double()
+    p = x64 * a
+    s = p + c64
+    pp = s - c64
+    err = (p - pp) + (c64 - (s - pp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    tiny = (s * 2.0**64).to(F32).abs() < _TINY * 2.0**64
+    return torch.where(tiny, 0.0, s.to(F32))
+
+
+def _f32(v: float) -> float:
+    """The float32 value XLA uses for a python float constant."""
+    return float(np.float32(v))
+
+
+def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of set bits in ascending order, padded with ``len(mask)``
+    (binary search over the running popcount, as the reference)."""
+    cs = torch.cumsum(mask, 0, dtype=I32)
+    targets = torch.arange(1, size + 1, dtype=I32, device=mask.device)
+    return torch.searchsorted(cs, targets, out_int32=True)
+
+
+def _get(vec: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``vec.at[idx].get(mode="fill", fill_value=fill)``."""
+    n = vec.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, vec[idx.clamp(0, n - 1)], fill)
+
+
+class Simulator:
+    """Builds and runs one simulation scenario on one device.
+
+    Static structure (config, topology, connection table, failures, watch
+    list) lives on the instance; the per-run state is a ``SimState`` that
+    ``tick_fn`` maps to the next one without changing its argument.
+    """
+
+    def __init__(
+        self,
+        cfg: SimConfig,
+        workload: Workload,
+        lb: LoadBalancer,
+        failures: FailureSchedule | None = None,
+        watch_queues: np.ndarray | None = None,
+        seed: int = 0,
+        device=None,
+    ):
+        if cfg.conn_sharding:
+            raise NotImplementedError(
+                "conn_sharding (the sparse active set of scale mode) is not ported "
+                "yet; see ROADMAP.md, queue 1 item 12"
+            )
+        self.device = dev = resolve_device(device)
+        self.cfg = cfg
+        self.topo = Topology.build(cfg)
+        self.wl = workload
+        self.lb = lb
+        self.failures = failures or FailureSchedule.none()
+        if cfg.failure_slots:
+            self.failures = self.failures.pad_to(cfg.failure_slots)
+        self.failures.validate(self.topo.n_queues)
+        self.seed = seed
+
+        NC = workload.n_conns
+        msg_max = int(workload.msg_pkts.max()) if NC else 1
+        if msg_max > cfg.max_msg_pkts:
+            raise ValueError(f"message of {msg_max} pkts exceeds max_msg_pkts={cfg.max_msg_pkts}")
+        auto_msg = int(min(cfg.max_msg_pkts, max(int(2 ** np.ceil(np.log2(max(msg_max, 2)))), 2)))
+        if cfg.msg_slots and cfg.msg_slots < auto_msg:
+            raise ValueError(f"msg_slots={cfg.msg_slots} < required bitmap width {auto_msg}")
+        self.MSG = int(cfg.msg_slots) if cfg.msg_slots else auto_msg
+        self.NQ = self.topo.n_queues
+        self.NH = cfg.n_hosts
+        self.NP = checked_auto_pkt_slots(NC, cfg.max_cwnd_pkts, self.NH, pin=cfg.pkt_slots)
+        # MAX_ARR sets the shape of the per-arrival RED draw: kept exactly
+        self.MAX_ARR = self.NQ + self.NH
+        # tight per-tick event bounds (ACKs come only from the NH final-hop
+        # queues; trim NACKs only with trimming) and the free bound
+        self.MAX_EV = self.NH + (self.MAX_ARR if cfg.trimming else 0)
+        self.MAX_FREE = self.MAX_EV + self.NQ + self.MAX_ARR + self.NH
+        widest = max(
+            (cfg.feedback_rounds + 1) * (NC + 1),
+            (NC + 1) * (self.MAX_EV + 1),
+            (self.NQ + 1) * (self.MAX_ARR + 1),
+        )
+        if widest > INT32_MAX:
+            raise ValueError(
+                f"per-tick segment-id space overflows int32: n_conns={NC}, "
+                f"n_queues={self.NQ} -> widest id {widest} > {INT32_MAX}"
+            )
+
+        # host -> local conn table (stable by conn id within each host)
+        src = np.asarray(workload.src, np.int64)
+        counts = np.bincount(src, minlength=self.NH) if NC else np.zeros(self.NH, np.int64)
+        auto_cph = int(max(1, counts.max())) if NC else 1
+        if cfg.conns_per_host and cfg.conns_per_host < auto_cph:
+            raise ValueError(f"conns_per_host={cfg.conns_per_host} < required {auto_cph}")
+        self.CPH = int(cfg.conns_per_host) if cfg.conns_per_host else auto_cph
+        hc = np.full((self.NH, self.CPH), -1, np.int32)
+        if NC:
+            order = np.argsort(src, kind="stable")
+            starts = np.zeros(self.NH, np.int64)
+            starts[1:] = np.cumsum(counts)[:-1]
+            hc[src[order], np.arange(NC) - starts[src[order]]] = order
+
+        t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        self.host_conns = t(hc)
+        self.conn_src = t(workload.src)
+        self.conn_dst = t(workload.dst)
+        self.conn_msg = t(workload.msg_pkts)
+        self.conn_start = t(workload.start)
+        self.conn_dep = t(workload.dep)
+        if watch_queues is None:
+            watch_queues = self.topo.t0_up_queues(0)[: cfg.n_watch_queues]
+        self.watch = t(watch_queues)
+        self._has_gray = bool(np.any(
+            (self.failures.kind == K_GRAY) & (self.failures.end > self.failures.start)
+        ))
+        self._fault_key = None
+        self._faults = None
+
+        # constants reused every tick
+        self._qid = torch.arange(self.NQ, dtype=I32, device=dev)
+        self._hid = torch.arange(self.NH, dtype=I32, device=dev)
+        self._cph = torch.arange(self.CPH, dtype=I32, device=dev)
+        self._ones_nc = torch.ones((NC,), dtype=F32, device=dev)
+        self._hc_safe = self.host_conns.clamp(0, max(NC - 1, 0))
+        self._hc_valid = self.host_conns >= 0
+        self._dep_safe = self.conn_dep.clamp(0, max(NC - 1, 0))
+        self._no_dep = self.conn_dep < 0
+        self._red_rcp = _f32(np.float32(1.0) / np.float32(cfg.kmax - cfg.kmin))
+
+        self.base_key = rng.PRNGKey(seed, device=dev)
+
+    # ------------------------------------------------------------------
+    def _kb(self) -> str:
+        """Resolve ``kernels_backend``: "cuda" (kernel wrappers) or "torch"."""
+        b = self.cfg.kernels_backend
+        if b == "auto":
+            return "cuda" if self.device.type == "cuda" else "torch"
+        return b
+
+    def _ab(self) -> str:
+        b = self.cfg.arrivals_backend
+        if b == "auto":
+            return "cuda" if self.device.type == "cuda" else "torch"
+        return b
+
+    # ------------------------------------------------------------------
+    def init_state(self, key: torch.Tensor | None = None, device=None) -> SimState:
+        dev = self.device if device is None else resolve_device(device)
+        if dev != self.device:
+            raise ValueError(f"this simulator lives on {self.device}, not {dev}")
+        NP, NQ, NC, NH, cfg = self.NP, self.NQ, self.wl.n_conns, self.NH, self.cfg
+        key = self.base_key if key is None else key
+        z = lambda *shape, dtype=I32: torch.zeros(shape, dtype=dtype, device=dev)
+        return SimState(
+            pkt=z(PF, NP + 1),
+            qbuf=z(NQ + 1, cfg.queue_capacity),
+            q_head=z(NQ),
+            q_len=z(NQ),
+            q_served=z(NQ),
+            c_inflight=z(NC),
+            c_next_new=z(NC),
+            c_delivered=z(NC),
+            c_rx_pending=z(NC),
+            c_done=z(NC, dtype=torch.bool),
+            c_done_tick=torch.full((NC,), -1, dtype=I32, device=dev),
+            c_rtx_count=z(NC),
+            c_rtx=z(NC + 1, self.MSG, dtype=torch.bool),
+            c_rcv=z(NC + 1, self.MSG, dtype=torch.bool),
+            c_cwnd=torch.full((NC,), float(cfg.init_cwnd_pkts), dtype=F32, device=dev),
+            c_alpha=z(NC, dtype=F32),
+            h_rr=z(NH),
+            lb_state=self.lb.init_state(NC, rng.fold_in(key, 777)),
+            fl=torch.arange(NP + 1, dtype=I32, device=dev),
+            fl_head=z(),
+            fl_count=torch.full((), NP, dtype=I32, device=dev),
+            s_stats=z(N_STATS),
+            as_idx=z(0),
+            as_count=z(),
+        )
+
+    # ------------------------------------------------------------------
+    def _cc_on_ack(self, cwnd, alpha, mask, ecn, rtt):
+        """Per-ACK CC update (DCTCP variant per §4.1 / MPRDMA), rounded as
+        XLA rounds the reference (see ``_fma_f32``)."""
+        cfg = self.cfg
+        inv = lambda num, x: torch.div(self._ones_nc * num, torch.clamp(x, min=1.0))
+        if cfg.cc == "dctcp":
+            g = cfg.dctcp_g
+            # (1-g)*alpha + g*ecn: one FMA in XLA; g*ecn is exact (ecn is 0/1)
+            new_alpha = _fma_f32(_f32(1 - g), alpha, ecn.to(F32) * _f32(g))
+            alpha = torch.where(mask, new_alpha, alpha)
+            up = cwnd + inv(1.0, cwnd)
+            down = cwnd - alpha * 0.5  # alpha / 2.0 is exact either way
+            cwnd = torch.where(mask, torch.where(ecn, down, up), cwnd)
+        elif cfg.cc == "eqds":
+            up = cwnd + inv(4.0, cwnd)
+            down = cwnd - 0.5
+            cwnd = torch.where(mask, torch.where(ecn, down, up), cwnd)
+            cwnd = torch.clamp(cwnd, max=float(cfg.init_cwnd_pkts))
+        elif cfg.cc == "delay":
+            t = float(cfg.delay_target_ticks)
+            # (rtt - t) / t: XLA multiplies by the float32 reciprocal of t
+            over = (rtt.to(F32) - t) * _f32(np.float32(1.0) / np.float32(t))
+            up = cwnd + inv(1.0, cwnd)
+            # cwnd - beta * clip(over): XLA keeps the multiply and the
+            # subtract apart here (two roundings), unlike the DCTCP add
+            down = cwnd - torch.clamp(over, 0.0, 1.0) * _f32(cfg.delay_beta)
+            cwnd = torch.where(mask, torch.where(over > 0, down, up), cwnd)
+        else:
+            raise ValueError(cfg.cc)
+        return torch.clamp(cwnd, 1.0, float(cfg.max_cwnd_pkts)), alpha
+
+    # ------------------------------------------------------------------
+    def _seg_rank_b(self, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+        """FIFO rank within segment.  The torch formulation ranks every id
+        (like the reference's pairwise rank); the kernel ranks ids outside
+        ``[0, n_segments)`` 0 — the engine never consumes those ranks."""
+        if self._kb() == "cuda":
+            return kernel_ops.seg_rank(seg, n_segments)
+        K = seg.shape[0]
+        earlier = torch.ones((K, K), dtype=torch.bool, device=seg.device).tril(-1)
+        return ((seg[None, :] == seg[:, None]) & earlier).sum(dim=1, dtype=I32)
+
+    def _seg_sum_b(self, seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
+        """Stacked ``(F, K)`` int32 fields segment-summed to ``(F,
+        n_segments)``; ids outside the range drop (into a sentinel column)."""
+        if self._kb() == "cuda":
+            return kernel_ops.seg_sum(seg, vals, n_segments)
+        idx = torch.where((seg >= 0) & (seg < n_segments), seg, n_segments).long()
+        out = torch.zeros((vals.shape[0], n_segments + 1), dtype=I32, device=seg.device)
+        out.scatter_add_(1, idx.expand(vals.shape[0], -1), vals)
+        return out[:, :n_segments]
+
+    # -- (NC + 1, MSG) bitmaps with a sentinel row -----------------------
+    def _bm_get(self, bmap, conns, seqs):
+        """``bmap.at[conns, seqs].get(mode="fill", fill_value=True)``."""
+        NC, MSG = self.wl.n_conns, self.MSG
+        ok = (conns >= 0) & (conns < NC) & (seqs >= 0) & (seqs < MSG)
+        return torch.where(ok, bmap[conns.clamp(0, NC), seqs.clamp(0, MSG - 1)], True)
+
+    def _bm_or(self, bmap, conns, seqs, vals):
+        """``bmap.at[conns, seqs].max(vals, mode="drop")`` in place: only
+        the constant True is written, so repeated indices are harmless."""
+        NC = self.wl.n_conns
+        hit = vals & (conns >= 0) & (conns < NC)
+        bmap[torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = True
+
+    # ------------------------------------------------------------------
+    def _fault_masks(self, now: int):
+        """Per-queue fault masks of the windows active at ``now``: (down,
+        degraded, gray drop parameter or None, adaptive-routing penalty).
+        Computed on the host from the schedule and uploaded only when the
+        active set changes."""
+        f = self.failures
+        act = (now >= f.start) & (now < f.end)
+        key = act.tobytes()
+        if key != self._fault_key:
+            NQ = self.NQ
+
+            def mask(kind):
+                m = np.zeros(NQ, bool)
+                q = f.queue[act & (f.kind == kind)]
+                m[q[(q >= 0) & (q < NQ)]] = True
+                return m
+
+            down, degraded = mask(K_DOWN), mask(K_DEGRADED)
+            gray = np.zeros(NQ, np.int32)
+            g = act & (f.kind == K_GRAY) & (f.queue >= 0) & (f.queue < NQ)
+            np.maximum.at(gray, f.queue[g], f.param[g])
+            t = lambda a: torch.as_tensor(a, device=self.device)
+            self._faults = (
+                t(down) if down.any() else None,
+                t(~degraded) if degraded.any() else None,
+                t(gray) if self._has_gray else None,
+                t(down.astype(np.int32) * (4 * self.cfg.queue_capacity)),
+            )
+            self._fault_key = key
+        return self._faults
+
+    def tick_draws(self, base_key: torch.Tensor, t0: int, n: int) -> TickDraws:
+        """The random inputs of ticks ``[t0, t0 + n)``, drawn in one pass."""
+        ticks = torch.arange(t0, t0 + n, dtype=torch.int64, device=self.device)
+        keys = rng.fold_in(base_key, ticks)  # (n, 2) tick keys
+        k_ack = rng.fold_in(rng.fold_in(keys, 4)[:, None, :], torch.arange(
+            self.cfg.feedback_rounds, device=self.device)[None, :])
+        return TickDraws(
+            u_red=rng.uniform(rng.fold_in(keys, 1), (self.MAX_ARR,)),
+            u_gray=rng.uniform(rng.fold_in(keys, 3), (self.NQ,)) if self._has_gray else None,
+            lb=self.lb.draw(rng.fold_in(keys, 2), self.wl.n_conns),
+            k_ack=k_ack,
+            k_timeout=rng.fold_in(keys, 5),
+        )
+
+    # ------------------------------------------------------------------
+    def tick_fn(self, state: SimState, tick: int, draws: TickDraws | None = None):
+        return self.step_scenario(state, tick, self.base_key, draws)
+
+    def step_scenario(
+        self,
+        state: SimState,
+        tick: int,
+        base_key: torch.Tensor,
+        draws: TickDraws | None = None,
+        emit_events: bool = False,
+        conn_axis: str | None = None,
+    ) -> tuple[SimState, TickTrace]:
+        """One tick: returns the next state and the tick's trace; ``state``
+        is left unchanged.  ``draws`` is this tick's row of ``tick_draws``
+        (drawn here when omitted)."""
+        if emit_events:
+            raise NotImplementedError("tick events (flight recorder) are not ported yet")
+        if conn_axis is not None:
+            raise NotImplementedError("the conn-axis mesh is not ported yet")
+        now = int(tick)
+        if draws is None:
+            draws = self.tick_draws(base_key, now, 1).row(0)
+        cfg, topo = self.cfg, self.topo
+        NP, NQ, NH, NC = self.NP, self.NQ, self.NH, self.wl.n_conns
+        QCAP = cfg.queue_capacity
+        st = state
+
+        pkt = st.pkt.clone()  # every scatter below writes this copy in place
+        c_rtx = st.c_rtx.clone()
+        c_rcv = st.c_rcv.clone()
+        c_inflight, c_rtx_count = st.c_inflight, st.c_rtx_count
+        c_cwnd, c_alpha, lb_state = st.c_cwnd, st.c_alpha, st.lb_state
+        state_at_entry = st.pkt[PS, :NP]
+
+        # =============== 1. feedback (ACK / NACK) =====================
+        p_state = st.pkt[PS, :NP]
+        due = ((p_state == IN_ACK) | (p_state == IN_NACK)) & (st.pkt[PEVT, :NP] == now)
+        e_idx = _compact(due, self.MAX_EV)
+        e_valid = e_idx < NP
+        E = st.pkt[:, e_idx.clamp(max=NP - 1)]  # (PF, MAX_EV) one gather
+        e_conn = torch.where(e_valid, E[PCONN], NC)  # NC = sentinel segment
+        e_is_nack = e_valid & (E[PS] == IN_NACK)
+        e_is_ack = e_valid & ~e_is_nack
+        e_ev = torch.where(e_valid, E[PEV], 0)
+        e_ecn = e_valid & (E[PECN] == 1)
+        e_cnt = torch.where(e_valid, E[PACK], 0)
+        e_seq = torch.where(e_valid, E[PSEQ], 0)
+        e_rtt = torch.where(e_valid, now - E[PSEND], 0)
+
+        # one stacked segment-sum over (ACK round, conn): an ACK's round is
+        # its FIFO rank among same-connection ACKs
+        R_fb = cfg.feedback_rounds
+        ack_seg = torch.where(e_is_ack, e_conn, NC)
+        e_rank = self._seg_rank_b(ack_seg, NC + 1)
+        ridx = torch.clamp(e_rank, max=R_fb) * (NC + 1) + e_conn
+        fields = [
+            torch.where(e_is_nack, 1, e_cnt) if cfg.trimming else e_cnt,  # dec
+            e_is_ack.to(I32),
+            torch.where(e_is_ack, e_ev, 0),
+            (e_ecn & e_is_ack).to(I32),
+            torch.where(e_is_ack, e_rtt, 0),
+        ]
+        if cfg.trimming:
+            already = self._bm_get(c_rcv, e_conn, e_seq)
+            need_rtx = e_is_nack & ~already
+            prev_rtx = self._bm_get(c_rtx, e_conn, e_seq)
+            self._bm_or(c_rtx, e_conn, e_seq, need_rtx)
+            fields += [(need_rtx & ~prev_rtx).to(I32), e_is_nack.to(I32)]
+        tbl = self._seg_sum_b(ridx, torch.stack(fields), (R_fb + 1) * (NC + 1)).reshape(
+            len(fields), R_fb + 1, NC + 1
+        )
+        fb = tbl.sum(dim=1, dtype=I32)  # rank-independent totals per conn
+        c_inflight = c_inflight - fb[0, :NC]
+        if cfg.trimming:
+            c_rtx_count = c_rtx_count + fb[5, :NC]
+            c_cwnd = torch.clamp(c_cwnd - fb[6, :NC].to(F32), 1.0, float(cfg.max_cwnd_pkts))
+
+        # LB + CC: up to feedback_rounds exact rounds of one ACK per conn
+        for r in range(R_fb):
+            conn_mask = tbl[1, r, :NC] > 0
+            conn_ev = tbl[2, r, :NC]
+            conn_ecn = tbl[3, r, :NC] > 0
+            conn_rtt = tbl[4, r, :NC]
+            c_cwnd, c_alpha = self._cc_on_ack(c_cwnd, c_alpha, conn_mask, conn_ecn, conn_rtt)
+            lb_state = self.lb.on_ack(
+                lb_state, conn_mask, conn_ev, conn_ecn, now, draws.k_ack[r]
+            )
+        unprocessed = (e_is_ack & (e_rank >= R_fb)).sum(dtype=I32)
+
+        # =============== 2. RTO ========================================
+        # a packet fires exactly at send + rto and injection admits <= 1 per
+        # host per tick, so <= NH fire per tick: compact to NH rows
+        p_state = torch.where(due, FREE, p_state)
+        p_conn = st.pkt[PCONN, :NP]
+        p_orphan = st.pkt[PORPH, :NP] == 1
+        active_data = (p_state == FLYING) | (p_state == QUEUED) | (p_state == LOST_WAIT)
+        conn_done_of_pkt = st.c_done[p_conn.clamp(0, NC - 1)]
+        rto = (
+            active_data
+            & ~p_orphan
+            & ((now - st.pkt[PSEND, :NP]) >= cfg.rto_ticks)
+            & ~conn_done_of_pkt
+        )
+        r_idx = _compact(rto, NH)
+        timeouts_d = rto.sum(dtype=I32)
+        r_valid = r_idx < NP
+        Rp = st.pkt[:, r_idx.clamp(max=NP - 1)]  # (PF, NH)
+        r_conn = torch.where(r_valid, Rp[PCONN], NC)
+        r_seq = torch.where(r_valid, Rp[PSEQ], 0)
+        rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq)
+        prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq)
+        self._bm_or(c_rtx, r_conn, r_seq, rto_need)
+        rsum_rto = self._seg_sum_b(
+            r_conn, torch.stack([(rto_need & ~prev_rtx_p).to(I32), r_valid.to(I32)]), NC + 1
+        )
+        c_rtx_count = c_rtx_count + rsum_rto[0, :NC]
+        rto_per_conn = rsum_rto[1, :NC]
+        c_inflight = c_inflight - rto_per_conn
+        c_cwnd = torch.clamp(c_cwnd - rto_per_conn.to(F32), 1.0, float(cfg.max_cwnd_pkts))
+        lb_state = self.lb.on_timeout(lb_state, rto_per_conn > 0, now, draws.k_timeout)
+        # orphan in-network packets; free LOST_WAIT ones
+        pkt[PORPH, :NP] = (p_orphan | rto).to(I32)
+        pkt[PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
+
+        # =============== 3. service / dequeue ===========================
+        failed_q, not_degraded, gray_p, q_penalty = self._fault_masks(now)
+        serve = st.q_len > 0
+        if not_degraded is not None and now % 2 == 1:
+            serve = serve & not_degraded  # degraded links serve on even ticks
+        head_pid = st.qbuf[self._qid, st.q_head % QCAP]
+        q_head = torch.where(serve, st.q_head + 1, st.q_head)
+        q_len = torch.where(serve, st.q_len - 1, st.q_len)
+        q_served = st.q_served + serve.to(I32)
+
+        pid = torch.where(serve, head_pid, NP)  # NP = sentinel column
+        # gray-dropped serves take the blackhole path (silent loss) but not
+        # the adaptive-routing penalty: gray loss is invisible to switches
+        lost = failed_q
+        if gray_p is not None:
+            gray_hit = (draws.u_gray * GRAY_SCALE).to(I32) < gray_p
+            lost = gray_hit if lost is None else lost | gray_hit
+        blackhole = serve & lost if lost is not None else torch.zeros_like(serve)
+        is_final = serve & ~blackhole & (self._qid >= topo.t0_down_base)
+        mid = serve & ~blackhole & ~is_final
+
+        D = pkt[:, pid.clamp(max=NP - 1)]  # (PF, NQ) served-packet rows
+        d_orph = serve & (D[PORPH] == 1)
+        drops_fail_d = (blackhole & ~d_orph).sum(dtype=I32)
+
+        # deliveries (<= 1 per connection per tick)
+        dconn = torch.where(is_final, D[PCONN], NC)
+        dseq = torch.where(is_final, D[PSEQ], 0)
+        fin = slice(topo.t0_down_base, NQ)  # only host downlinks deliver
+        was_done = _get(st.c_done, dconn, True)
+        newly = is_final & ~self._bm_get(c_rcv, dconn, dseq)
+        self._bm_or(c_rcv, dconn[fin], dseq[fin], is_final[fin])
+        delivered_d = newly.sum(dtype=I32)
+        deliver_ackable = is_final & ~d_orph & ~was_done
+        msg_of = _get(self.conn_msg, dconn, BIG)
+        # <= 1 delivery per conn per tick: the post-update counters are the
+        # pre-update gathers plus this queue's own contribution
+        del_of = _get(st.c_delivered, dconn, 0) + newly.to(I32)
+        now_done = del_of >= msg_of
+        rxp = _get(st.c_rx_pending, dconn, 0) + deliver_ackable.to(I32)
+        emit = deliver_ackable & ((rxp >= cfg.ack_coalesce) | now_done)
+        first_done = is_final & now_done & ~was_done
+        dsum = self._seg_sum_b(
+            dconn[fin],
+            torch.stack([newly, deliver_ackable, emit, first_done])[:, fin].to(I32),
+            NC + 1,
+        )
+        c_delivered = st.c_delivered + dsum[0, :NC]
+        c_rx_pending = torch.where(dsum[2, :NC] > 0, 0, st.c_rx_pending + dsum[1, :NC])
+        first_done_c = dsum[3, :NC] > 0
+        c_done = st.c_done | first_done_c
+        c_done_tick = torch.where(first_done_c, now, st.c_done_tick)
+
+        # served-packet row rewrite (one scatter): blackhole / mid / final
+        d_state = torch.where(
+            blackhole,
+            torch.where(d_orph, FREE, LOST_WAIT),
+            torch.where(mid, FLYING, torch.where(emit, IN_ACK, FREE)),
+        )
+        d_evt = torch.where(
+            mid, now + cfg.hop_latency_ticks,
+            torch.where(emit, now + cfg.ack_delay_ticks, D[PEVT]),
+        )
+        # D is a gathered copy; each row is rewritten from its own old value
+        D[PS] = d_state
+        D[PEVT] = d_evt
+        D[PHOP] = torch.where(mid, D[PHOP] + 1, D[PHOP])
+        D[PCURQ] = torch.where(mid, self._qid, D[PCURQ])
+        D[PACK] = torch.where(emit, rxp, D[PACK])
+        pkt[:, pid] = D
+
+        # =============== 4. arrivals / enqueue ==========================
+        arr = (pkt[PS, :NP] == FLYING) & (pkt[PEVT, :NP] == now)
+        a_idx = _compact(arr, self.MAX_ARR)
+        a_valid = a_idx < NP
+        A = pkt[:, a_idx.clamp(max=NP - 1)]  # (PF, MAX_ARR)
+        a_conn = torch.where(a_valid, A[PCONN], 0)
+        a_ev = torch.where(a_valid, A[PEV], 0)
+        a_inj = torch.where(a_valid, A[PHOP], 1) == 0
+        a_cur = torch.where(a_valid, A[PCURQ], 0)
+        a_cc = a_conn.clamp(0, NC - 1)
+        # adaptive switches see locally failed ports; hashing LBs ignore q_len
+        q_len_eff = q_len + q_penalty if self.lb.switch_adaptive else q_len
+        target = topo.next_queue(
+            a_inj, a_cur, a_conn, a_ev, self.conn_src[a_cc], self.conn_dst[a_cc],
+            q_len_eff, adaptive=self.lb.switch_adaptive,
+        )
+        target = torch.where(a_valid, target, NQ)
+        u_red = draws.u_red
+
+        if self._ab() == "cuda":
+            # fused enqueue kernel; service already happened, so it serves nothing
+            q_len, k_accept, _, pos = kernel_ops.queue_tick(
+                target, u_red, q_len, None, QCAP, cfg.kmin, cfg.kmax
+            )
+            accept = a_valid & k_accept
+        else:
+            rank = self._seg_rank_b(target, NQ + 1)  # FIFO among same-target arrivals
+            qlen_t = _get(q_len, target, 0)
+            accept = a_valid & (rank < QCAP - qlen_t)
+            pos = qlen_t + rank
+            add = torch.zeros((NQ + 1,), dtype=I32, device=q_len.device)
+            add.index_add_(0, torch.where(accept, target, NQ), accept.to(I32))
+            q_len = q_len + add[:NQ]
+        dropd = a_valid & ~accept
+        # (pos - kmin) / (kmax - kmin): XLA multiplies by the float32 reciprocal
+        mark_p = torch.clamp((pos.to(F32) - cfg.kmin) * self._red_rcp, 0.0, 1.0) * cfg.pmax
+        mark = accept & (u_red < mark_p)
+        ecn_marks_d = mark.sum(dtype=I32)
+        slot = (_get(q_head, target, 0) + pos) % QCAP
+        qbuf = st.qbuf.clone()
+        qbuf[torch.where(accept, target, NQ), slot] = a_idx
+        # congestion drops: trim -> NACK; else silent (await RTO); orphans free
+        a_orph = a_valid & (A[PORPH] == 1)
+        drops_cong_d = (dropd & ~a_orph).sum(dtype=I32)
+        dstate = torch.where(a_orph, FREE, IN_NACK if cfg.trimming else LOST_WAIT)
+        A[PS] = torch.where(accept, QUEUED, dstate)  # A is a gathered copy
+        A[PCURQ] = torch.where(accept, target, A[PCURQ])
+        A[PECN] = A[PECN] | mark.to(I32)
+        if cfg.trimming:
+            A[PEVT] = torch.where(dropd & ~a_orph, now + cfg.nack_delay_ticks, A[PEVT])
+        pkt[:, a_idx] = A
+
+        # =============== 5. injection ===================================
+        started = (now >= self.conn_start) & (self._no_dep | c_done[self._dep_safe])
+        has_work = (c_rtx_count > 0) | (st.c_next_new < self.conn_msg)
+        can = (
+            started
+            & ~c_done
+            & has_work
+            & (c_inflight < torch.floor(c_cwnd).to(I32))
+        )
+        elig = can[self._hc_safe] & self._hc_valid  # (NH, CPH)
+        ordr = (self._cph[None, :] - st.h_rr[:, None]) % self.CPH
+        score = torch.where(elig, ordr, BIG)
+        pick_local = torch.argmin(score, dim=1).to(I32)
+        any_pick = score.min(dim=1).values < BIG
+        # free-slot allocation (ring pop)
+        srank = torch.cumsum(any_pick, 0, dtype=I32) - 1
+        can_alloc = srank < st.fl_count
+        sendh = any_pick & can_alloc
+        alloc_fail_d = (any_pick & ~can_alloc).sum(dtype=I32)
+        n_alloc = sendh.sum(dtype=I32)
+        slot_p = st.fl[(st.fl_head + srank) % NP]
+        fl_head = (st.fl_head + n_alloc) % NP
+        fl_count = st.fl_count - n_alloc
+
+        pick_conn = torch.where(sendh, self.host_conns[self._hid, pick_local], NC)
+        h_rr = torch.where(sendh, (pick_local + 1) % self.CPH, st.h_rr)
+        # seq selection: retransmissions first (first set bit of the row)
+        pick_cc = pick_conn.clamp(0, NC - 1)
+        use_rtx = c_rtx_count[pick_cc] > 0
+        rtx_seq = torch.argmax(c_rtx[pick_cc].to(torch.uint8), dim=1).to(I32)
+        seq = torch.where(use_rtx, rtx_seq, st.c_next_new[pick_cc])
+        c_rtx[torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
+        # each host picks <= 1 conn and a conn lives on one host, so
+        # per-conn injection counts are 0/1
+        isum = self._seg_sum_b(
+            pick_conn, torch.stack([sendh, sendh & use_rtx]).to(I32), NC + 1
+        )
+        send_mask = isum[0, :NC] > 0
+        c_rtx_count = c_rtx_count - isum[1, :NC]
+        c_next_new = st.c_next_new + (isum[0] - isum[1])[:NC]
+        c_inflight = c_inflight + isum[0, :NC]
+        injected_d = n_alloc
+
+        # the load balancer stamps the EV (REPS Algorithm 2)
+        evs, lb_state = self.lb.choose_ev(lb_state, send_mask, draws.lb, now)
+        W = torch.stack([
+            torch.full((NH,), FLYING, dtype=I32, device=self.device),  # PS
+            pick_conn,  # PCONN
+            evs[pick_cc],  # PEV
+            seq,  # PSEQ
+            torch.zeros((NH,), dtype=I32, device=self.device),  # PHOP
+            torch.full((NH,), -1, dtype=I32, device=self.device),  # PCURQ
+            torch.full((NH,), now, dtype=I32, device=self.device),  # PSEND
+            torch.full((NH,), now + cfg.hop_latency_ticks, dtype=I32, device=self.device),
+            torch.zeros((NH,), dtype=I32, device=self.device),  # PECN
+            torch.zeros((NH,), dtype=I32, device=self.device),  # PORPH
+            torch.zeros((NH,), dtype=I32, device=self.device),  # PACK
+        ])
+        pkt[:, torch.where(sendh, slot_p, NP)] = W
+
+        # =============== 6. free-list push ==============================
+        # slots popped this tick are FLYING now, not FREE: no conflict.  The
+        # push writes the contiguous (mod NP) ring segment after the live
+        # entries — the reference's rotate-and-blend writes the same values
+        freed = (pkt[PS, :NP] == FREE) & (state_at_entry != FREE)
+        f_idx = _compact(freed, self.MAX_FREE)
+        f_val = f_idx < NP
+        n_freed = f_val.sum(dtype=I32)
+        frank = torch.cumsum(f_val, 0, dtype=I32) - 1
+        fpos = (fl_head + fl_count + frank) % NP
+        fl = st.fl.clone()
+        fl[torch.where(f_val, fpos, NP)] = f_idx
+        fl_count = fl_count + n_freed
+
+        # =============== 7. fused stats update ==========================
+        s_stats = st.s_stats + torch.stack([
+            drops_cong_d, drops_fail_d, timeouts_d, delivered_d,
+            ecn_marks_d, injected_d, unprocessed, alloc_fail_d,
+        ])
+
+        new_state = SimState(
+            pkt=pkt, qbuf=qbuf, q_head=q_head, q_len=q_len, q_served=q_served,
+            c_inflight=c_inflight, c_next_new=c_next_new, c_delivered=c_delivered,
+            c_rx_pending=c_rx_pending, c_done=c_done, c_done_tick=c_done_tick,
+            c_rtx_count=c_rtx_count, c_rtx=c_rtx, c_rcv=c_rcv, c_cwnd=c_cwnd,
+            c_alpha=c_alpha, h_rr=h_rr, lb_state=lb_state, fl=fl, fl_head=fl_head,
+            fl_count=fl_count, s_stats=s_stats, as_idx=st.as_idx, as_count=st.as_count,
+        )
+        trace = TickTrace(
+            max_qlen=q_len.max(),
+            sum_qlen=q_len.sum(dtype=I32),
+            drops=s_stats[ST_DROPS_CONG] + s_stats[ST_DROPS_FAIL],
+            timeouts=s_stats[ST_TIMEOUTS],
+            delivered=s_stats[ST_DELIVERED],
+            injected=s_stats[ST_INJECTED],
+            watch_qlen=q_len[self.watch],
+            watch_served=serve[self.watch].to(I32),
+        )
+        return new_state, trace
+
+    # ------------------------------------------------------------------
+    def run(self, n_ticks: int, state: SimState | None = None):
+        """Run ``n_ticks`` ticks from ``state`` (a fresh state by default);
+        returns ``(final_state, trace)`` with the ``TickTrace`` fields
+        stacked over ticks.  The random draws are made ``DRAW_CHUNK`` ticks
+        at a time."""
+        if state is None:
+            state = self.init_state()
+        traces = []
+        for t0 in range(0, n_ticks, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, n_ticks - t0)
+            draws = self.tick_draws(self.base_key, t0, n)
+            for i in range(n):
+                state, tr = self.step_scenario(state, t0 + i, self.base_key, draws.row(i))
+                traces.append(tr)
+        if not traces:
+            raise ValueError("run needs n_ticks >= 1")
+        return state, TickTrace(*(torch.stack(f) for f in zip(*traces)))

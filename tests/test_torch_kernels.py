@@ -1,0 +1,144 @@
+"""The plain versions of the port's four kernels against the reference's
+oracles (repro.kernels.ref) and its Pallas kernels in interpret mode, on
+seeded numpy inputs with several tiles, sentinels and saturation — bit for
+bit (tolerance 0).  The CUDA kernels themselves are held against the same
+plain versions by tests/test_torch_cuda.py (marked ``cuda``, skipped without
+a GPU) and by chip_smoke.py."""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import queue_tick as jqt
+from repro.kernels import ref as jref
+from repro.kernels import reps_update as jru
+from repro.kernels import seg_rank as jsr
+from repro.kernels import seg_sum as jss
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)  # the suite's parallel workers share the host's cores
+
+RS = np.random.RandomState
+
+
+def _seg(rs, K, S, sentinel=0.3):
+    seg = rs.randint(0, S, size=K)
+    seg[rs.rand(K) < sentinel] = S  # the engine's sentinel segment
+    seg[rs.rand(K) < 0.03] = S + 5  # further out of range
+    return seg.astype(np.int32)
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("F,K,S", [(5, 128, 387), (2, 300, 129), (4, 128, 17), (1, 1, 1)])
+def test_seg_sum_plain_vs_reference(F, K, S):
+    rs = RS(F * 1000 + K)
+    seg = _seg(rs, K, S)
+    vals = rs.randint(-3, 60, size=(F, K)).astype(np.int32)
+    got = ops.seg_sum(_t(seg), _t(vals), S).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.seg_sum_ref(seg, vals, S)))
+    np.testing.assert_array_equal(got, np.asarray(jss.seg_sum_pallas(seg, vals, S, interpret=True)))
+
+
+def test_seg_sum_plain_row_axis():
+    rs = RS(2)
+    segs = np.stack([_seg(rs, 200, 40) for _ in range(3)])
+    vals = rs.randint(0, 9, size=(3, 4, 200)).astype(np.int32)
+    got = ref.seg_sum_ref(_t(segs), _t(vals), 40)
+    for b in range(3):
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(jref.seg_sum_ref(segs[b], vals[b], 40)))
+
+
+@pytest.mark.parametrize("K,S,n_ids", [(128, 129, 129), (512, 385, 40), (300, 50, 5)])
+def test_seg_rank_plain_vs_reference(K, S, n_ids):
+    rs = RS(K + S)
+    seg = rs.randint(0, n_ids, size=K).astype(np.int32)
+    seg[rs.rand(K) < 0.25] = S
+    seg[rs.rand(K) < 0.03] = S + 9
+    got = ops.seg_rank(_t(seg), S).numpy()
+    # the Pallas kernel ranks out-of-range ids 0, as the plain version does
+    np.testing.assert_array_equal(got, np.asarray(jsr.seg_rank_pallas(seg, S, interpret=True)))
+    # the pairwise oracle ranks every id; compare the in-range lanes
+    inr = seg < S
+    np.testing.assert_array_equal(got[inr], np.asarray(jref.seg_rank_ref(seg, S))[inr])
+    assert (got[~inr] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+def _reps_inputs(rs, N, frozen=0.3):
+    b = lambda p: (rs.rand(N) < p)
+    i = lambda lo, hi: rs.randint(lo, hi, size=N).astype(np.int32)
+    state = [
+        rs.randint(0, 65536, size=(N, 8)).astype(np.int32),
+        rs.rand(N, 8) < 0.5,
+        i(0, 8), i(0, 9), i(0, 3), b(frozen), i(0, 3000), i(0, 3),
+    ]
+    events = [b(0.5), i(0, 65536), b(0.3), b(0.2), b(0.6), i(0, 65536)]
+    return state, events
+
+
+@pytest.mark.parametrize("N", [128, 300])
+def test_reps_tick_plain_vs_reference(N):
+    rs = RS(N)
+    for step in range(3):
+        state, events = _reps_inputs(rs, N)
+        now = int(rs.randint(0, 3000))
+        got = ops.reps_tick(*[_t(a) for a in state + events], now, 32, 800)
+        args = state + events + [now, 32, 800]
+        want = jref.reps_tick_ref(*args)
+        pallas = jru.reps_tick_pallas(*[np.asarray(a, np.int32) if isinstance(a, np.ndarray) else a
+                                        for a in args], interpret=True)
+        for g, w, p in zip(got, want, pallas):
+            g = g.numpy().astype(np.int32)
+            np.testing.assert_array_equal(g, np.asarray(w).astype(np.int32))
+            np.testing.assert_array_equal(g, np.asarray(p))
+
+
+def test_reps_tick_plain_absent_events_are_noops():
+    """An event class passed as None acts as all-zero (the engine passes only
+    the class its stage has)."""
+    rs = RS(5)
+    state, events = _reps_inputs(rs, 64)
+    z = [np.zeros(64, bool), np.zeros(64, np.int32), np.zeros(64, bool),
+         np.zeros(64, bool), np.zeros(64, bool), np.zeros(64, np.int32)]
+    for keep in ([0, 1, 2], [3], [4, 5]):
+        ev_none = [_t(events[k]) if k in keep else None for k in range(6)]
+        ev_zero = [_t(events[k] if k in keep else z[k]) for k in range(6)]
+        a = ops.reps_tick(*[_t(s) for s in state], *ev_none, 2000, 32, 800)
+        b = ops.reps_tick(*[_t(s) for s in state], *ev_zero, 2000, 32, 800)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("K,Q,busy,serve", [(512, 384, 384, False), (512, 384, 12, True),
+                                            (256, 96, 5, True), (300, 60, 7, True)])
+def test_queue_tick_plain_vs_reference(K, Q, busy, serve):
+    rs = RS(K + Q + busy)
+    cap, kmin, kmax = 85, 17, 68
+    tgt = rs.randint(0, busy, size=K).astype(np.int32)
+    tgt[rs.rand(K) < 0.3] = Q  # the engine's padding target
+    qlen = rs.randint(0, cap + 1, size=Q).astype(np.int32)
+    qlen[: max(1, Q // 8)] = cap  # saturated queues
+    u = rs.rand(K).astype(np.float32)
+    sv = (rs.rand(Q) < 0.5) if serve else np.zeros(Q, bool)
+    got = ops.queue_tick(_t(tgt), _t(u), _t(qlen), _t(sv) if serve else None, cap, kmin, kmax)
+    got = [g.numpy() for g in got]
+    want = jref.queue_tick_ref(tgt, u, qlen, sv.astype(np.int32), cap, kmin, kmax, tile=128)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    pallas = jqt.queue_tick_pallas(tgt, u, qlen, sv.astype(np.int32), cap, kmin, kmax,
+                                   interpret=True)
+    for g, p in zip(got, pallas):
+        np.testing.assert_array_equal(g, np.asarray(p))
+    assert got[1].sum() > 0 and (~got[1] & (tgt < Q)).sum() > 0  # accepts and tail drops
+
+
+def test_ops_dispatch_cpu_uses_plain_versions_and_counts_nothing():
+    ops.reset_launch_counts()
+    seg = torch.tensor([0, 1, 1, 3], dtype=torch.int32)
+    ops.seg_sum(seg, torch.ones((2, 4), dtype=torch.int32), 3)
+    ops.seg_rank(seg, 3)
+    assert ops.launch_counts() == {"seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0}
