@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --check-ticks 300   # a shorter pass
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      torch / CUDA versions;
   2. build — compiles ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per source,
      all in parallel) into one library and loads it;
-  3. kernels — each of the four kernels against its plain PyTorch version on
+  3. kernels — each of the five kernels against its plain PyTorch version on
      the card, bit for bit, at the main path's shapes and at edge shapes;
      then each is timed with CUDA events (median of repeated batches)
      beside its plain version and, for ``seg_sum``, ``index_add_``;
@@ -18,16 +18,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      uplinks), a 128-connection permutation of 4096-packet messages and the
      fig06 failure schedule (ToR-0 uplinks 0 and 1 down over ticks
      150-800 and 1200-2400), run for OPS and for REPS (freezing timeout
-     800) with every backend on the kernels; each kernel's launch count
-     must equal its per-tick count times the ticks;
+     800) on the kernels; each kernel's launch count must equal its
+     per-tick count times the ticks.
      A profiled window of 100 REPS ticks then shows where a tick's time
      goes (device busy share, launches per tick, kernel device times);
-  5. card vs CPU — the REPS cell for a shorter horizon (past the first
-     failure and REPS freezing) on the card with the kernels and on the
-     CPU through the plain versions; every ``SimState`` leaf must be equal.
+  5. arena — the LB arena's failure block at full width: FATTREE_128, a
+     permutation of 1024-packet messages and 5 % of the ToR uplinks down
+     from tick 150 on (``benchmarks/arena.py``), for each of the nine zoo
+     load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
+     ECMP background) on fig05's background cohort; exact launch counts
+     per load balancer (the ECMP hash once per tick wherever packets are
+     hashed, none under adaptive RoCE; ``reps_tick`` 4 per tick only where
+     REPS runs);
+  6. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
+     first failure and REPS freezing), then every zoo load balancer on
+     FATTREE_32_CI under a ToR-uplink failure past the RTO, each on the
+     card with the kernels and on the CPU through the plain versions;
+     every ``SimState`` leaf must be equal.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+The line before the last is a JSON object with one entry per kernel
+(``launches`` counts the main path's and the arena's runs); the last line
+is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -47,6 +58,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # must touch (per valid event-field for seg_sum), over the CUDA-core rate.
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak; int32 work counted against it
+# the load balancers of the zoo beyond ECMP / OPS / REPS, in registry order
+ZOO = ("plb", "flowlet", "mptcp", "mprdma", "bitmap", "adaptive_roce", "prime",
+       "seqbalance", "flowlet_table")
 
 
 def log(msg: str) -> None:
@@ -140,6 +154,7 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ecmp_hash as eh_mod
     from repro_torch.kernels import queue_tick as qt_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import reps_update as ru_mod
@@ -294,6 +309,39 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         plain_ms=time_ms(lambda: ref.queue_tick_ref(tgt, u, qlen, None, cap, kmin, kmax)),
         bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err, shape=f"K={K} Q={Q}",
     ))
+    err = 0.0
+
+    # ---- ecmp_hash ---------------------------------------------------------
+    def hash_case(shape, salt_hi=False):
+        flow = rs.randint(-2**31, 2**31, size=shape, dtype=np.int64)
+        ev = rs.randint(0, 65536, size=shape)
+        salt = (2**31 - 1 - rs.randint(0, 9000, size=shape) if salt_hi
+                else rs.randint(0, 64, size=shape))  # 3-tier agg_global + 7919 / ToR ids
+        return i32(flow), i32(ev), i32(salt)
+
+    U = shapes["U"]
+    for shape, nports, salt_hi in [((K,), U, False), ((K,), 1, False), ((K,), 13, True),
+                                   ((1000,), 16, True), ((77,), 13, False),
+                                   ((3, K), U, True), ((2, 300), 1, True)]:
+        args = hash_case(shape, salt_hi)
+        got = eh_mod.ecmp_hash_cuda(*args, nports)
+        want = ref.ecmp_hash_ref(*args, nports)
+        torch.cuda.synchronize()
+        err = max(err, equal_all([got], [want], f"ecmp_hash shape={shape} nports={nports}"))
+    flow, ev, salt = hash_case((K,))
+    out = eh_mod.ecmp_hash_cuda(flow, ev, salt, U)
+    # ~15 integer operations per element: 3 multiplies and 2 xors to combine,
+    # the finalizer's 3 shifts, 3 xors and 2 multiplies, one modulo
+    b, why = bound_ms(nbytes(flow, ev, salt, out), 15 * K)
+    rows.append(dict(
+        name="ecmp_hash", route="cuda", source="src/repro_torch/csrc/ecmp_hash.cu",
+        replaces="src/repro/kernels/ecmp_hash.py:40",
+        ms=time_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, U)),
+        eager_ms=eager_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, U)),
+        plain_ms=time_ms(lambda: ref.ecmp_hash_ref(flow, ev, salt, U)),
+        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
+        shape=f"K={K} nports={U}",
+    ))
     return rows
 
 
@@ -305,7 +353,7 @@ def fig06_cell(lb_name: str, device):
     from repro_torch.core import make_lb
     from repro_torch.netsim import FailureSchedule, Simulator, Topology, failures, workloads
 
-    cfg = FATTREE_128.replace(kernels_backend="cuda", arrivals_backend="cuda")
+    cfg = FATTREE_128
     ups = Topology.build(cfg).t0_up_queues(0)
     fs = FailureSchedule.concat(
         failures.link_down([int(ups[0])], 150, 800),
@@ -314,7 +362,7 @@ def fig06_cell(lb_name: str, device):
     wl = workloads.permutation(cfg.n_hosts, 4096, seed=3)
     kw = dict(evs_size=cfg.evs_size)
     if lb_name == "reps":
-        kw.update(freezing_timeout=800, backend="cuda")
+        kw.update(freezing_timeout=800)
     return Simulator(cfg, wl, make_lb(lb_name, **kw), failures=fs,
                      watch_queues=Topology.build(cfg).t0_up_queues(0), device=device)
 
@@ -341,8 +389,10 @@ def main_path(dev, ticks: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.netsim import summarize
 
-    per_tick = {"ops": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 0},
-                "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 4}}
+    per_tick = {"ops": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 0,
+                        "ecmp_hash": 1},
+                "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 4,
+                         "ecmp_hash": 1}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     for lb in ("ops", "reps"):
         sim = fig06_cell(lb, dev)
@@ -372,7 +422,7 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     """Where a main-path tick's time goes: ``torch.profiler`` over ``ticks``
     ticks of the REPS cell (after ``warm`` ticks): wall time per tick, the
     device's busy share (summed kernel time / wall; one stream, so kernels
-    do not overlap), device launches per tick and the port's four kernels'
+    do not overlap), device launches per tick and the port's five kernels'
     device time per launch inside the real tick."""
     import collections
 
@@ -399,7 +449,8 @@ def profile_window(dev, warm: int, ticks: int) -> None:
         by_name[e.name].append(e.time_range.elapsed_us())
     ours = {}
     for key, tag in (("seg_sum", "seg_sum"), ("seg_rank_kernel", "seg_rank"),
-                     ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick")):
+                     ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick"),
+                     ("ecmp_hash_kernel", "ecmp_hash")):
         durs = [d for n, ds in by_name.items() if key in n for d in ds]
         if durs:
             ours[tag] = (len(durs) / ticks, statistics.median(durs), sum(durs) / ticks)
@@ -415,9 +466,71 @@ def profile_window(dev, warm: int, ticks: int) -> None:
         log(f"profile top: {sum(durs) / ticks:8.2f} us/tick {len(durs) / ticks:5.1f}x  {name[:90]}")
 
 
-def card_vs_cpu(dev, ticks: int) -> None:
+def arena_cells(dev, ticks: int) -> dict:
+    """The arena's failure block at FATTREE_128 for every zoo load balancer
+    beyond ECMP/OPS/REPS, and mixed(REPS + ECMP) on fig05's cohort, each
+    with exact launch counts; returns the launches per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import FATTREE_128
+    from repro_torch.core import REGISTRY, make_lb
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import Simulator, failures, summarize, workloads
+
+    cfg = FATTREE_128
+    fs = failures.random_down_uplinks(cfg, 0.05, 150, failures.FOREVER, seed=7)
+    wl = workloads.permutation(cfg.n_hosts, 1024, seed=3)
+    wl05, bg = workloads.permutation_with_background(cfg.n_hosts, 2048, 0.1, seed=1)
+    bg_conns = tuple(int(i) for i in np.nonzero(bg)[0])
+    cells = [(n, wl, {}) for n in ZOO]
+    cells.append(("mixed", wl05, dict(fg="reps", bg="ecmp", bg_conns=bg_conns)))
+    assert set(ZOO) | {"ecmp", "ops", "reps", "mixed"} == set(REGISTRY), sorted(REGISTRY)
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    for lbn, w, kw in cells:
+        sim = Simulator(cfg, w, make_lb(lbn, evs_size=cfg.evs_size, **kw), failures=fs,
+                        device=dev)
+        state = sim.init_state()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, _ = sim.run(ticks, state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        s = summarize(sim, state)
+        check_invariants(sim, state)
+        log(f"arena failure/{sim.lb.name}: {ticks} ticks in {secs:.3f} s = "
+            f"{ticks / secs:.1f} ticks/s; completed={s.completed}/{s.n_conns} "
+            f"runtime_ticks={s.runtime_ticks} drops_cong={s.drops_cong} "
+            f"drops_fail={s.drops_fail} timeouts={s.timeouts} launches={counts}")
+        want = {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1,
+                # the adaptive router picks the least-loaded port and hashes nothing
+                "ecmp_hash": 0 if sim.lb.switch_adaptive else 1,
+                "reps_tick": 4 if lbn == "mixed" else 0}
+        for k, n in want.items():
+            if counts[k] != n * ticks:
+                raise AssertionError(
+                    f"arena/{lbn}: {k} launched {counts[k]} times, expected {n} x {ticks}")
+            totals[k] += counts[k]
+        # uplinks go down at tick 150: past 150 + RTO a hashing LB must have timed out
+        if ticks > 150 + cfg.rto_ticks and s.timeouts == 0 and not sim.lb.switch_adaptive:
+            raise AssertionError(f"arena/{lbn}: no timeout fired in {ticks} ticks")
+    return totals
+
+
+def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
+    assert gpu.keys() == cpu.keys(), what
+    for k in gpu:
+        a, b = gpu[k], cpu[k]
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            bad = np.argwhere(a != b)[:5].tolist() if a.shape == b.shape else "shape"
+            raise AssertionError(f"{what}: card and CPU differ in SimState leaf {k} at {bad}")
+
+
+def card_vs_cpu(dev, ticks: int) -> None:
     from repro_torch.netsim import sim_state_to_numpy
     from repro_torch.netsim.engine import ST_TIMEOUTS
 
@@ -429,22 +542,49 @@ def card_vs_cpu(dev, ticks: int) -> None:
         finals.append(sim_state_to_numpy(state))
         log(f"card vs CPU: REPS {ticks} ticks on {d} in {time.perf_counter() - t0:.3f} s")
     gpu, cpu = finals
-    assert gpu.keys() == cpu.keys()
-    for k in gpu:
-        a, b = gpu[k], cpu[k]
-        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
-            bad = np.argwhere(a != b)[:5].tolist() if a.shape == b.shape else "shape"
-            raise AssertionError(f"card and CPU differ in SimState leaf {k} at {bad}")
+    same_leaves(gpu, cpu, "fig06/reps")
     froze = int((gpu["lb_state.exit_freezing"] > 0).sum())  # set only on entering freezing
     log(f"card vs CPU: all {len(gpu)} SimState leaves bit-equal after {ticks} ticks "
         f"(timeouts={int(gpu['s_stats'][ST_TIMEOUTS])}, REPS conns that entered freezing={froze})")
 
 
+def zoo_card_vs_cpu(dev, ticks: int) -> None:
+    """Every zoo load balancer (and mixed) on FATTREE_32_CI with 16-packet
+    queues (so ECN reaches every LB's ACK path) and two ToR-0 uplinks down
+    over ticks 30-300, past the 400-tick RTO: card == CPU."""
+    import numpy as np
+
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.core import make_lb
+    from repro_torch.netsim import Simulator, Topology, failures, sim_state_to_numpy, workloads
+    from repro_torch.netsim.engine import ST_ECN, ST_TIMEOUTS
+
+    cfg = FATTREE_32_CI.replace(queue_capacity=16)
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+    wl, bg = workloads.permutation_with_background(32, 48, 0.25, seed=3)
+    bg_conns = tuple(int(i) for i in np.nonzero(bg)[0])
+    for lbn in (*ZOO, "mixed"):
+        kw = dict(fg="reps", bg="ecmp", bg_conns=bg_conns) if lbn == "mixed" else {}
+        finals = []
+        for d in (dev, "cpu"):
+            sim = Simulator(cfg, wl, make_lb(lbn, evs_size=cfg.evs_size, **kw),
+                            failures=failures.link_down(ups, 30, 300), device=d)
+            state, _ = sim.run(ticks)
+            finals.append(sim_state_to_numpy(state))
+        same_leaves(*finals, f"zoo/{lbn}")
+        st = finals[0]["s_stats"]
+        log(f"card vs CPU: {sim.lb.name}: all {len(finals[0])} SimState leaves bit-equal after "
+            f"{ticks} ticks (timeouts={int(st[ST_TIMEOUTS])}, ecn_marks={int(st[ST_ECN])})")
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ticks", type=int, default=8000, help="main-path ticks per cell")
-    ap.add_argument("--check-ticks", type=int, default=1200, help="card-vs-CPU horizon")
+    ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
+    ap.add_argument("--arena-ticks", type=int, default=2000, help="arena ticks per cell")
+    ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
+    ap.add_argument("--zoo-check-ticks", type=int, default=900,
+                    help="card-vs-CPU horizon of each zoo load balancer")
     args = ap.parse_args()
 
     import torch
@@ -473,7 +613,7 @@ def main() -> int:
     cfg = FATTREE_128
     shapes = dict(NC=sim.wl.n_conns, NH=sim.NH, NQ=sim.NQ, R=cfg.feedback_rounds,
                   MAX_EV=sim.MAX_EV, MAX_ARR=sim.MAX_ARR, QCAP=cfg.queue_capacity,
-                  KMIN=cfg.kmin, KMAX=cfg.kmax)
+                  KMIN=cfg.kmin, KMAX=cfg.kmax, U=cfg.uplinks_per_tor)
     log(f"main-path shapes: {shapes} NP={sim.NP}")
     rows = kernel_phase(dev, shapes)
     for r in rows:
@@ -484,7 +624,10 @@ def main() -> int:
 
     totals = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)
+    for k, n in arena_cells(dev, args.arena_ticks).items():
+        totals[k] += n
     card_vs_cpu(dev, args.check_ticks)
+    zoo_card_vs_cpu(dev, args.zoo_check_ticks)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

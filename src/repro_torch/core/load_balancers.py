@@ -1,41 +1,52 @@
-"""The load balancers that carry the paper's claim — ECMP, OPS and REPS —
-behind one interface (counterpart of ``repro.core.load_balancers``).
+"""The load-balancer zoo behind one interface (counterpart of
+``repro.core.load_balancers``): ECMP, OPS and REPS, which carry the paper's
+claim, and the baselines it is measured against (PLB, flowlet, MPTCP,
+MPRDMA, bitmap, adaptive RoCE, Prime, SeqBalance, flowlet table), plus the
+``SwitchLB`` wrapper.  ``MixedLB`` lives in ``repro_torch.netsim.mixed``.
 
 Each load balancer is a static object holding configuration; its mutable
-per-connection state is a tensor or a small dataclass of tensors that the
-engine threads through the tick:
+per-connection state is a tensor or a small dataclass of tensors (or a
+tuple of them) that the engine threads through the tick:
 
     init_state(n_conns, key)                  -> state (on key's device)
-    draw(keys, n_conns)                       -> (T, n_conns) draws or None
+    draw(keys, n_conns)                       -> choose_ev's draws, or None
+    draw_ack(keys, n_conns)                   -> on_ack's draws, or None
+    draw_timeout(keys, n_conns)               -> on_timeout's draws, or None
     choose_ev(state, mask, draw, now)         -> (evs (N,), state)
-    on_ack(state, mask, ev, ecn, now, key)    -> state
-    on_timeout(state, mask, now, key)         -> state
+    on_ack(state, mask, ev, ecn, now, draw)   -> state
+    on_timeout(state, mask, now, draw)        -> state
 
 ``mask`` selects the connections that send / got an ACK / timed out this
 tick.  Keys follow the reference's key-threading contract: the tick key
 folded with 2 for sending, ``fold_in(fold_in(tick_key, 4), round)`` per
 feedback round for ``on_ack`` and 5 for ``on_timeout``.
 
-One change of shape from the reference: there ``choose_ev`` takes the
-fold-2 key and draws from it.  A counter-based draw depends only on the
-key, never on the state, so here the draw is split out: ``draw`` makes it
-for a whole chunk of ticks at once from their fold-2 keys (bit-equal, row
-by row, to what the reference draws tick by tick), and ``choose_ev``
-receives this tick's row.  That keeps the random number generator out of
-the tick's launch count.
+One change of shape from the reference: there each callback takes its key
+and draws from it.  A counter-based draw depends only on the key, never on
+the state, so here every draw is split out: ``draw`` / ``draw_ack`` /
+``draw_timeout`` make it for keys with any leading axes at once (the engine
+passes a chunk of ticks, ``(T, 2)`` or ``(T, R, 2)`` keys; a single ``(2,)``
+key gives one call's draw), bit-equal row by row to what the reference
+draws call by call, and the callback receives one call's row.  That keeps
+the random number generator out of the tick's launch count.
 
-The rest of the reference's zoo (PLB, flowlet, MPTCP, MPRDMA, bitmap,
-adaptive RoCE, Prime, SeqBalance, flowlet table, the switch and mixed
-wrappers) and the flight recorder's ``trace`` port are later slices.
+The flight recorder's ``trace`` port waits for the tracer slice.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.core import reps as reps_core
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.reps_update import BUF as KERNEL_BUF
+
+I32 = torch.int32
+F32 = torch.float32
 
 
 class LoadBalancer:
@@ -49,22 +60,53 @@ class LoadBalancer:
         raise NotImplementedError
 
     def draw(self, keys: torch.Tensor, n_conns: int):
-        """The randomness ``choose_ev`` takes from its fold-2 key, for the
-        ``(T, 2)`` keys of T ticks at once; ``None`` if it draws nothing."""
+        """The randomness ``choose_ev`` takes from its fold-2 key, for keys
+        ``(..., 2)`` at once; ``None`` if it draws nothing."""
+        return None
+
+    def draw_ack(self, keys: torch.Tensor, n_conns: int):
+        """The randomness ``on_ack`` takes from its per-round key."""
+        return None
+
+    def draw_timeout(self, keys: torch.Tensor, n_conns: int):
+        """The randomness ``on_timeout`` takes from its fold-5 key."""
         return None
 
     def choose_ev(self, state, mask, draw, now):
         raise NotImplementedError
 
-    def on_ack(self, state, mask, ev, ecn, now, key):
+    def on_ack(self, state, mask, ev, ecn, now, draw):
         return state
 
-    def on_timeout(self, state, mask, now, key):
+    def on_timeout(self, state, mask, now, draw):
         return state
+
+
+@dataclasses.dataclass(frozen=True)
+class _State:
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 def _rand_evs(keys: torch.Tensor, n: int, evs_size: int) -> torch.Tensor:
     return rng.randint(keys, (n,), 0, evs_size)
+
+
+def _f32(v: float) -> float:
+    """The float32 value of a python float constant, as jnp uses it."""
+    return float(np.float32(v))
+
+
+def _slot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.nn.one_hot(idx, n, dtype=bool)``: an index outside ``[0, n)``
+    gives an all-false row (``torch.nn.functional.one_hot`` would raise)."""
+    return idx[:, None] == torch.arange(n, dtype=idx.dtype, device=idx.device)
+
+
+def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(table, idx[:, None], axis=1)[:, 0]`` for indices the
+    callers keep inside ``[0, table.shape[1])``."""
+    return torch.gather(table, 1, idx[:, None].long())[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +130,7 @@ class OpsLB(LoadBalancer):
 
     def init_state(self, n_conns, key):
         # placeholder state, as in the reference
-        return torch.zeros((n_conns,), dtype=torch.int32, device=key.device)
+        return torch.zeros((n_conns,), dtype=I32, device=key.device)
 
     def draw(self, keys, n_conns):
         return _rand_evs(keys, n_conns, self.evs_size)
@@ -101,20 +143,11 @@ class OpsLB(LoadBalancer):
 # REPS (the paper).  §3
 # ---------------------------------------------------------------------------
 class RepsLB(LoadBalancer):
-    """REPS with a switchable compute backend.
-
-    backend="torch" — the tensor formulation in ``repro_torch.core.reps``;
-    backend="cuda"  — the fused ``reps_tick`` kernel drives Algorithms 1+2
-                      (its wrapper runs the kernel's plain version when the
-                      state lies on the CPU);
-    backend="auto"  — "cuda" when the state is on a CUDA device, else
-                      "torch".
-
-    Both share ``REPSState`` and are bit-identical.  The kernel is compiled
-    for the paper's 8-deep ring: where it would run ("cuda", or "auto" on a
-    CUDA device) another ``buffer_size`` raises rather than stepping REPS on
-    the card without it.
-    """
+    """REPS, stepped through the fused ``reps_tick`` kernel's wrapper: one
+    launch for each of ``on_ack``, ``on_timeout`` and ``choose_ev`` on a
+    CUDA device, the kernel's plain version on the CPU.  The state's device
+    alone decides.  The kernel is compiled for the paper's 8-deep ring, so
+    on a CUDA device another ``buffer_size`` raises."""
 
     name = "reps"
 
@@ -125,7 +158,6 @@ class RepsLB(LoadBalancer):
         num_pkts_bdp: int = 32,
         freezing_timeout: int = 1024,
         enable_freezing: bool = True,
-        backend: str = "auto",
     ):
         super().__init__(evs_size)
         self.cfg = reps_core.REPSConfig(
@@ -135,28 +167,18 @@ class RepsLB(LoadBalancer):
             freezing_timeout=freezing_timeout,
         )
         self.enable_freezing = enable_freezing
-        if backend not in ("auto", "torch", "cuda"):
-            raise ValueError(f"unknown RepsLB backend {backend!r}")
-        self.backend = backend
-        if backend == "cuda":
-            self.uses_kernel(torch.device("cuda"))
 
     def uses_kernel(self, device) -> bool:
         """Whether state on ``device`` steps through the ``reps_tick``
-        kernel's wrapper; raises if it would but the ring is not the
-        kernel's depth."""
-        use = self.backend == "cuda" or (
-            self.backend == "auto" and torch.device(device).type == "cuda"
-        )
-        if use and self.cfg.buffer_size != KERNEL_BUF:
+        kernel (CUDA) rather than its plain version (CPU); raises on CUDA
+        when the ring is not the kernel's depth."""
+        on_card = torch.device(device).type == "cuda"
+        if on_card and self.cfg.buffer_size != KERNEL_BUF:
             raise ValueError(
                 f"the reps_tick kernel is compiled for buffer depth {KERNEL_BUF}, "
                 f"got {self.cfg.buffer_size}"
             )
-        return use
-
-    def _use_kernel(self, state: reps_core.REPSState) -> bool:
-        return self.uses_kernel(state.head.device)
+        return on_card
 
     def init_state(self, n_conns, key):
         self.uses_kernel(key.device)
@@ -165,8 +187,8 @@ class RepsLB(LoadBalancer):
     def draw(self, keys, n_conns):
         return reps_core.draw_evs(self.cfg, keys, n_conns)
 
-    def _kernel_tick(self, state, now, ack_mask=None, ack_ev=None, ack_ecn=None,
-                     timeout_mask=None, send_mask=None, rand_ev=None):
+    def _tick(self, state, now, ack_mask=None, ack_ev=None, ack_ecn=None,
+              timeout_mask=None, send_mask=None, rand_ev=None):
         """One fused Algorithm 1+2 pass; event classes left out are no-ops,
         so each engine stage (feedback / RTO / injection) is one launch."""
         out = kernel_ops.reps_tick(
@@ -178,31 +200,498 @@ class RepsLB(LoadBalancer):
         return reps_core.REPSState(*out[:8]), out[8]
 
     def choose_ev(self, state, mask, draw, now):
-        if self._use_kernel(state):
-            state, evs = self._kernel_tick(state, now, send_mask=mask, rand_ev=draw)
-            return evs, state
-        return reps_core.choose_ev(self.cfg, state, mask, rand_ev=draw)
+        state, evs = self._tick(state, now, send_mask=mask, rand_ev=draw)
+        return evs, state
 
-    def on_ack(self, state, mask, ev, ecn, now, key):
-        if self._use_kernel(state):
-            return self._kernel_tick(state, now, ack_mask=mask, ack_ev=ev, ack_ecn=ecn)[0]
-        return reps_core.on_ack(self.cfg, state, mask, ev, ecn, now)
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        return self._tick(state, now, ack_mask=mask, ack_ev=ev, ack_ecn=ecn)[0]
 
-    def on_timeout(self, state, mask, now, key):
+    def on_timeout(self, state, mask, now, draw):
         if not self.enable_freezing:
             return state
-        if self._use_kernel(state):
-            return self._kernel_tick(state, now, timeout_mask=mask)[0]
-        return reps_core.on_failure_detection(self.cfg, state, mask, now)
+        return self._tick(state, now, timeout_mask=mask)[0]
 
 
-REGISTRY = {cls.name: cls for cls in (EcmpLB, OpsLB, RepsLB)}
+# ---------------------------------------------------------------------------
+# PLB / FlowBender-style: per-connection EV, re-path when an epoch sees a
+# high ECN fraction or on RTO.  Configured aggressively per the paper §4.1.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PlbState(_State):
+    ev: torch.Tensor  # (N,) int32 current EV
+    acks: torch.Tensor  # (N,) int32 ACKs this epoch
+    marked: torch.Tensor  # (N,) int32 ECN-marked ACKs this epoch
+    epoch_end: torch.Tensor  # (N,) int32 tick
+    bad_epochs: torch.Tensor  # (N,) int32 consecutive congested epochs
+
+
+class PlbLB(LoadBalancer):
+    name = "plb"
+
+    def __init__(
+        self,
+        evs_size: int = 65536,
+        epoch_ticks: int = 64,
+        ecn_frac_threshold: float = 0.5,
+        repath_after_epochs: int = 1,  # aggressive (FlowBender-like)
+    ):
+        super().__init__(evs_size)
+        self.epoch_ticks = epoch_ticks
+        self.ecn_frac_threshold = ecn_frac_threshold
+        self.repath_after_epochs = repath_after_epochs
+
+    def init_state(self, n_conns, key):
+        z = lambda: torch.zeros((n_conns,), dtype=I32, device=key.device)
+        return PlbState(
+            ev=_rand_evs(key, n_conns, self.evs_size), acks=z(), marked=z(),
+            epoch_end=torch.full((n_conns,), self.epoch_ticks, dtype=I32, device=key.device),
+            bad_epochs=z(),
+        )
+
+    def draw_ack(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def draw_timeout(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        return state.ev, state
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        # Reset-then-count: an epoch that has already ended is judged on its
+        # own counters before this tick's ACKs count into a fresh one.
+        # ceil(acks * thr) in float32, as the reference (exact below 2**24)
+        epoch_over = now >= state.epoch_end
+        limit = torch.ceil(state.acks.to(F32) * _f32(self.ecn_frac_threshold)).to(I32)
+        frac_bad = state.marked > limit
+        bad_epochs = torch.where(
+            epoch_over,
+            torch.where(frac_bad & (state.acks > 0), state.bad_epochs + 1, 0),
+            state.bad_epochs,
+        )
+        acks = torch.where(epoch_over, 0, state.acks)
+        marked = torch.where(epoch_over, 0, state.marked)
+        epoch_end = torch.where(epoch_over, now + self.epoch_ticks, state.epoch_end)
+        acks = torch.where(mask, acks + 1, acks)
+        marked = torch.where(mask & ecn, marked + 1, marked)
+        repath = bad_epochs >= self.repath_after_epochs
+        return PlbState(
+            ev=torch.where(repath, draw, state.ev), acks=acks, marked=marked,
+            epoch_end=epoch_end, bad_epochs=torch.where(repath, 0, bad_epochs),
+        )
+
+    def on_timeout(self, state, mask, now, draw):
+        return state.replace(ev=torch.where(mask, draw, state.ev))
+
+
+# ---------------------------------------------------------------------------
+# Flowlet switching: new random EV whenever the inter-send gap exceeds the
+# flowlet timeout (paper sets it aggressively to RTT/2).  §4.1
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FlowletState(_State):
+    ev: torch.Tensor  # (N,) int32
+    last_send: torch.Tensor  # (N,) int32 tick of previous send
+
+
+class FlowletLB(LoadBalancer):
+    name = "flowlet"
+
+    def __init__(self, evs_size: int = 65536, gap_ticks: int = 32):
+        super().__init__(evs_size)
+        self.gap_ticks = gap_ticks
+
+    def init_state(self, n_conns, key):
+        return FlowletState(
+            ev=_rand_evs(key, n_conns, self.evs_size),
+            last_send=torch.full((n_conns,), -(10**6), dtype=I32, device=key.device),
+        )
+
+    def draw(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        new_flowlet = mask & ((now - state.last_send) > self.gap_ticks)
+        ev = torch.where(new_flowlet, draw, state.ev)
+        return ev, FlowletState(ev=ev, last_send=torch.where(mask, now, state.last_send))
+
+
+# ---------------------------------------------------------------------------
+# MPTCP-like: K static subflow EVs per connection, packets round-robin over
+# subflows; a timeout re-hashes one subflow.  Coarse model of running K QPs
+# (paper §4.1 uses K=8).  CC remains shared (documented simplification).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MptcpState(_State):
+    sub_evs: torch.Tensor  # (N, K) int32
+    rr: torch.Tensor  # (N,) int32 round-robin cursor
+
+
+class MptcpLB(LoadBalancer):
+    name = "mptcp"
+
+    def __init__(self, evs_size: int = 65536, n_subflows: int = 8):
+        super().__init__(evs_size)
+        self.n_subflows = n_subflows
+
+    def init_state(self, n_conns, key):
+        return MptcpState(
+            sub_evs=rng.randint(key, (n_conns, self.n_subflows), 0, self.evs_size),
+            rr=torch.zeros((n_conns,), dtype=I32, device=key.device),
+        )
+
+    def draw_timeout(self, keys, n_conns):
+        return rng.randint(keys, (n_conns, self.n_subflows), 0, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        ev = _pick(state.sub_evs, state.rr % self.n_subflows)
+        return ev, state.replace(rr=torch.where(mask, state.rr + 1, state.rr))
+
+    def on_timeout(self, state, mask, now, draw):
+        # re-hash the subflow at the cursor for timed-out connections
+        sel = mask[:, None] & _slot(state.rr % self.n_subflows, self.n_subflows)
+        return state.replace(sub_evs=torch.where(sel, draw, state.sub_evs))
+
+
+# ---------------------------------------------------------------------------
+# MPRDMA-like: per-packet spraying that avoids recently ECN-marked EVs via a
+# small ring of "bad" EVs (no caching of good paths — the paper's contrast).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MprdmaState(_State):
+    bad_evs: torch.Tensor  # (N, L) int32 recently marked EVs
+    bad_ptr: torch.Tensor  # (N,) int32
+
+
+class MprdmaLB(LoadBalancer):
+    name = "mprdma"
+
+    def __init__(self, evs_size: int = 65536, blacklist: int = 16):
+        super().__init__(evs_size)
+        self.blacklist = blacklist
+
+    def init_state(self, n_conns, key):
+        return MprdmaState(
+            bad_evs=torch.full((n_conns, self.blacklist), -1, dtype=I32, device=key.device),
+            bad_ptr=torch.zeros((n_conns,), dtype=I32, device=key.device),
+        )
+
+    def draw(self, keys, n_conns):
+        # split(key) -> two candidates per connection: (..., 2, N)
+        return _rand_evs(rng.split(keys), n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        cand1, cand2 = draw[0], draw[1]
+        bad1 = (state.bad_evs == cand1[:, None]).any(dim=1)
+        return torch.where(bad1, cand2, cand1), state  # one resample on a hit
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        add = mask & ecn
+        sel = add[:, None] & _slot(state.bad_ptr % self.blacklist, self.blacklist)
+        return MprdmaState(
+            bad_evs=torch.where(sel, ev[:, None], state.bad_evs),
+            bad_ptr=torch.where(add, state.bad_ptr + 1, state.bad_ptr),
+        )
+
+
+# ---------------------------------------------------------------------------
+# BitMap (STrack-like): 1 bit of congestion state per EV in the whole EVS —
+# the memory-expensive strawman of paper §3.3.  Marked EVs are avoided by
+# resampling up to R candidates.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BitmapState(_State):
+    bad: torch.Tensor  # (N, EVS) bool
+
+
+class BitmapLB(LoadBalancer):
+    name = "bitmap"
+
+    def __init__(self, evs_size: int = 256, resamples: int = 4):
+        super().__init__(evs_size)
+        self.resamples = resamples
+
+    def init_state(self, n_conns, key):
+        return BitmapState(
+            bad=torch.zeros((n_conns, self.evs_size), dtype=torch.bool, device=key.device))
+
+    def draw(self, keys, n_conns):
+        # split(key, R) -> R candidates per connection: (..., R, N)
+        return _rand_evs(rng.split(keys, self.resamples), n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        ev = draw[0]
+        for i in range(1, self.resamples):
+            ev = torch.where(_pick(state.bad, ev), draw[i], ev)
+        return ev, state
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        # bad[i, ev[i]] = ecn[i] where mask[i]: one element per row, so the
+        # scatter's indices are unique; an EV outside the space changes
+        # nothing (the reference's one_hot row is all-false there)
+        E = self.evs_size
+        rows = torch.arange(ev.shape[0], device=ev.device)
+        col = ev.clamp(0, E - 1).long()
+        hit = mask & (ev >= 0) & (ev < E)
+        bad = state.bad.clone()
+        bad[rows, col] = torch.where(hit, ecn, state.bad[rows, col])
+        return BitmapState(bad=bad)
+
+
+# ---------------------------------------------------------------------------
+# PRIME-like: multi-part entropy header.  The EV splits into a per-flow part
+# hashed at connection setup and a sub-entropy field of ``sub_bits`` bits
+# that rotates per packet through a hashed sequence.  An RTO re-hashes the
+# flow part; an ECN-marked ACK skips the rotation forward.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PrimeState(_State):
+    base: torch.Tensor  # (N,) int32 hashed per-flow part of the header
+    ctr: torch.Tensor  # (N,) int32 per-packet rotation counter
+
+
+class PrimeLB(LoadBalancer):
+    name = "prime"
+
+    def __init__(self, evs_size: int = 65536, sub_bits: int = 4):
+        super().__init__(evs_size)
+        if not 0 < (1 << sub_bits) <= evs_size:
+            raise ValueError(f"need 0 < 2**sub_bits <= evs_size, got {sub_bits}, {evs_size}")
+        self.sub_bits = sub_bits
+
+    def init_state(self, n_conns, key):
+        return PrimeState(
+            base=_rand_evs(key, n_conns, self.evs_size),
+            ctr=torch.zeros((n_conns,), dtype=I32, device=key.device),
+        )
+
+    def draw_timeout(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        sub = (kernel_ref.mix32(state.ctr) & ((1 << self.sub_bits) - 1)).to(I32)
+        ev = (state.base + sub) % self.evs_size
+        return ev, state.replace(ctr=torch.where(mask, state.ctr + 1, state.ctr))
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        return state.replace(ctr=torch.where(mask & ecn, state.ctr + 1, state.ctr))
+
+    def on_timeout(self, state, mask, now, draw):
+        return state.replace(base=torch.where(mask, draw, state.base))
+
+
+# ---------------------------------------------------------------------------
+# SeqBalance-like: reorder-free congestion-aware re-pathing.  One EV per
+# connection, re-drawn only at message boundaries (every ``msg_pkts`` sends)
+# when the window since the last boundary saw a high ECN fraction; an RTO
+# re-paths immediately.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SeqBalanceState(_State):
+    ev: torch.Tensor  # (N,) int32 current path
+    sent: torch.Tensor  # (N,) int32 sends since the last boundary
+    acks: torch.Tensor  # (N,) int32 ACKs since the last boundary
+    marked: torch.Tensor  # (N,) int32 ECN-marked ACKs since the last boundary
+
+
+class SeqBalanceLB(LoadBalancer):
+    name = "seqbalance"
+
+    def __init__(self, evs_size: int = 65536, msg_pkts: int = 16,
+                 ecn_frac_threshold: float = 0.25):
+        super().__init__(evs_size)
+        self.msg_pkts = msg_pkts
+        self.ecn_frac_threshold = ecn_frac_threshold
+
+    def init_state(self, n_conns, key):
+        z = torch.zeros((n_conns,), dtype=I32, device=key.device)
+        return SeqBalanceState(ev=_rand_evs(key, n_conns, self.evs_size), sent=z, acks=z, marked=z)
+
+    def draw(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def draw_timeout(self, keys, n_conns):
+        return _rand_evs(keys, n_conns, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        boundary = mask & (state.sent >= self.msg_pkts)
+        # float32 compare, as the reference (exact below 2**24)
+        congested = state.marked.to(F32) > state.acks.to(F32) * _f32(self.ecn_frac_threshold)
+        ev = torch.where(boundary & congested, draw, state.ev)
+        return ev, SeqBalanceState(
+            ev=ev,
+            sent=torch.where(mask, torch.where(boundary, 1, state.sent + 1), state.sent),
+            acks=torch.where(boundary, 0, state.acks),
+            marked=torch.where(boundary, 0, state.marked),
+        )
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        return state.replace(
+            acks=torch.where(mask, state.acks + 1, state.acks),
+            marked=torch.where(mask & ecn, state.marked + 1, state.marked),
+        )
+
+    def on_timeout(self, state, mask, now, draw):
+        return state.replace(
+            ev=torch.where(mask, draw, state.ev),
+            acks=torch.where(mask, 0, state.acks),
+            marked=torch.where(mask, 0, state.marked),
+        )
+
+
+# ---------------------------------------------------------------------------
+# CONGA-style flowlet table: a small per-connection table of candidate EVs
+# with a cached congestion score fed by ECN marks (integer EWMA).  A flowlet
+# gap switches to the least-congested candidate; an RTO re-hashes the
+# active candidate and clears its score.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FlowletTableState(_State):
+    cand: torch.Tensor  # (N, T) int32 candidate EVs
+    score: torch.Tensor  # (N, T) int32 cached congestion score
+    cur: torch.Tensor  # (N,) int32 active candidate index
+    last_send: torch.Tensor  # (N,) int32 tick of previous send
+
+
+class FlowletTableLB(LoadBalancer):
+    name = "flowlet_table"
+    SCORE_MARK = 64  # score bump per ECN-marked ACK (decay is 1/4 per ACK)
+
+    def __init__(self, evs_size: int = 65536, table: int = 4, gap_ticks: int = 32):
+        super().__init__(evs_size)
+        self.table = table
+        self.gap_ticks = gap_ticks
+
+    def init_state(self, n_conns, key):
+        dev = key.device
+        return FlowletTableState(
+            cand=rng.randint(key, (n_conns, self.table), 0, self.evs_size),
+            score=torch.zeros((n_conns, self.table), dtype=I32, device=dev),
+            cur=torch.zeros((n_conns,), dtype=I32, device=dev),
+            last_send=torch.full((n_conns,), -(10**6), dtype=I32, device=dev),
+        )
+
+    def draw_timeout(self, keys, n_conns):
+        return rng.randint(keys, (n_conns, self.table), 0, self.evs_size)
+
+    def choose_ev(self, state, mask, draw, now):
+        new_flowlet = mask & ((now - state.last_send) > self.gap_ticks)
+        best = torch.argmin(state.score, dim=1).to(I32)  # first minimum, as jnp
+        cur = torch.where(new_flowlet, best, state.cur)
+        return _pick(state.cand, cur), state.replace(
+            cur=cur, last_send=torch.where(mask, now, state.last_send))
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        hit = mask[:, None] & (state.cand == ev[:, None])
+        decayed = state.score - state.score // 4 + (ecn.to(I32) * self.SCORE_MARK)[:, None]
+        return state.replace(score=torch.where(hit, decayed, state.score))
+
+    def on_timeout(self, state, mask, now, draw):
+        sel = mask[:, None] & _slot(state.cur, self.table)
+        return state.replace(
+            cand=torch.where(sel, draw, state.cand),
+            score=torch.where(sel, 0, state.score),
+        )
+
+
+# ---------------------------------------------------------------------------
+# SwitchLB: N variants behind one branch index.  The reference dispatches
+# with lax.switch on a traced index so that scenarios differing only in
+# their LB share one compilation.  The port runs one scenario at a time, so
+# the branch is a host int fixed at construction and every call goes
+# straight to the active variant (no device-to-host read per tick).  The
+# state keeps the reference's layout, (branch index, tuple of every
+# variant's state), so interop maps it leaf for leaf; each call rewrites
+# only the active variant's slot with the draws it would see serially.
+# ---------------------------------------------------------------------------
+class SwitchLB(LoadBalancer):
+    name = "switch"
+
+    def __init__(self, variants, branch: int = 0):
+        variants = tuple(variants)
+        if not variants:
+            raise ValueError("need at least one variant")
+        flags = {v.switch_adaptive for v in variants}
+        if len(flags) != 1:
+            raise ValueError(
+                "SwitchLB variants must agree on switch_adaptive (in-network "
+                "adaptive LBs change the routing function, a static property); "
+                "bucket them separately"
+            )
+        sizes = {int(v.evs_size) for v in variants}
+        if len(sizes) != 1:
+            raise ValueError(
+                "SwitchLB variants must share one evs_size (every branch "
+                "samples the same entropy space; a smaller variant would "
+                "silently draw out-of-range EVs): got "
+                + ", ".join(f"{v.name}={v.evs_size}" for v in variants)
+                + ".  Pass evs_size explicitly to each variant — note "
+                "BitmapLB defaults to 256 while the rest of the zoo "
+                "defaults to 65536."
+            )
+        if not 0 <= branch < len(variants):
+            raise ValueError(f"branch {branch} is outside [0, {len(variants)})")
+        super().__init__(sizes.pop())
+        self.variants = variants
+        self.branch = int(branch)
+        self.active = variants[self.branch]
+        self.switch_adaptive = flags.pop()
+        self.name = "switch(" + "+".join(v.name for v in variants) + ")"
+
+    def _with(self, state, new_slot):
+        bidx, states = state
+        i = self.branch
+        return (bidx, states[:i] + (new_slot,) + states[i + 1:])
+
+    def init_state(self, n_conns, key):
+        # every variant is seeded with the same key it would get serially
+        return (
+            torch.tensor(self.branch, dtype=I32, device=key.device),
+            tuple(v.init_state(n_conns, key) for v in self.variants),
+        )
+
+    def draw(self, keys, n_conns):
+        return self.active.draw(keys, n_conns)
+
+    def draw_ack(self, keys, n_conns):
+        return self.active.draw_ack(keys, n_conns)
+
+    def draw_timeout(self, keys, n_conns):
+        return self.active.draw_timeout(keys, n_conns)
+
+    def choose_ev(self, state, mask, draw, now):
+        evs, slot = self.active.choose_ev(state[1][self.branch], mask, draw, now)
+        return evs, self._with(state, slot)
+
+    def on_ack(self, state, mask, ev, ecn, now, draw):
+        return self._with(state, self.active.on_ack(state[1][self.branch], mask, ev, ecn, now, draw))
+
+    def on_timeout(self, state, mask, now, draw):
+        return self._with(state, self.active.on_timeout(state[1][self.branch], mask, now, draw))
+
+
+# ---------------------------------------------------------------------------
+# Adaptive RoCE (NVIDIA Spectrum-X style): in-network per-packet adaptive
+# routing — switches pick the least-loaded valid uplink.  The sender sprays
+# (EV is ignored by adaptive switches, so the router launches no hash).
+# ---------------------------------------------------------------------------
+class AdaptiveRoceLB(OpsLB):
+    name = "adaptive_roce"
+    switch_adaptive = True
+
+
+REGISTRY = {
+    cls.name: cls
+    for cls in (
+        EcmpLB, OpsLB, RepsLB, PlbLB, FlowletLB, MptcpLB, MprdmaLB, BitmapLB,
+        AdaptiveRoceLB, PrimeLB, SeqBalanceLB, FlowletTableLB,
+    )
+}
 
 
 def make_lb(name: str, **kwargs) -> LoadBalancer:
+    """Build a registered load balancer (``"mixed"`` registers when
+    ``repro_torch.netsim`` is imported, as in the reference)."""
     if name not in REGISTRY:
-        raise ValueError(
-            f"load balancer {name!r} is not ported yet (ported: {sorted(REGISTRY)}); "
-            "see ROADMAP.md, queue 1 item 7, for the rest of the zoo"
-        )
+        raise ValueError(f"unknown load balancer {name!r}; registered: {list(REGISTRY)}")
     return REGISTRY[name](**kwargs)

@@ -108,6 +108,7 @@ _SIGNATURES = {
     "repro_seg_rank": [_P, _P, _P, _I, _I, _I, _P],
     "repro_reps_tick": [_P] * 14 + [_I, _I, _I, _L] + [_P] * 9 + [_P],
     "repro_queue_tick": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "repro_ecmp_hash": [_P, _P, _P, _P, _L, _I, _P],
 }
 
 

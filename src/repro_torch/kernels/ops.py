@@ -1,4 +1,4 @@
-"""Dispatch of the four kernels by the device of their tensors.
+"""Dispatch of the five kernels by the device of their tensors.
 
 A CPU tensor goes to the kernel's plain version in ``ref`` — that is the
 only reason the plain version runs.  A CUDA tensor goes to the hand-written
@@ -11,13 +11,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ecmp_hash as _eh
 from repro_torch.kernels import queue_tick as _qt
 from repro_torch.kernels import ref
 from repro_torch.kernels import reps_update as _ru
 from repro_torch.kernels import seg_rank as _sr
 from repro_torch.kernels import seg_sum as _ss
 
-KERNEL_MODULES = {"seg_sum": _ss, "seg_rank": _sr, "reps_tick": _ru, "queue_tick": _qt}
+KERNEL_MODULES = {
+    "seg_sum": _ss, "seg_rank": _sr, "reps_tick": _ru, "queue_tick": _qt, "ecmp_hash": _eh,
+}
 
 
 def _on_cuda(t: torch.Tensor, kernel: str) -> bool:
@@ -56,6 +59,14 @@ def queue_tick(target, u, qlen, serve, capacity, kmin, kmax):
     if _on_cuda(target, "queue_tick"):
         return _qt.queue_tick_cuda(target, u, qlen, serve, capacity, kmin, kmax)
     return ref.queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=_qt.TILE)
+
+
+def ecmp_hash(flow, ev, salt, nports: int) -> torch.Tensor:
+    """``(K,)`` int32 (flow, EV, salt) -> the ECMP port in ``[0, nports)``;
+    optional leading row axis; see ``ref.ecmp_hash_ref``."""
+    if _on_cuda(flow, "ecmp_hash"):
+        return _eh.ecmp_hash_cuda(flow, ev, salt, nports)
+    return ref.ecmp_hash_ref(flow, ev, salt, nports)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written kernels.
+"""Plain PyTorch versions of the five hand-written kernels.
 
 Each ``<name>_ref`` computes exactly what the CUDA kernel behind
 ``repro_torch.kernels.<name>`` must produce, and follows the reference's
@@ -12,6 +12,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import reps as reps_core
+from repro_torch.kernels.ecmp_hash import check_nports
+from repro_torch.rng import M32, _mulmod32
+
+
+# ---------------------------------------------------------------------------
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3-style 32-bit finalizer; uint32 words in int64 lanes (see
+    ``repro_torch.rng`` for why), bit-equal to the reference's uint32."""
+    x = x.to(torch.int64) & M32
+    x = x ^ (x >> 16)
+    x = _mulmod32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mulmod32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def ecmp_hash_ref(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
+                  nports: int) -> torch.Tensor:
+    """Port in ``[0, nports)`` for each (flow, EV, salt), as int32:
+    ``mix32(flow*0x9E3779B1 ^ ev*0x85EBCA77 ^ salt*0xC2B2AE3D) % nports``
+    in wrapping uint32 arithmetic.  Any shape; the three inputs broadcast."""
+    nports = check_nports(nports)
+    u = lambda t: t.to(torch.int64) & M32
+    h = mix32(
+        _mulmod32(u(flow), 0x9E3779B1)
+        ^ _mulmod32(u(ev), 0x85EBCA77)
+        ^ _mulmod32(u(salt), 0xC2B2AE3D)
+    )
+    return (h % nports).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ from repro_torch.netsim.engine import (
 )
 from repro_torch.netsim.interop import sim_state_from_numpy, sim_state_to_numpy
 from repro_torch.netsim.metrics import RunSummary, summarize
+from repro_torch.netsim.mixed import MixedLB
 from repro_torch.netsim.topology import Topology, ecmp_hash, ecmp_hash_np, mix32
 
 __all__ = [
@@ -12,6 +13,6 @@ __all__ = [
     "TICK_NS", "SimConfig", "ns_to_ticks", "us_to_ticks",
     "FailureSchedule", "SimState", "Simulator", "TickDraws", "TickTrace", "Workload",
     "sim_state_from_numpy", "sim_state_to_numpy",
-    "RunSummary", "summarize",
+    "RunSummary", "summarize", "MixedLB",
     "Topology", "ecmp_hash", "ecmp_hash_np", "mix32",
 ]

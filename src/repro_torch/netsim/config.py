@@ -8,11 +8,11 @@ helpers convert from the paper's physical constants (§4.1: 4 KiB MTU,
 
 The port keeps every field and default of the reference so that one
 configuration means one scenario in both packages.  The two backend
-fields take ``"auto" | "torch" | "cuda"``: ``"torch"`` runs the engine's
-plain tensor formulation, ``"cuda"`` the hand-written kernels of
-``repro_torch.kernels`` (whose wrappers run the kernel's plain version on a
-CPU tensor), and ``"auto"`` picks ``"cuda"`` when the simulation lives on a
-CUDA device and ``"torch"`` otherwise.
+fields, ``arrivals_backend`` and ``kernels_backend``, accept only
+``"auto"``: the device alone picks the path.  A simulation on a CUDA
+device runs the hand-written kernels of ``repro_torch.kernels``, one on the
+CPU their plain versions (``kernels/ref.py``); no value sends a simulation
+on the card through a plain version.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import math
 
 TICK_NS = 81.92  # 4 KiB at 400 Gb/s
 INT32_MAX = 2**31 - 1
-BACKENDS = ("auto", "torch", "cuda")
+BACKENDS = ("auto",)
 
 
 def ns_to_ticks(ns: float) -> int:
@@ -107,18 +107,17 @@ class SimConfig:
     failure_slots: int = 0
     feedback_rounds: int = 2  # exact per-conn events applied per tick
     n_watch_queues: int = 16  # queues traced per tick for micro figures
-    # arrivals enqueue: "torch" (segment rank in the tick body), "cuda"
-    # (the fused queue_tick kernel) or "auto"
+    # kept for parity with the reference's fields; "auto" only (the device
+    # picks kernels or plain versions, see the module docstring)
     arrivals_backend: str = "auto"
-    # segment-rank / segment-sum primitives of the tick: "torch", "cuda"
-    # (the seg_rank / seg_sum kernels) or "auto"
     kernels_backend: str = "auto"
 
     def __post_init__(self):
         for name in ("arrivals_backend", "kernels_backend"):
             if getattr(self, name) not in BACKENDS:
                 raise ValueError(
-                    f"unknown {name} {getattr(self, name)!r}; expected one of {BACKENDS}"
+                    f"{name}={getattr(self, name)!r}: the port accepts only 'auto'; "
+                    "the device picks the path (kernels on CUDA, plain versions on the CPU)"
                 )
 
     # derived topology -----------------------------------------------------

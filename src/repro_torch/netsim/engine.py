@@ -48,8 +48,13 @@ gets there with PyTorch:
     masks are recomputed on the host and uploaded only when the set of
     active windows changes.
   * The random draws depend on the tick, not on the state, so ``run`` makes
-    them for a chunk of ticks at once (``tick_draws``); a tick stepped alone
-    draws for itself and gets the same bits.
+    them for a chunk of ticks at once (``tick_draws``), the load balancer's
+    ``choose_ev`` / ``on_ack`` / ``on_timeout`` draws included; a tick
+    stepped alone draws for itself and gets the same bits.
+  * Kernels.  The segment sums and ranks, the arrivals enqueue, the ECMP
+    hash and REPS's update go through ``repro_torch.kernels.ops``: on a
+    CUDA device the hand-written kernel runs, on the CPU its plain version
+    in ``kernels/ref.py``.  Nothing else chooses between the two.
 
 Not ported yet: conn-scale mode (``conn_sharding`` / the active set), the
 conn-axis mesh and the flight recorder's events (``emit_events``); each
@@ -352,18 +357,30 @@ class TickTrace(NamedTuple):
     watch_served: torch.Tensor  # (W,) int32 0/1
 
 
+def tree_index(x, i: int):
+    """Index ``i`` on the leading axis of every tensor of a draw (a tensor,
+    a tuple of draws, or ``None``)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(tree_index(v, i) for v in x)
+    return x[i]
+
+
 class TickDraws(NamedTuple):
     """Every random input of a run of ticks, drawn from the tick keys ahead
-    of the ticks (leading axis T)."""
+    of the ticks (leading axis T).  The load balancer's draws are whatever
+    its ``draw`` / ``draw_ack`` / ``draw_timeout`` return (``None`` when it
+    draws nothing there)."""
 
     u_red: torch.Tensor  # (T, MAX_ARR) float32, fold 1
     u_gray: torch.Tensor | None  # (T, NQ) float32, fold 3 (None: no gray rows)
-    lb: Any  # (T, NC) the LB's fold-2 draw, or None
-    k_ack: torch.Tensor  # (T, R, 2) fold(fold(tick, 4), round)
-    k_timeout: torch.Tensor  # (T, 2) fold 5
+    lb: Any  # (T, ...) choose_ev's draw from fold 2
+    lb_ack: Any  # (T, R, ...) on_ack's draw per round from fold(fold(tick, 4), round)
+    lb_timeout: Any  # (T, ...) on_timeout's draw from fold 5
 
     def row(self, i: int) -> "TickDraws":
-        return TickDraws(*(None if x is None else x[i] for x in self))
+        return TickDraws(*(tree_index(x, i) for x in self))
 
 
 # ---------------------------------------------------------------------------
@@ -525,20 +542,6 @@ class Simulator:
         self.base_key = rng.PRNGKey(seed, device=dev)
 
     # ------------------------------------------------------------------
-    def _kb(self) -> str:
-        """Resolve ``kernels_backend``: "cuda" (kernel wrappers) or "torch"."""
-        b = self.cfg.kernels_backend
-        if b == "auto":
-            return "cuda" if self.device.type == "cuda" else "torch"
-        return b
-
-    def _ab(self) -> str:
-        b = self.cfg.arrivals_backend
-        if b == "auto":
-            return "cuda" if self.device.type == "cuda" else "torch"
-        return b
-
-    # ------------------------------------------------------------------
     def init_state(self, key: torch.Tensor | None = None, device=None) -> SimState:
         dev = self.device if device is None else resolve_device(device)
         if dev != self.device:
@@ -605,27 +608,6 @@ class Simulator:
             raise ValueError(cfg.cc)
         return torch.clamp(cwnd, 1.0, float(cfg.max_cwnd_pkts)), alpha
 
-    # ------------------------------------------------------------------
-    def _seg_rank_b(self, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
-        """FIFO rank within segment.  The torch formulation ranks every id
-        (like the reference's pairwise rank); the kernel ranks ids outside
-        ``[0, n_segments)`` 0 — the engine never consumes those ranks."""
-        if self._kb() == "cuda":
-            return kernel_ops.seg_rank(seg, n_segments)
-        K = seg.shape[0]
-        earlier = torch.ones((K, K), dtype=torch.bool, device=seg.device).tril(-1)
-        return ((seg[None, :] == seg[:, None]) & earlier).sum(dim=1, dtype=I32)
-
-    def _seg_sum_b(self, seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
-        """Stacked ``(F, K)`` int32 fields segment-summed to ``(F,
-        n_segments)``; ids outside the range drop (into a sentinel column)."""
-        if self._kb() == "cuda":
-            return kernel_ops.seg_sum(seg, vals, n_segments)
-        idx = torch.where((seg >= 0) & (seg < n_segments), seg, n_segments).long()
-        out = torch.zeros((vals.shape[0], n_segments + 1), dtype=I32, device=seg.device)
-        out.scatter_add_(1, idx.expand(vals.shape[0], -1), vals)
-        return out[:, :n_segments]
-
     # -- (NC + 1, MSG) bitmaps with a sentinel row -----------------------
     def _bm_get(self, bmap, conns, seqs):
         """``bmap.at[conns, seqs].get(mode="fill", fill_value=True)``."""
@@ -678,12 +660,13 @@ class Simulator:
         keys = rng.fold_in(base_key, ticks)  # (n, 2) tick keys
         k_ack = rng.fold_in(rng.fold_in(keys, 4)[:, None, :], torch.arange(
             self.cfg.feedback_rounds, device=self.device)[None, :])
+        NC = self.wl.n_conns
         return TickDraws(
             u_red=rng.uniform(rng.fold_in(keys, 1), (self.MAX_ARR,)),
             u_gray=rng.uniform(rng.fold_in(keys, 3), (self.NQ,)) if self._has_gray else None,
-            lb=self.lb.draw(rng.fold_in(keys, 2), self.wl.n_conns),
-            k_ack=k_ack,
-            k_timeout=rng.fold_in(keys, 5),
+            lb=self.lb.draw(rng.fold_in(keys, 2), NC),
+            lb_ack=self.lb.draw_ack(k_ack, NC),
+            lb_timeout=self.lb.draw_timeout(rng.fold_in(keys, 5), NC),
         )
 
     # ------------------------------------------------------------------
@@ -740,7 +723,7 @@ class Simulator:
         # its FIFO rank among same-connection ACKs
         R_fb = cfg.feedback_rounds
         ack_seg = torch.where(e_is_ack, e_conn, NC)
-        e_rank = self._seg_rank_b(ack_seg, NC + 1)
+        e_rank = kernel_ops.seg_rank(ack_seg, NC + 1)
         ridx = torch.clamp(e_rank, max=R_fb) * (NC + 1) + e_conn
         fields = [
             torch.where(e_is_nack, 1, e_cnt) if cfg.trimming else e_cnt,  # dec
@@ -755,7 +738,7 @@ class Simulator:
             prev_rtx = self._bm_get(c_rtx, e_conn, e_seq)
             self._bm_or(c_rtx, e_conn, e_seq, need_rtx)
             fields += [(need_rtx & ~prev_rtx).to(I32), e_is_nack.to(I32)]
-        tbl = self._seg_sum_b(ridx, torch.stack(fields), (R_fb + 1) * (NC + 1)).reshape(
+        tbl = kernel_ops.seg_sum(ridx, torch.stack(fields), (R_fb + 1) * (NC + 1)).reshape(
             len(fields), R_fb + 1, NC + 1
         )
         fb = tbl.sum(dim=1, dtype=I32)  # rank-independent totals per conn
@@ -772,7 +755,7 @@ class Simulator:
             conn_rtt = tbl[4, r, :NC]
             c_cwnd, c_alpha = self._cc_on_ack(c_cwnd, c_alpha, conn_mask, conn_ecn, conn_rtt)
             lb_state = self.lb.on_ack(
-                lb_state, conn_mask, conn_ev, conn_ecn, now, draws.k_ack[r]
+                lb_state, conn_mask, conn_ev, conn_ecn, now, tree_index(draws.lb_ack, r)
             )
         unprocessed = (e_is_ack & (e_rank >= R_fb)).sum(dtype=I32)
 
@@ -799,14 +782,14 @@ class Simulator:
         rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq)
         prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq)
         self._bm_or(c_rtx, r_conn, r_seq, rto_need)
-        rsum_rto = self._seg_sum_b(
+        rsum_rto = kernel_ops.seg_sum(
             r_conn, torch.stack([(rto_need & ~prev_rtx_p).to(I32), r_valid.to(I32)]), NC + 1
         )
         c_rtx_count = c_rtx_count + rsum_rto[0, :NC]
         rto_per_conn = rsum_rto[1, :NC]
         c_inflight = c_inflight - rto_per_conn
         c_cwnd = torch.clamp(c_cwnd - rto_per_conn.to(F32), 1.0, float(cfg.max_cwnd_pkts))
-        lb_state = self.lb.on_timeout(lb_state, rto_per_conn > 0, now, draws.k_timeout)
+        lb_state = self.lb.on_timeout(lb_state, rto_per_conn > 0, now, draws.lb_timeout)
         # orphan in-network packets; free LOST_WAIT ones
         pkt[PORPH, :NP] = (p_orphan | rto).to(I32)
         pkt[PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
@@ -853,7 +836,7 @@ class Simulator:
         rxp = _get(st.c_rx_pending, dconn, 0) + deliver_ackable.to(I32)
         emit = deliver_ackable & ((rxp >= cfg.ack_coalesce) | now_done)
         first_done = is_final & now_done & ~was_done
-        dsum = self._seg_sum_b(
+        dsum = kernel_ops.seg_sum(
             dconn[fin],
             torch.stack([newly, deliver_ackable, emit, first_done])[:, fin].to(I32),
             NC + 1,
@@ -901,20 +884,11 @@ class Simulator:
         target = torch.where(a_valid, target, NQ)
         u_red = draws.u_red
 
-        if self._ab() == "cuda":
-            # fused enqueue kernel; service already happened, so it serves nothing
-            q_len, k_accept, _, pos = kernel_ops.queue_tick(
-                target, u_red, q_len, None, QCAP, cfg.kmin, cfg.kmax
-            )
-            accept = a_valid & k_accept
-        else:
-            rank = self._seg_rank_b(target, NQ + 1)  # FIFO among same-target arrivals
-            qlen_t = _get(q_len, target, 0)
-            accept = a_valid & (rank < QCAP - qlen_t)
-            pos = qlen_t + rank
-            add = torch.zeros((NQ + 1,), dtype=I32, device=q_len.device)
-            add.index_add_(0, torch.where(accept, target, NQ), accept.to(I32))
-            q_len = q_len + add[:NQ]
+        # fused enqueue kernel; service already happened, so it serves nothing
+        q_len, k_accept, _, pos = kernel_ops.queue_tick(
+            target, u_red, q_len, None, QCAP, cfg.kmin, cfg.kmax
+        )
+        accept = a_valid & k_accept
         dropd = a_valid & ~accept
         # (pos - kmin) / (kmax - kmin): XLA multiplies by the float32 reciprocal
         mark_p = torch.clamp((pos.to(F32) - cfg.kmin) * self._red_rcp, 0.0, 1.0) * cfg.pmax
@@ -968,7 +942,7 @@ class Simulator:
         c_rtx[torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
         # each host picks <= 1 conn and a conn lives on one host, so
         # per-conn injection counts are 0/1
-        isum = self._seg_sum_b(
+        isum = kernel_ops.seg_sum(
             pick_conn, torch.stack([sendh, sendh & use_rtx]).to(I32), NC + 1
         )
         send_mask = isum[0, :NC] > 0

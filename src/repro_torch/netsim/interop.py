@@ -10,11 +10,17 @@ off, so the dict has exactly the reference's shapes and dtypes;
 from any JAX state at tick *t* and compare one step, and compare two states
 (JAX vs port, card vs CPU) leaf for leaf.
 
-The load balancer's state is one entry ``"lb_state"`` when it is a single
-array (ECMP, OPS) and one entry ``"lb_state.<field>"`` per ``REPSState``
-field for REPS.
+The load balancer's state is flattened by path: one entry ``"lb_state"``
+when it is a single array (ECMP, OPS), ``"lb_state.<field>"`` per field of
+a state dataclass (REPS, PLB, ...) and ``"lb_state.<i>"`` per element of a
+tuple (``MixedLB``, ``SwitchLB``), nested as deep as the state is.  Going
+back, ``sim_state_from_numpy`` takes the structure from ``lb_like`` (any
+state of the same load balancer, e.g. its ``init_state``); without one it
+rebuilds a single array or a ``REPSState``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,16 +33,39 @@ from repro_torch.netsim.engine import STATE_FIELDS, SimState
 _SENTINEL_AXIS = {"pkt": 1, "qbuf": 0, "c_rtx": 0, "c_rcv": 0, "fl": 0}
 
 
+def lb_state_to_numpy(lb_state, prefix: str = "lb_state") -> dict[str, np.ndarray]:
+    """A load balancer's state as numpy arrays named by path (see above)."""
+    out = {}
+    _flatten(prefix, lb_state, out)
+    return out
+
+
+def _flatten(prefix: str, x, out: dict) -> None:
+    if dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _flatten(f"{prefix}.{f.name}", getattr(x, f.name), out)
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            _flatten(f"{prefix}.{i}", v, out)
+    else:
+        out[prefix] = x.cpu().numpy()
+
+
+def _unflatten(prefix: str, like, arrays: dict, t):
+    if dataclasses.is_dataclass(like):
+        return type(like)(**{f.name: _unflatten(f"{prefix}.{f.name}", getattr(like, f.name),
+                                                arrays, t) for f in dataclasses.fields(like)})
+    if isinstance(like, tuple):
+        return tuple(_unflatten(f"{prefix}.{i}", v, arrays, t) for i, v in enumerate(like))
+    return t(arrays[prefix])
+
+
 def sim_state_to_numpy(state: SimState) -> dict[str, np.ndarray]:
     out = {}
     for name in STATE_FIELDS:
         leaf = getattr(state, name)
         if name == "lb_state":
-            if isinstance(leaf, reps_core.REPSState):
-                for f in reps_core.FIELDS:
-                    out[f"lb_state.{f}"] = getattr(leaf, f).cpu().numpy()
-            else:
-                out["lb_state"] = leaf.cpu().numpy()
+            out.update(lb_state_to_numpy(leaf))
             continue
         arr = leaf.cpu().numpy()
         if name in _SENTINEL_AXIS:
@@ -46,18 +75,16 @@ def sim_state_to_numpy(state: SimState) -> dict[str, np.ndarray]:
     return out
 
 
-def sim_state_from_numpy(arrays: dict[str, np.ndarray], device=None) -> SimState:
+def sim_state_from_numpy(arrays: dict[str, np.ndarray], device=None, lb_like=None) -> SimState:
     dev = resolve_device(device)
     t = lambda a: torch.as_tensor(np.array(a), device=dev)  # a writable copy; 0-d stays 0-d
     leaves = {}
     for name in STATE_FIELDS:
         if name == "lb_state":
-            if "lb_state" in arrays:
-                leaves[name] = t(arrays["lb_state"])
-            else:
-                leaves[name] = reps_core.REPSState(
-                    **{f: t(arrays[f"lb_state.{f}"]) for f in reps_core.FIELDS}
-                )
+            if lb_like is None:
+                lb_like = (torch.empty(0) if "lb_state" in arrays else
+                           reps_core.REPSState(*([torch.empty(0)] * len(reps_core.FIELDS))))
+            leaves[name] = _unflatten("lb_state", lb_like, arrays, t)
             continue
         arr = np.asarray(arrays[name])
         if name in _SENTINEL_AXIS:

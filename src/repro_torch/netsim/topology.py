@@ -17,9 +17,10 @@ Every directed link has one FIFO queue at its source.  Queue-id regions:
     t0_down[t, h]      = ... + P*A*Tp + t*H + h
 
 The packet's EV selects the up-direction port through a mixing hash of
-(flow id, EV, switch salt); down-direction ports follow the destination.
-The hash works on uint32 words held in int64 lanes (see ``repro_torch.rng``
-for why), so it is bit-equal to the reference's ``jnp.uint32`` arithmetic.
+(flow id, EV, switch salt) — the ``ecmp_hash`` kernel, one launch per hash
+site; down-direction ports follow the destination.  ``mix32`` and
+``ecmp_hash_np`` are the hash's finalizer on tensors and its Python-int
+mirror for host-side walks.
 """
 from __future__ import annotations
 
@@ -28,29 +29,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import mix32  # noqa: F401  (re-exported)
 from repro_torch.netsim.config import SimConfig
-from repro_torch.rng import M32, _mulmod32
+from repro_torch.rng import M32
 
 
-def mix32(x: torch.Tensor) -> torch.Tensor:
-    """Murmur3-style 32-bit finalizer; uint32 words in int64 lanes."""
-    x = x.to(torch.int64) & M32
-    x = x ^ (x >> 16)
-    x = _mulmod32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mulmod32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def ecmp_hash(flow_id, ev, salt, nports) -> torch.Tensor:
-    """Port in ``[0, nports)`` for each (flow, EV, salt), as int32."""
-    u = lambda t: t.to(torch.int64) & M32
-    h = mix32(
-        _mulmod32(u(flow_id), 0x9E3779B1)
-        ^ _mulmod32(u(ev), 0x85EBCA77)
-        ^ _mulmod32(u(salt), 0xC2B2AE3D)
-    )
-    return (h % nports).to(torch.int32)
+# the ECMP hash: the ``ecmp_hash`` kernel on a CUDA tensor, its plain
+# version on a CPU tensor
+ecmp_hash = kernel_ops.ecmp_hash
 
 
 def _mix32_np(x: int) -> int:
@@ -155,10 +142,10 @@ class Topology:
 
         if cfg.tiers == 2:
             U = cfg.uplinks_per_tor
-            if adaptive:
+            if adaptive:  # the reference hashes, then overrides: no launch here
                 up_choice = least_queue(self.t0_up_base + src_tor * U, U)
             else:
-                up_choice = ecmp_hash(flow_id, ev, src_tor, U)
+                up_choice = kernel_ops.ecmp_hash(flow_id, ev, src_tor, U)
             t0_up = self.t0_up_base + src_tor * U + up_choice
             at_t0_up = cur_queue < self.core_down_base
             spine = torch.where(at_t0_up, cur_queue - self.t0_up_base, 0) % U
@@ -179,7 +166,7 @@ class Topology:
         if adaptive:
             up1 = least_queue(self.t0_up_base + src_tor * A, A)
         else:
-            up1 = ecmp_hash(flow_id, ev, src_tor, A)
+            up1 = kernel_ops.ecmp_hash(flow_id, ev, src_tor, A)
         t0_up = self.t0_up_base + src_tor * A + up1
 
         in_t0_up = cur_queue < self.agg_up_base
@@ -188,7 +175,7 @@ class Topology:
         if adaptive:
             up2 = least_queue(self.agg_up_base + agg_global * U2, U2)
         else:
-            up2 = ecmp_hash(flow_id, ev, agg_global + 7919, U2)
+            up2 = kernel_ops.ecmp_hash(flow_id, ev, agg_global + 7919, U2)
         agg_up = self.agg_up_base + agg_global * U2 + up2
         agg_down_same = self.agg_down_base + agg_global * Tp + dst_tor_local
 

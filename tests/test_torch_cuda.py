@@ -1,6 +1,6 @@
 """The port on a CUDA device: each hand-written kernel against its plain
-version, and a short simulation on the card against the same one on the
-CPU — bit for bit.  Marked ``cuda``; without a GPU every test skips with a
+version, and short simulations on the card (ECMP-hashing, REPS, zoo and
+adaptive load balancers) against the same ones on the CPU — bit for bit.  Marked ``cuda``; without a GPU every test skips with a
 reason.  This file imports no JAX, so it also runs where only the port is
 installed:
 
@@ -64,13 +64,27 @@ def test_reps_and_queue_kernels_match_plain_versions(dev):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("lbn", ["ops", "reps"])
+def test_ecmp_hash_kernel_matches_plain_version(dev):
+    rs = np.random.RandomState(2)
+    for shape, nports in [((512,), 16), ((1000,), 13), ((3, 384), 4), ((77,), 1)]:
+        flow = rs.randint(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+        ev = rs.randint(0, 65536, size=shape).astype(np.int32)
+        salt = (2**31 - 1 - rs.randint(0, 9000, size=shape)).astype(np.int32)
+        args = [_on(dev, a) for a in (flow, ev, salt)]
+        assert torch.equal(ops.ecmp_hash(*args, nports), ref.ecmp_hash_ref(*args, nports))
+    with pytest.raises(ValueError, match="nports >= 1"):
+        ops.ecmp_hash(*args, 0)
+
+
+@pytest.mark.parametrize("lbn", ["ops", "reps", "plb", "bitmap", "mixed", "adaptive_roce"])
 def test_card_run_equals_cpu_run(dev, lbn):
-    cfg = FATTREE_32_CI.replace(kernels_backend="cuda", arrivals_backend="cuda")
+    cfg = FATTREE_32_CI
     ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
     kw = dict(evs_size=cfg.evs_size)
     if lbn == "reps":
-        kw.update(freezing_timeout=200, backend="cuda")
+        kw.update(freezing_timeout=200)
+    if lbn == "mixed":
+        kw.update(fg="reps", bg="plb", bg_conns=(1, 4, 9, 20))
     finals = []
     for d in (dev, "cpu"):
         sim = Simulator(cfg, workloads.permutation(32, 48, seed=3), make_lb(lbn, **kw),
@@ -81,5 +95,8 @@ def test_card_run_equals_cpu_run(dev, lbn):
         finals.append(sim_state_to_numpy(state))
         if d == dev:
             assert counts["seg_sum"] == 4 * 470 and counts["queue_tick"] == 470
+            # the adaptive router picks by queue length and hashes nothing
+            assert counts["ecmp_hash"] == (0 if lbn == "adaptive_roce" else 470)
+            assert counts["reps_tick"] == (4 * 470 if lbn in ("reps", "mixed") else 0)
     for k in finals[0]:
         assert finals[0][k].tobytes() == finals[1][k].tobytes(), k

@@ -1,4 +1,4 @@
-"""The plain versions of the port's four kernels against the reference's
+"""The plain versions of the port's five kernels against the reference's
 oracles (repro.kernels.ref) and its Pallas kernels in interpret mode, on
 seeded numpy inputs with several tiles, sentinels and saturation — bit for
 bit (tolerance 0).  The CUDA kernels themselves are held against the same
@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ecmp_hash as jeh
+from repro.kernels import ops as jops
 from repro.kernels import queue_tick as jqt
 from repro.kernels import ref as jref
 from repro.kernels import reps_update as jru
@@ -64,6 +66,45 @@ def test_seg_rank_plain_vs_reference(K, S, n_ids):
     inr = seg < S
     np.testing.assert_array_equal(got[inr], np.asarray(jref.seg_rank_ref(seg, S))[inr])
     assert (got[~inr] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+def _hash_inputs(rs, shape):
+    flow = rs.randint(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    ev = rs.randint(0, 65536, size=shape).astype(np.int32)
+    salt = rs.randint(0, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    salt.reshape(-1)[: salt.size // 4] = 2**31 - 1 - rs.randint(0, 8000, size=salt.size // 4)
+    return flow, ev, salt
+
+
+@pytest.mark.parametrize("nports", [1, 4, 13, 16])
+def test_ecmp_hash_plain_vs_reference(nports):
+    """The plain version against the reference's oracle on a flat (K,) input
+    (K not a multiple of 128, salts near 2**31 as the 3-tier agg_global +
+    7919 gives) and against the Pallas kernel in interpret mode on its
+    (R, 128) tiles, through the reference's own ``ops.ecmp_hash``."""
+    rs = RS(nports)
+    flow, ev, salt = _hash_inputs(rs, (1000,))
+    got = ops.ecmp_hash(_t(flow), _t(ev), _t(salt), nports).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.ecmp_hash_ref(flow, ev, salt, nports)))
+    tiles = [a[:896].reshape(7, 128) for a in (flow, ev, salt)]
+    n = np.int32(nports)
+    np.testing.assert_array_equal(
+        got[:896].reshape(7, 128), np.asarray(jops.ecmp_hash(*tiles, n)))
+    np.testing.assert_array_equal(
+        got[:896].reshape(7, 128),
+        np.asarray(jeh.ecmp_hash_pallas(*tiles, n, interpret=True)))
+
+
+def test_ecmp_hash_plain_row_axis_and_checks():
+    rs = RS(3)
+    flow, ev, salt = _hash_inputs(rs, (3, 512))
+    got = ref.ecmp_hash_ref(_t(flow), _t(ev), _t(salt), 16)
+    for b in range(3):
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(jref.ecmp_hash_ref(flow[b], ev[b], salt[b], 16)))
+    with pytest.raises(ValueError, match="nports >= 1"):
+        ops.ecmp_hash(_t(flow), _t(ev), _t(salt), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -141,4 +182,6 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_nothing():
     seg = torch.tensor([0, 1, 1, 3], dtype=torch.int32)
     ops.seg_sum(seg, torch.ones((2, 4), dtype=torch.int32), 3)
     ops.seg_rank(seg, 3)
-    assert ops.launch_counts() == {"seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0}
+    ops.ecmp_hash(seg, seg, seg, 4)
+    assert ops.launch_counts() == {
+        "seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0, "ecmp_hash": 0}

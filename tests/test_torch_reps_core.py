@@ -110,22 +110,23 @@ def test_pack_state_is_byte_identical_and_round_trips():
     assert treps.state_footprint_bits(tcfg) == jreps.state_footprint_bits(jcfg)
 
 
-@pytest.mark.parametrize("backend", ["auto", "cuda"])
-def test_reps_lb_refuses_other_ring_depths_where_the_kernel_runs(backend):
-    """The reps_tick kernel is compiled for an 8-deep ring.  Wherever it
-    would run (backend "cuda", or "auto" for state on a CUDA device) a
-    RepsLB of another depth raises instead of stepping REPS on the card
-    without the kernel; on the CPU "auto" keeps the tensor formulation."""
-    cuda = torch.device("cuda")
-    assert RepsLB(buffer_size=8, backend=backend).uses_kernel(cuda)
-    with pytest.raises(ValueError, match="buffer depth 8"):
-        RepsLB(buffer_size=4, backend=backend).uses_kernel(cuda)
-    if backend == "cuda":
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_reps_lb_refuses_other_ring_depths_where_the_kernel_runs(device):
+    """The reps_tick kernel is compiled for an 8-deep ring.  State on a CUDA
+    device steps through the kernel, so there a RepsLB of another depth
+    raises instead of stepping REPS on the card without it; state on the CPU
+    steps through the kernel's plain version, which takes any depth.  The
+    device alone decides (no device is needed to ask)."""
+    dev = torch.device(device)
+    assert RepsLB(buffer_size=8).uses_kernel(dev) == (device == "cuda")
+    lb = RepsLB(buffer_size=4)
+    if device == "cuda":
         with pytest.raises(ValueError, match="buffer depth 8"):
-            RepsLB(buffer_size=4, backend=backend)
+            lb.uses_kernel(dev)
         return
-    lb = RepsLB(buffer_size=4, backend=backend)
-    assert not lb.uses_kernel(torch.device("cpu"))
+    assert not lb.uses_kernel(dev)
     state = lb.init_state(6, rng.PRNGKey(0, "cpu"))
     assert tuple(state.buf_ev.shape) == (6, 4)
-    assert not RepsLB(buffer_size=4, backend="torch").uses_kernel(cuda)
+    send = torch.ones(6, dtype=torch.bool)
+    evs, state = lb.choose_ev(state, send, torch.arange(6, dtype=torch.int32), 0)
+    assert evs.tolist() == list(range(6))  # nothing cached yet: every send explores

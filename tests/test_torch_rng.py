@@ -79,3 +79,32 @@ def test_batched_draws_equal_per_tick_draws():
         kt = rng.fold_in(tbase, t)
         torch.testing.assert_close(u[t], rng.uniform(rng.fold_in(kt, 1), (33,)), rtol=0, atol=0)
         torch.testing.assert_close(r[t], rng.randint(rng.fold_in(kt, 2), (17,), 0, 256), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("evs_size", [256, 65536])
+@pytest.mark.parametrize("shape", [(48, 8), (128, 4), (5, 3), (1, 1)])
+def test_randint_2d(evs_size, shape):
+    """MPTCP's (N, subflows) and the flowlet table's (N, table) draws: the
+    row-major flattening equals JAX's partitionable counter layout."""
+    for seed in (0, 7):
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+        tk = rng.fold_in(rng.PRNGKey(seed, "cpu"), 5)
+        want = np.asarray(jax.random.randint(jk, shape, 0, evs_size, jnp.int32))
+        got = rng.randint(tk, shape, 0, evs_size)
+        assert tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        batched = rng.randint(torch.stack([tk, tk]), shape, 0, evs_size)  # (2, *shape)
+        np.testing.assert_array_equal(batched[1].numpy(), want)
+
+
+def test_split_four_and_nested_split_draws():
+    """BitmapLB's ``split(key, 4)`` resample keys and MPRDMA's / MixedLB's
+    ``split(key)`` then ``randint`` on each half, batched over ticks."""
+    jk, tk = jax.random.PRNGKey(11), rng.PRNGKey(11, "cpu")
+    np.testing.assert_array_equal(rng.split(tk, 4).numpy(), _jkey(jax.random.split(jk, 4)))
+    keys = rng.fold_in(tk, torch.arange(3))  # three ticks
+    draws = rng.randint(rng.split(keys, 4), (40,), 0, 256)  # (3, 4, 40)
+    for t in range(3):
+        for i, k in enumerate(jax.random.split(jax.random.fold_in(jk, t), 4)):
+            want = np.asarray(jax.random.randint(k, (40,), 0, 256, jnp.int32))
+            np.testing.assert_array_equal(draws[t, i].numpy(), want)
