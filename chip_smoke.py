@@ -11,15 +11,22 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build — compiles ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per source,
      all in parallel) into one library and loads it;
   3. kernels — each of the five kernels against its plain PyTorch version on
-     the card, bit for bit, at the main path's shapes and at edge shapes;
-     then each is timed with CUDA events (median of repeated batches)
-     beside its plain version and, for ``seg_sum``, ``index_add_``;
+     the card, bit for bit, at the main path's shapes and at edge shapes:
+     ``reps_tick`` in the TPU kernel's one-round form and with R = 2 and 4
+     ACK rounds (every event class, and with classes absent; one row and
+     with a row axis), ``seg_sum`` on the stacked int32 form and on fields as
+     they are (F = 1 ... 8 bool / int32 fields, the engine's four calls among
+     them); then each is timed with CUDA events (median of repeated batches)
+     at the engine's call (``reps_tick``: N = 128, R = 2, every class;
+     ``seg_sum``: the feedback call's five fields) beside its plain version
+     and, for ``seg_sum``, ``index_add_``;
   4. main path — the paper's FATTREE_128 fabric (128 hosts, 16 ToR
      uplinks), a 128-connection permutation of 4096-packet messages and the
      fig06 failure schedule (ToR-0 uplinks 0 and 1 down over ticks
      150-800 and 1200-2400), run for OPS and for REPS (freezing timeout
      800) on the kernels; each kernel's launch count must equal its
-     per-tick count times the ticks.
+     per-tick count times the ticks (``reps_tick`` 1 per tick where REPS
+     runs, ``seg_sum`` 4).
      A profiled window of 100 REPS ticks then shows where a tick's time
      goes (device busy share, launches per tick, kernel device times);
   5. arena — the LB arena's failure block at full width: FATTREE_128, a
@@ -28,8 +35,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
      ECMP background) on fig05's background cohort; exact launch counts
      per load balancer (the ECMP hash once per tick wherever packets are
-     hashed, none under adaptive RoCE; ``reps_tick`` 4 per tick only where
-     REPS runs);
+     hashed, none under adaptive RoCE; ``reps_tick`` 1 per tick where REPS
+     runs (reps, mixed));
   6. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
      first failure and REPS freezing), then every zoo load balancer on
      FATTREE_32_CI under a ToR-uplink failure past the RTO, each on the
@@ -187,25 +194,57 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         err = max(err, equal_all([got], [want], f"seg_sum B={B} F={F} K={K} S={S}"))
         got1 = ss_mod.seg_sum_cuda(seg[0], vals[0], S)
         err = max(err, equal_all([got1], [want[0]], f"seg_sum unbatched F={F} K={K} S={S}"))
-    seg, vals = seg_case(1, *main_ss)
-    seg, vals, S = seg[0].contiguous(), vals[0].contiguous(), main_ss[2]
+
+    # fields as they are (the engine's form): "b" a bool field, "i" an int32
+    # one, each a contiguous view at an offset into a longer tensor
+    def field_case(B, kinds, K, S):
+        seg = seg_case(B, 1, K, S)[0]
+        shape = (B, K) if B > 1 else (K,)
+        fields = []
+        for k in kinds:
+            raw = rs.rand(B * K + 5) < 0.4 if k == "b" else rs.randint(-3, 50, size=B * K + 5)
+            t = torch.as_tensor(raw.astype(bool if k == "b" else np.int32), device=dev)
+            fields.append(t[5:].view(shape))
+        return (seg if B > 1 else seg[0]), fields
+
+    main_fb = ("ibiii", shapes["MAX_EV"], (R + 1) * (NC + 1))  # the feedback call
+    for B, kinds, K, S in [(1, *main_fb), (1, "ibiiibb", *main_fb[1:]),  # with trimming
+                           (1, "bb", NH, NC + 1),  # RTO, injection
+                           (1, "bbbb", shapes["NHD"], NC + 1),  # delivery
+                           (1, "i", 1, 1), (1, "b", 77, 5), (3, "bi", 300, 387),
+                           (2, "bbiibi", 130, 40), (2, "ibibibib", 1000, 129),
+                           (1, "iiiiiiii", 129, 3 * 1025), (2, "bib", 700, 20000),
+                           (2, "bi", 500, 40000)]:  # past shared memory: global atomics
+        seg, fields = field_case(B, kinds, K, S)
+        got = ss_mod.seg_sum_cuda(seg, fields, S)
+        want = ref.seg_sum_ref(seg, fields, S)
+        torch.cuda.synchronize()
+        err = max(err, equal_all([got], [want], f"seg_sum fields={kinds} B={B} K={K} S={S}"))
+    seg, fields = field_case(1, *main_fb)
+    S = main_fb[2]
+    vals = torch.stack([f.to(torch.int32) for f in fields])  # the library call's input
     seg64 = torch.where((seg >= 0) & (seg < S), seg, S).long()
-    F = vals.shape[0]
+    F = len(fields)
 
     def library():
         return torch.zeros((F, S + 1), dtype=torch.int32, device=dev).index_add_(1, seg64, vals)
 
-    out = ss_mod.seg_sum_cuda(seg, vals, S)
+    def stacked():  # the engine's call before the kernel took fields as they are
+        return ss_mod.seg_sum_cuda(seg, torch.stack([f.to(torch.int32) for f in fields]), S)
+
+    out = ss_mod.seg_sum_cuda(seg, fields, S)
     valid = int(((seg >= 0) & (seg < S)).sum())
-    b, why = bound_ms(nbytes(seg, vals, out), valid * F)
+    b, why = bound_ms(nbytes(seg, *fields, out), valid * F)
     rows.append(dict(
         name="seg_sum", route="cuda", source="src/repro_torch/csrc/seg_sum.cu",
         replaces="src/repro/kernels/seg_sum.py:65",
-        ms=time_ms(lambda: ss_mod.seg_sum_cuda(seg, vals, S)),
-        eager_ms=eager_ms(lambda: ss_mod.seg_sum_cuda(seg, vals, S)),
-        plain_ms=time_ms(lambda: ref.seg_sum_ref(seg, vals, S)),
+        ms=time_ms(lambda: ss_mod.seg_sum_cuda(seg, fields, S)),
+        eager_ms=eager_ms(lambda: ss_mod.seg_sum_cuda(seg, fields, S)),
+        eager_old_ms=eager_ms(stacked), ms_old=time_ms(stacked),
+        old_form="torch.stack of the int32-cast fields, then the kernel",
+        plain_ms=time_ms(lambda: ref.seg_sum_ref(seg, fields, S)),
         bound_ms=b, bound_by=why, library_ms=time_ms(library), max_abs_err=err,
-        shape=f"F={F} K={seg.numel()} S={S}",
+        shape=f"fields={main_fb[0]} K={seg.numel()} S={S}",
     ))
     err = 0.0
 
@@ -241,7 +280,9 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     err = 0.0
 
     # ---- reps_tick ---------------------------------------------------------
-    def reps_case(shape, frozen_frac=0.3, with_events=(True,) * 6):
+    def reps_case(shape, rounds=None, frozen_frac=0.3, with_events=(True,) * 6):
+        """State and events; ``rounds=None`` is the TPU kernel's one-round
+        form, else the ACK classes are tuples of ``rounds`` tensors."""
         n = int(np.prod(shape))
         b = lambda p: torch.as_tensor(rs.rand(n) < p, device=dev).reshape(shape)
         i = lambda lo, hi: i32(rs.randint(lo, hi, size=n)).reshape(shape)
@@ -250,30 +291,52 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
             torch.as_tensor(rs.rand(n, 8) < 0.5, device=dev).reshape(*shape, 8),
             i(0, 8), i(0, 9), i(0, 3), b(frozen_frac), i(0, 3000), i(0, 3),
         ]
-        ev = [b(0.5), i(0, 65536), b(0.3), b(0.2), b(0.6), i(0, 65536)]
+        acks = [(b(0.5), i(0, 65536), b(0.3)) for _ in range(rounds or 1)]
+        ev = list(acks[0]) if rounds is None else [tuple(a[c] for a in acks) for c in range(3)]
+        ev += [b(0.2), b(0.6), i(0, 65536)]
         ev = [e if w else None for e, w in zip(ev, with_events)]
         return state, ev, int(rs.randint(0, 3000))
 
     N = NC
-    for shape, events in [((N,), (True,) * 6), ((1000,), (True,) * 6), ((3, N), (True,) * 6),
-                          ((N,), (True, True, True, False, False, False)),
-                          ((N,), (False, False, False, True, False, False)),
-                          ((N,), (False,) * 4 + (True, True))]:
-        state, ev, now = reps_case(shape, with_events=events)
+    every, acks_only = (True,) * 6, (True, True, True, False, False, False)
+    for shape, rounds, events in [
+        ((N,), None, every), ((1000,), None, every), ((3, N), None, every),
+        ((N,), None, acks_only), ((N,), None, (False, False, False, True, False, False)),
+        ((N,), None, (False,) * 4 + (True, True)),
+        # the engine's one launch per tick: R feedback rounds, timeouts, sends
+        ((N,), R, every), ((N,), 2, every), ((N,), 4, every), ((3, N), 2, every),
+        ((2, 300), 4, every), ((N,), 2, acks_only), ((1000,), 4, (True, False, False) * 2),
+        ((N,), 2, (True, True, False, False, True, True)), ((3, N), 4, (False,) * 3 + (True,) * 3),
+    ]:
+        state, ev, now = reps_case(shape, rounds, with_events=events)
         got = ru_mod.reps_tick_cuda(*state, *ev, now, 32, 800)
         want = ref.reps_tick_ref(*state, *ev, now, 32, 800)
         torch.cuda.synchronize()
-        err = max(err, equal_all(got, want, f"reps_tick shape={shape} events={events}"))
-    state, ev, now = reps_case((N,))
+        err = max(err, equal_all(
+            got, want, f"reps_tick shape={shape} rounds={rounds} events={events}"))
+    state, ev, now = reps_case((N,), R)  # the engine's call: R rounds, every class
     outs = ru_mod.reps_tick_cuda(*state, *ev, now, 32, 800)
-    b, why = bound_ms(nbytes(*state, *ev, *outs), N * 8)
+
+    def stages():  # the same tick as the engine launched it before: one per stage
+        st = state
+        for r in range(R):
+            st = ru_mod.reps_tick_cuda(*st[:8], ev[0][r], ev[1][r], ev[2][r], None, None, None,
+                                       now, 32, 800)
+        st = ru_mod.reps_tick_cuda(*st[:8], None, None, None, ev[3], None, None, now, 32, 800)
+        return ru_mod.reps_tick_cuda(*st[:8], None, None, None, None, ev[4], ev[5], now, 32, 800)
+
+    err = max(err, equal_all(stages(), outs, "reps_tick one launch vs one per stage"))
+    flat_ev = [t for e in ev for t in (e if isinstance(e, tuple) else (e,))]
+    b, why = bound_ms(nbytes(*state, *flat_ev, *outs), N * 8 * (R + 2))
     rows.append(dict(
         name="reps_tick", route="cuda", source="src/repro_torch/csrc/reps_update.cu",
         replaces="src/repro/kernels/reps_update.py:109",
         ms=time_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, now, 32, 800)),
         eager_ms=eager_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, now, 32, 800)),
+        eager_old_ms=eager_ms(stages), ms_old=time_ms(stages),
+        old_form="one launch per ACK round, timeout and send",
         plain_ms=time_ms(lambda: ref.reps_tick_ref(*state, *ev, now, 32, 800)),
-        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err, shape=f"N={N}",
+        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err, shape=f"N={N} R={R}",
     ))
     err = 0.0
 
@@ -391,7 +454,7 @@ def main_path(dev, ticks: int) -> dict:
 
     per_tick = {"ops": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 0,
                         "ecmp_hash": 1},
-                "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 4,
+                "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 1,
                          "ecmp_hash": 1}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     for lb in ("ops", "reps"):
@@ -507,7 +570,7 @@ def arena_cells(dev, ticks: int) -> dict:
         want = {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1,
                 # the adaptive router picks the least-loaded port and hashes nothing
                 "ecmp_hash": 0 if sim.lb.switch_adaptive else 1,
-                "reps_tick": 4 if lbn == "mixed" else 0}
+                "reps_tick": 1 if lbn == "mixed" else 0}
         for k, n in want.items():
             if counts[k] != n * ticks:
                 raise AssertionError(
@@ -612,6 +675,7 @@ def main() -> int:
     sim = fig06_cell("reps", dev)
     cfg = FATTREE_128
     shapes = dict(NC=sim.wl.n_conns, NH=sim.NH, NQ=sim.NQ, R=cfg.feedback_rounds,
+                  NHD=sim.NQ - sim.topo.t0_down_base,
                   MAX_EV=sim.MAX_EV, MAX_ARR=sim.MAX_ARR, QCAP=cfg.queue_capacity,
                   KMIN=cfg.kmin, KMAX=cfg.kmax, U=cfg.uplinks_per_tor)
     log(f"main-path shapes: {shapes} NP={sim.NP}")
@@ -621,6 +685,9 @@ def main() -> int:
         log(f"kernel {r['name']} ({r['shape']}): bit-exact; device {r['ms']:.5f} ms per call "
             f"(eager from Python {r['eager_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, "
             f"library {lib_ms}, bound {r['bound_ms']:.3e} ms")
+        if "eager_old_ms" in r:
+            log(f"kernel {r['name']}: the engine's former call form ({r['old_form']}): "
+                f"device {r['ms_old']:.5f} ms, eager from Python {r['eager_old_ms']:.5f} ms")
 
     totals = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)

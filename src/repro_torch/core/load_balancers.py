@@ -15,6 +15,14 @@ tuple of them) that the engine threads through the tick:
     choose_ev(state, mask, draw, now)         -> (evs (N,), state)
     on_ack(state, mask, ev, ecn, now, draw)   -> state
     on_timeout(state, mask, now, draw)        -> state
+    step(state, acks, timeout_mask, send_mask, draws, now) -> (evs, state)
+
+``step`` is one tick of the load balancer as the engine calls it: ``on_ack``
+for each feedback round of ``acks`` (a sequence of ``(mask, ev, ecn,
+draw)``), then ``on_timeout``, then ``choose_ev``, in the reference engine's
+order, with ``draws = (timeout_draw, send_draw)``.  The engine's stages
+between feedback and injection never read the LB state, so the tick may
+apply all of them at injection; REPS does so in one kernel launch.
 
 ``mask`` selects the connections that send / got an ACK / timed out this
 tick.  Keys follow the reference's key-threading contract: the tick key
@@ -44,6 +52,7 @@ from repro_torch.core import reps as reps_core
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.reps_update import BUF as KERNEL_BUF
+from repro_torch.kernels.reps_update import MAX_ROUNDS
 
 I32 = torch.int32
 F32 = torch.float32
@@ -80,6 +89,15 @@ class LoadBalancer:
 
     def on_timeout(self, state, mask, now, draw):
         return state
+
+    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+        """One tick: ``on_ack`` per round of ``acks``, ``on_timeout``,
+        ``choose_ev``; ``draws`` is ``(timeout_draw, send_draw)``.  Returns
+        ``(evs, state)``."""
+        for mask, ev, ecn, draw in acks:
+            state = self.on_ack(state, mask, ev, ecn, now, draw)
+        state = self.on_timeout(state, timeout_mask, now, draws[0])
+        return self.choose_ev(state, send_mask, draws[1], now)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,10 +162,12 @@ class OpsLB(LoadBalancer):
 # ---------------------------------------------------------------------------
 class RepsLB(LoadBalancer):
     """REPS, stepped through the fused ``reps_tick`` kernel's wrapper: one
-    launch for each of ``on_ack``, ``on_timeout`` and ``choose_ev`` on a
-    CUDA device, the kernel's plain version on the CPU.  The state's device
-    alone decides.  The kernel is compiled for the paper's 8-deep ring, so
-    on a CUDA device another ``buffer_size`` raises."""
+    launch per engine tick (``step``: every ACK round, the timeouts and the
+    sends), and one for each of ``on_ack``, ``on_timeout`` and
+    ``choose_ev`` called alone, on a CUDA device; the kernel's plain
+    version on the CPU.  The state's device alone decides.  The kernel is
+    compiled for the paper's 8-deep ring, so on a CUDA device another
+    ``buffer_size`` raises."""
 
     name = "reps"
 
@@ -189,8 +209,8 @@ class RepsLB(LoadBalancer):
 
     def _tick(self, state, now, ack_mask=None, ack_ev=None, ack_ecn=None,
               timeout_mask=None, send_mask=None, rand_ev=None):
-        """One fused Algorithm 1+2 pass; event classes left out are no-ops,
-        so each engine stage (feedback / RTO / injection) is one launch."""
+        """One fused Algorithm 1+2 launch; event classes left out are
+        no-ops, and the ACK classes may be sequences of rounds."""
         out = kernel_ops.reps_tick(
             state.buf_ev, state.buf_valid, state.head, state.num_valid,
             state.explore_counter, state.is_freezing, state.exit_freezing,
@@ -210,6 +230,20 @@ class RepsLB(LoadBalancer):
         if not self.enable_freezing:
             return state
         return self._tick(state, now, timeout_mask=mask)[0]
+
+    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+        rounds = [tuple(a[:3]) for a in acks]
+        # more rounds than one launch takes: ACK-only launches first
+        while len(rounds) > MAX_ROUNDS:
+            head, rounds = rounds[:MAX_ROUNDS], rounds[MAX_ROUNDS:]
+            state = self._tick(state, now, *zip(*head))[0]
+        masks, ack_evs, ecns = zip(*rounds) if rounds else ((), (), ())
+        state, evs = self._tick(
+            state, now, masks, ack_evs, ecns,
+            timeout_mask=timeout_mask if self.enable_freezing else None,
+            send_mask=send_mask, rand_ev=draws[1],
+        )
+        return evs, state
 
 
 # ---------------------------------------------------------------------------
@@ -668,6 +702,11 @@ class SwitchLB(LoadBalancer):
 
     def on_timeout(self, state, mask, now, draw):
         return self._with(state, self.active.on_timeout(state[1][self.branch], mask, now, draw))
+
+    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+        evs, slot = self.active.step(
+            state[1][self.branch], acks, timeout_mask, send_mask, draws, now)
+        return evs, self._with(state, slot)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,14 @@ def require(t, name: str, dtype: torch.dtype, dim: int, device=None, optional=Fa
         raise ValueError(f"{name} must be contiguous")
 
 
+def stream_ptr(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream.  The same
+    value as ``torch.cuda.current_stream(device).cuda_stream``, read
+    without building a ``torch.cuda.Stream`` object per launch; the call
+    Triton's launcher makes."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def ptr(t) -> int | None:
     """Device pointer of an optional tensor (``None`` -> null)."""
     return None if t is None else t.data_ptr()

@@ -104,9 +104,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argument types (every entry point returns cudaGetLastError())
-    "repro_seg_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_seg_sum": [_P, _P, _I, ctypes.c_uint, _L, _P, _I, _I, _I, _P],
     "repro_seg_rank": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_reps_tick": [_P] * 14 + [_I, _I, _I, _L] + [_P] * 9 + [_P],
+    "repro_reps_tick": [_P] * 9 + [_I] + [_P] * 3 + [_I, _I, _I, _L] + [_P] * 9 + [_P],
     "repro_queue_tick": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "repro_ecmp_hash": [_P, _P, _P, _P, _L, _I, _P],
 }

@@ -31,9 +31,11 @@ def _on_cuda(t: torch.Tensor, kernel: str) -> bool:
     raise ValueError(f"{kernel}: no kernel or plain version for device {t.device}")
 
 
-def seg_sum(seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
-    """``(K,)``, ``(F, K)`` int32 -> ``(F, n_segments)`` stacked segment sums
-    (optional leading row axis); ids outside ``[0, n_segments)`` drop."""
+def seg_sum(seg: torch.Tensor, vals, n_segments: int) -> torch.Tensor:
+    """``seg (K,)`` int32 and ``vals`` — a sequence of F bool / int32 fields
+    shaped like ``seg``, or one stacked ``(F, K)`` int32 tensor — ->
+    ``(F, n_segments)`` int32 segment sums (optional leading row axis); ids
+    outside ``[0, n_segments)`` drop."""
     if _on_cuda(seg, "seg_sum"):
         return _ss.seg_sum_cuda(seg, vals, n_segments)
     return ref.seg_sum_ref(seg, vals, n_segments)
@@ -48,7 +50,8 @@ def seg_rank(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
 
 
 def reps_tick(*args):
-    """Fused REPS per-tick update; arguments as ``ref.reps_tick_ref``."""
+    """Fused REPS per-tick update (R ACK rounds, timeout, send); arguments
+    as ``ref.reps_tick_ref``."""
     if _on_cuda(args[2], "reps_tick"):
         return _ru.reps_tick_cuda(*args)
     return ref.reps_tick_ref(*args)

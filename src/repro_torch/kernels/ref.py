@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import reps as reps_core
 from repro_torch.kernels.ecmp_hash import check_nports
+from repro_torch.kernels.reps_update import ack_rounds
 from repro_torch.rng import M32, _mulmod32
 
 
@@ -44,10 +45,14 @@ def ecmp_hash_ref(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-def seg_sum_ref(seg: torch.Tensor, vals: torch.Tensor, n_segments: int) -> torch.Tensor:
+def seg_sum_ref(seg: torch.Tensor, vals, n_segments: int) -> torch.Tensor:
     """``out[..., f, s] = sum_k vals[..., f, k] * (seg[..., k] == s)`` as a
     dense one-hot masked reduction; ids outside ``[0, n_segments)`` fall in
-    no bucket.  ``seg (..., K)``, ``vals (..., F, K)`` -> ``(..., F, S)``."""
+    no bucket.  ``seg (..., K)`` and ``vals (..., F, K)`` int32, or a
+    sequence of F bool / int32 fields shaped like ``seg`` (bools count as
+    0/1) -> ``(..., F, S)``."""
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.stack([v.to(torch.int32) for v in vals], dim=-2)
     s = torch.arange(n_segments, dtype=seg.dtype, device=seg.device)
     onehot = seg[..., :, None] == s  # (..., K, S)
     picked = torch.where(onehot[..., None, :, :], vals[..., :, :, None], 0)
@@ -71,11 +76,12 @@ def reps_tick_ref(
     n_cached, ack_mask, ack_ev, ack_ecn, timeout_mask, send_mask, rand_ev,
     now, num_pkts_bdp, freezing_timeout,
 ):
-    """Fused tick = on_ack -> on_failure_detection -> choose_ev, through
-    ``repro_torch.core.reps``.  Masks and flags are bool tensors; an event
-    class passed as ``None`` is all-zero, which makes its algorithm a no-op.
-    Returns the new state fields and the chosen EVs, shaped like the
-    inputs."""
+    """Fused tick = on_ack per ACK round -> on_failure_detection ->
+    choose_ev, through ``repro_torch.core.reps``.  Masks and flags are bool
+    tensors; an event class passed as ``None`` is all-zero, which makes its
+    algorithm a no-op.  The ACK classes are one round's tensors or
+    sequences of R rounds (``reps_update.ack_rounds``).  Returns the new
+    state fields and the chosen EVs, shaped like the inputs."""
     cfg = reps_core.REPSConfig(
         buffer_size=buf_ev.shape[-1],
         evs_size=2**31 - 1,  # rand_ev supplied externally
@@ -95,9 +101,8 @@ def reps_tick_ref(
     no = torch.zeros((n,), dtype=torch.bool, device=head.device)
     zi = torch.zeros((n,), dtype=torch.int32, device=head.device)
     pick = lambda t, z: z if t is None else flat(t)
-    state = reps_core.on_ack(
-        cfg, state, pick(ack_mask, no), pick(ack_ev, zi), pick(ack_ecn, no), now
-    )
+    for mask, ev, ecn in ack_rounds(ack_mask, ack_ev, ack_ecn):
+        state = reps_core.on_ack(cfg, state, pick(mask, no), pick(ev, zi), pick(ecn, no), now)
     state = reps_core.on_failure_detection(cfg, state, pick(timeout_mask, no), now)
     ev, state = reps_core.choose_ev(
         cfg, state, pick(send_mask, no), rand_ev=pick(rand_ev, zi)

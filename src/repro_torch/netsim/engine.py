@@ -725,11 +725,11 @@ class Simulator:
         ack_seg = torch.where(e_is_ack, e_conn, NC)
         e_rank = kernel_ops.seg_rank(ack_seg, NC + 1)
         ridx = torch.clamp(e_rank, max=R_fb) * (NC + 1) + e_conn
-        fields = [
+        fields = [  # int32 and bool fields as they are: the kernel takes both
             torch.where(e_is_nack, 1, e_cnt) if cfg.trimming else e_cnt,  # dec
-            e_is_ack.to(I32),
+            e_is_ack,
             torch.where(e_is_ack, e_ev, 0),
-            (e_ecn & e_is_ack).to(I32),
+            e_ecn & e_is_ack,
             torch.where(e_is_ack, e_rtt, 0),
         ]
         if cfg.trimming:
@@ -737,8 +737,8 @@ class Simulator:
             need_rtx = e_is_nack & ~already
             prev_rtx = self._bm_get(c_rtx, e_conn, e_seq)
             self._bm_or(c_rtx, e_conn, e_seq, need_rtx)
-            fields += [(need_rtx & ~prev_rtx).to(I32), e_is_nack.to(I32)]
-        tbl = kernel_ops.seg_sum(ridx, torch.stack(fields), (R_fb + 1) * (NC + 1)).reshape(
+            fields += [need_rtx & ~prev_rtx, e_is_nack]
+        tbl = kernel_ops.seg_sum(ridx, fields, (R_fb + 1) * (NC + 1)).reshape(
             len(fields), R_fb + 1, NC + 1
         )
         fb = tbl.sum(dim=1, dtype=I32)  # rank-independent totals per conn
@@ -747,16 +747,16 @@ class Simulator:
             c_rtx_count = c_rtx_count + fb[5, :NC]
             c_cwnd = torch.clamp(c_cwnd - fb[6, :NC].to(F32), 1.0, float(cfg.max_cwnd_pkts))
 
-        # LB + CC: up to feedback_rounds exact rounds of one ACK per conn
+        # CC: up to feedback_rounds exact rounds of one ACK per conn.  The LB
+        # takes the same rounds at injection (``lb.step``): no stage between
+        # reads its state, and REPS then applies them all in one launch
+        acks = []
         for r in range(R_fb):
             conn_mask = tbl[1, r, :NC] > 0
-            conn_ev = tbl[2, r, :NC]
             conn_ecn = tbl[3, r, :NC] > 0
-            conn_rtt = tbl[4, r, :NC]
-            c_cwnd, c_alpha = self._cc_on_ack(c_cwnd, c_alpha, conn_mask, conn_ecn, conn_rtt)
-            lb_state = self.lb.on_ack(
-                lb_state, conn_mask, conn_ev, conn_ecn, now, tree_index(draws.lb_ack, r)
-            )
+            c_cwnd, c_alpha = self._cc_on_ack(c_cwnd, c_alpha, conn_mask, conn_ecn,
+                                              tbl[4, r, :NC])
+            acks.append((conn_mask, tbl[2, r, :NC], conn_ecn, tree_index(draws.lb_ack, r)))
         unprocessed = (e_is_ack & (e_rank >= R_fb)).sum(dtype=I32)
 
         # =============== 2. RTO ========================================
@@ -782,14 +782,12 @@ class Simulator:
         rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq)
         prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq)
         self._bm_or(c_rtx, r_conn, r_seq, rto_need)
-        rsum_rto = kernel_ops.seg_sum(
-            r_conn, torch.stack([(rto_need & ~prev_rtx_p).to(I32), r_valid.to(I32)]), NC + 1
-        )
+        rsum_rto = kernel_ops.seg_sum(r_conn, (rto_need & ~prev_rtx_p, r_valid), NC + 1)
         c_rtx_count = c_rtx_count + rsum_rto[0, :NC]
         rto_per_conn = rsum_rto[1, :NC]
         c_inflight = c_inflight - rto_per_conn
         c_cwnd = torch.clamp(c_cwnd - rto_per_conn.to(F32), 1.0, float(cfg.max_cwnd_pkts))
-        lb_state = self.lb.on_timeout(lb_state, rto_per_conn > 0, now, draws.lb_timeout)
+        timed_out = rto_per_conn > 0  # the LB's on_timeout mask, taken at injection
         # orphan in-network packets; free LOST_WAIT ones
         pkt[PORPH, :NP] = (p_orphan | rto).to(I32)
         pkt[PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
@@ -837,9 +835,7 @@ class Simulator:
         emit = deliver_ackable & ((rxp >= cfg.ack_coalesce) | now_done)
         first_done = is_final & now_done & ~was_done
         dsum = kernel_ops.seg_sum(
-            dconn[fin],
-            torch.stack([newly, deliver_ackable, emit, first_done])[:, fin].to(I32),
-            NC + 1,
+            dconn[fin], (newly[fin], deliver_ackable[fin], emit[fin], first_done[fin]), NC + 1
         )
         c_delivered = st.c_delivered + dsum[0, :NC]
         c_rx_pending = torch.where(dsum[2, :NC] > 0, 0, st.c_rx_pending + dsum[1, :NC])
@@ -942,17 +938,18 @@ class Simulator:
         c_rtx[torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
         # each host picks <= 1 conn and a conn lives on one host, so
         # per-conn injection counts are 0/1
-        isum = kernel_ops.seg_sum(
-            pick_conn, torch.stack([sendh, sendh & use_rtx]).to(I32), NC + 1
-        )
+        isum = kernel_ops.seg_sum(pick_conn, (sendh, sendh & use_rtx), NC + 1)
         send_mask = isum[0, :NC] > 0
         c_rtx_count = c_rtx_count - isum[1, :NC]
         c_next_new = st.c_next_new + (isum[0] - isum[1])[:NC]
         c_inflight = c_inflight + isum[0, :NC]
         injected_d = n_alloc
 
-        # the load balancer stamps the EV (REPS Algorithm 2)
-        evs, lb_state = self.lb.choose_ev(lb_state, send_mask, draws.lb, now)
+        # the load balancer takes the tick's ACK rounds and timeouts, then
+        # stamps the EV (REPS Algorithms 1 and 2)
+        evs, lb_state = self.lb.step(
+            lb_state, acks, timed_out, send_mask, (draws.lb_timeout, draws.lb), now
+        )
         W = torch.stack([
             torch.full((NH,), FLYING, dtype=I32, device=self.device),  # PS
             pick_conn,  # PCONN

@@ -87,6 +87,18 @@ class MixedLB(LoadBalancer):
         sb = self.lb_b.on_timeout(sb, mask & bm, now, draw[1])
         return (sa, sb, bm)
 
+    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+        sa, sb, bm = state
+        am = ~bm
+        td, sd = draws
+        ev_a, sa = self.lb_a.step(
+            sa, [(m & am, ev, ecn, d[0]) for m, ev, ecn, d in acks], timeout_mask & am,
+            send_mask & am, (td[0], sd[0]), now)
+        ev_b, sb = self.lb_b.step(
+            sb, [(m & bm, ev, ecn, d[1]) for m, ev, ecn, d in acks], timeout_mask & bm,
+            send_mask & bm, (td[1], sd[1]), now)
+        return torch.where(bm, ev_b, ev_a), (sa, sb, bm)
+
 
 def _make_mixed(
     fg: str = "ops",

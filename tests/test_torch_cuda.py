@@ -64,6 +64,51 @@ def test_reps_and_queue_kernels_match_plain_versions(dev):
             assert torch.equal(x, y)
 
 
+def test_seg_sum_field_sequence_matches_plain_version(dev):
+    """Fields as they are (bool and int32 mixed, contiguous views with an
+    offset among them), one row and with a row axis."""
+    rs = np.random.RandomState(3)
+    for kinds, B, K, S in [("ibiii", 1, 128, 387), ("bb", 1, 128, 129), ("bbbb", 1, 96, 129),
+                           ("ibiiibbi", 3, 300, 40), ("b", 2, 1000, 20000), ("i", 1, 1, 1),
+                           ("bi", 2, 500, 40000)]:  # past shared memory: global atomics
+        shape = (B, K) if B > 1 else (K,)
+        seg = _on(dev, rs.randint(-1, S + 2, size=shape).astype(np.int32))
+        fields = []
+        for k in kinds:
+            pad = rs.rand(B * K + 3) < 0.4 if k == "b" else rs.randint(-3, 60, size=B * K + 3)
+            fields.append(_on(dev, pad.astype(bool if k == "b" else np.int32))[3:].view(shape))
+        got = ops.seg_sum(seg, fields, S)
+        assert torch.equal(got, ref.seg_sum_ref(seg, fields, S))
+        stacked = torch.stack([f.to(torch.int32) for f in fields], dim=-2)
+        assert torch.equal(got, ops.seg_sum(seg, stacked, S))
+
+
+@pytest.mark.parametrize("R", [2, 4])
+def test_reps_tick_rounds_match_plain_version(dev, R):
+    rs = np.random.RandomState(R)
+    for shape, absent in [((128,), ()), ((3, 128), ()), ((300,), ("ecn", "timeout")),
+                          ((128,), ("ev", "send", "rand"))]:
+        n = int(np.prod(shape))
+        b = lambda p: _on(dev, rs.rand(n) < p).view(shape)
+        i = lambda hi: _on(dev, rs.randint(0, hi, size=n).astype(np.int32)).view(shape)
+        state = [_on(dev, rs.randint(0, 65536, size=(*shape, 8)).astype(np.int32)),
+                 _on(dev, rs.rand(*shape, 8) < 0.5), i(8), i(9), i(3), b(0.3), i(3000), i(3)]
+        masks = tuple(b(0.6) for _ in range(R))
+        evs = None if "ev" in absent else tuple(i(65536) for _ in range(R))
+        ecns = None if "ecn" in absent else tuple(b(0.3) for _ in range(R))
+        events = [masks, evs, ecns, None if "timeout" in absent else b(0.3),
+                  None if "send" in absent else b(0.6), None if "rand" in absent else i(65536)]
+        args = state + events + [1500, 32, 800]
+        for x, y in zip(ops.reps_tick(*args), ref.reps_tick_ref(*args)):
+            assert torch.equal(x, y)
+    too_many = (masks[0],) * 5
+    with pytest.raises(ValueError, match="at most 4"):
+        ops.reps_tick(*state, too_many, None, None, None, None, None, 1500, 32, 800)
+    ring = _on(dev, np.zeros(n * 8 + 1, np.int32))[1:].view(*shape, 8)  # only 4-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        ops.reps_tick(ring, *state[1:], *events, 1500, 32, 800)
+
+
 def test_ecmp_hash_kernel_matches_plain_version(dev):
     rs = np.random.RandomState(2)
     for shape, nports in [((512,), 16), ((1000,), 13), ((3, 384), 4), ((77,), 1)]:
@@ -97,6 +142,7 @@ def test_card_run_equals_cpu_run(dev, lbn):
             assert counts["seg_sum"] == 4 * 470 and counts["queue_tick"] == 470
             # the adaptive router picks by queue length and hashes nothing
             assert counts["ecmp_hash"] == (0 if lbn == "adaptive_roce" else 470)
-            assert counts["reps_tick"] == (4 * 470 if lbn in ("reps", "mixed") else 0)
+            # one fused REPS launch per tick (both ACK rounds, timeouts, sends)
+            assert counts["reps_tick"] == (470 if lbn in ("reps", "mixed") else 0)
     for k in finals[0]:
         assert finals[0][k].tobytes() == finals[1][k].tobytes(), k

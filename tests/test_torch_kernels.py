@@ -44,6 +44,26 @@ def test_seg_sum_plain_vs_reference(F, K, S):
     np.testing.assert_array_equal(got, np.asarray(jss.seg_sum_pallas(seg, vals, S, interpret=True)))
 
 
+@pytest.mark.parametrize("kinds,K,S", [
+    ("ibiii", 128, 387),  # the engine's feedback call (F=5, K=MAX_EV, S=(R+1)(NC+1))
+    ("ibiiibb", 128, 387),  # the same with trimming (F=7)
+    ("bb", 128, 129),  # RTO and injection
+    ("bbbb", 96, 129),  # delivery (host downlinks of the queue axis)
+    ("i", 1, 1), ("b", 300, 17), ("bibibibi", 300, 40),
+])
+def test_seg_sum_plain_field_sequence_vs_reference(kinds, K, S):
+    """Fields as they are — bool and int32 mixed, no stack, no cast — equal
+    the reference's oracle on the stacked int32 fields."""
+    rs = RS(K * 31 + S + len(kinds))
+    seg = _seg(rs, K, S)
+    fields = [rs.rand(K) < 0.4 if k == "b" else rs.randint(-3, 60, size=K).astype(np.int32)
+              for k in kinds]
+    got = ops.seg_sum(_t(seg), [_t(f) for f in fields], S).numpy()
+    stacked = np.stack([f.astype(np.int32) for f in fields])
+    np.testing.assert_array_equal(got, np.asarray(jref.seg_sum_ref(seg, stacked, S)))
+    np.testing.assert_array_equal(got, ops.seg_sum(_t(seg), _t(stacked), S).numpy())
+
+
 def test_seg_sum_plain_row_axis():
     rs = RS(2)
     segs = np.stack([_seg(rs, 200, 40) for _ in range(3)])
@@ -135,6 +155,48 @@ def test_reps_tick_plain_vs_reference(N):
             g = g.numpy().astype(np.int32)
             np.testing.assert_array_equal(g, np.asarray(w).astype(np.int32))
             np.testing.assert_array_equal(g, np.asarray(p))
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("N", [128, 300])
+def test_reps_tick_plain_rounds_vs_reference_composed(R, N):
+    """One multi-round tick (R ACK rounds, then timeout and send) equals the
+    reference's single-round tick composed R times with ACK events only,
+    then once with the timeout and send events — for the reference's
+    oracle and for its Pallas kernel in interpret mode."""
+    rs = RS(100 * R + N)
+    zi = np.zeros(N, np.int32)
+    for step in range(2):
+        state, _ = _reps_inputs(rs, N)
+        acks = [(rs.rand(N) < 0.6, rs.randint(0, 65536, size=N).astype(np.int32),
+                 rs.rand(N) < 0.3) for _ in range(R)]
+        to, send, rand_ev = rs.rand(N) < 0.3, rs.rand(N) < 0.6, rs.randint(0, 65536, size=N)
+        rand_ev = rand_ev.astype(np.int32)
+        now = int(rs.randint(0, 3000))
+        masks, evs, ecns = ([_t(a[c]) for a in acks] for c in range(3))
+        got = ops.reps_tick(*[_t(a) for a in state], tuple(masks), tuple(evs), tuple(ecns),
+                            _t(to), _t(send), _t(rand_ev), now, 32, 800)
+        got = [g.numpy().astype(np.int32) for g in got]
+        for fn in (jref.reps_tick_ref,
+                   lambda *a: jru.reps_tick_pallas(*a, interpret=True)):
+            st = [np.asarray(a, np.int32) for a in state]
+            for m, e, c in acks:
+                out = fn(*st, m.astype(np.int32), e, c.astype(np.int32), zi, zi, rand_ev,
+                         now, 32, 800)
+                st = [np.asarray(o).astype(np.int32) for o in out[:8]]
+            out = fn(*st, zi, zi, zi, to.astype(np.int32), send.astype(np.int32), rand_ev,
+                     now, 32, 800)
+            for g, w in zip(got, out):
+                np.testing.assert_array_equal(g, np.asarray(w).astype(np.int32))
+
+
+def test_reps_tick_plain_rounds_must_agree():
+    rs = RS(9)
+    state, events = _reps_inputs(rs, 16)
+    m = _t(events[0])
+    with pytest.raises(ValueError, match="disagree on the rounds"):
+        ops.reps_tick(*[_t(a) for a in state], (m, m), (_t(events[1]),), None,
+                      None, None, None, 5, 32, 800)
 
 
 def test_reps_tick_plain_absent_events_are_noops():

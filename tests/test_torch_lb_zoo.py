@@ -3,7 +3,8 @@ registry LB, MixedLB and a SwitchLB over all endpoint variants, stepped
 through ``init_state``, ``draw`` + ``choose_ev``, ``on_ack`` (two feedback
 rounds) and ``on_timeout`` on the same keys and the same event masks,
 with every state leaf and every chosen EV equal (tolerance 0), at 256 and
-at 65536 EVs.  Then the unit tests of tests/test_lb_arena.py, mirrored on
+at 65536 EVs; and ``step``, the engine's one call per tick, against those
+calls one by one for every LB, MixedLB and SwitchLB.  Then the unit tests of tests/test_lb_arena.py, mirrored on
 the port: keyed re-path draws, PLB's idle-gap rollover, SwitchLB's
 evs_size check, and the Prime, SeqBalance and flowlet-table behaviours.
 ``test_fleet_seeds_decorrelated_under_congestion`` waits for the port's
@@ -117,6 +118,55 @@ def test_switch_lb_steps_match_reference(evs):
         assert tsw.name == jsw.name and tsw.evs_size == evs
         step_both(jsw, tsw, seed=branch, evs=evs, jfns=jfns, steps=16, every_call=False,
                   jinit=lambda s, b=branch: jsw.with_branch(s, b))
+
+
+def _step_case(case: str):
+    """(load balancer, ACK rounds) for one ``step`` case."""
+    if case == "mixed":
+        return tlbs.make_lb("mixed", fg="reps", bg="plb", bg_conns=(0, 3, 4, 17, 30, 47)), ROUNDS
+    if case == "switch":
+        variants = [tlbs.make_lb(n, **_kw(n, 65536)) for n in ENDPOINT]
+        return tlbs.SwitchLB(variants, branch=ENDPOINT.index("reps")), ROUNDS
+    if case == "reps-6-rounds":  # more rounds than one reps_tick launch takes
+        return tlbs.make_lb("reps", **_kw("reps", 65536)), 6
+    if case == "reps-no-freezing":
+        return tlbs.RepsLB(evs_size=65536, freezing_timeout=60, enable_freezing=False), ROUNDS
+    return tlbs.make_lb(case, **_kw(case, 65536)), ROUNDS
+
+
+@pytest.mark.parametrize("case", ZOO + ["mixed", "switch", "reps-6-rounds", "reps-no-freezing"])
+def test_step_equals_separate_calls(case):
+    """``LoadBalancer.step`` (the engine's one call per tick; one fused
+    kernel launch for REPS) equals ``on_ack`` per round, ``on_timeout`` and
+    ``choose_ev`` called one by one, on the same draws: the chosen EVs and
+    every state leaf after every tick (tolerance 0)."""
+    lb, rounds = _step_case(case)
+    rs = np.random.RandomState(len(case))
+    base = rng.PRNGKey(len(case), "cpu")
+    fused = calls = lb.init_state(N, rng.fold_in(base, 777))
+    B = lambda a: torch.as_tensor(a)
+    now, last_ev = 0, rs.randint(0, lb.evs_size, size=N).astype(np.int32)
+    for t in range(20):
+        now += int(rs.randint(1, 40))
+        tk = rng.fold_in(base, t)
+        acks = []
+        for r in range(rounds):
+            ev = np.where(rs.rand(N) < 0.8, last_ev, rs.randint(0, lb.evs_size, size=N))
+            acks.append((B(rs.rand(N) < 0.6), B(ev.astype(np.int32)), B(rs.rand(N) < 0.4),
+                         lb.draw_ack(rng.fold_in(rng.fold_in(tk, 4), r), N)))
+        timeout, send = B(rs.rand(N) < 0.15), B(rs.rand(N) < 0.7)
+        draws = (lb.draw_timeout(rng.fold_in(tk, 5), N), lb.draw(rng.fold_in(tk, 2), N))
+        ev_fused, fused = lb.step(fused, acks, timeout, send, draws, now)
+        for mask, ev, ecn, draw in acks:
+            calls = lb.on_ack(calls, mask, ev, ecn, now, draw)
+        calls = lb.on_timeout(calls, timeout, now, draws[0])
+        ev_calls, calls = lb.choose_ev(calls, send, draws[1], now)
+        np.testing.assert_array_equal(ev_fused.numpy(), ev_calls.numpy(), err_msg=f"evs t={t}")
+        a, b = interop.lb_state_to_numpy(fused), interop.lb_state_to_numpy(calls)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{case} t={t}: {k}")
+        last_ev = np.where(send.numpy(), ev_fused.numpy(), last_ev).astype(np.int32)
 
 
 @pytest.mark.parametrize("name,thr", [("plb", 0.5), ("plb", 0.3), ("seqbalance", 0.25),
