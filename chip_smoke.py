@@ -16,10 +16,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      ACK rounds (every event class, and with classes absent; one row and
      with a row axis), ``seg_sum`` on the stacked int32 form and on fields as
      they are (F = 1 ... 8 bool / int32 fields, the engine's four calls among
-     them); then each is timed with CUDA events (median of repeated batches)
-     at the engine's call (``reps_tick``: N = 128, R = 2, every class;
-     ``seg_sum``: the feedback call's five fields) beside its plain version
-     and, for ``seg_sum``, ``index_add_``;
+     them), ``queue_tick`` in the TPU kernel's form and in the engine's (its
+     RED mark and ring slot inside the launch) on busy queues whose tail
+     drops fall in later tiles (K = 300, 512, 2048; Q = 20, 384 and 12000,
+     the last in global scratch; one row and row axes), ``seg_rank`` over
+     many passes, on one repeated key, on ids all out of range and past its
+     count table; then each is timed with CUDA events (median of repeated
+     batches) at the engine's call (``reps_tick``: N = 128, R = 2, every
+     class; ``seg_sum``: the feedback call's five fields; ``queue_tick``: K =
+     512, Q = 384, engine form) beside its plain version, the engine's former
+     call form where there is one and, for ``seg_sum``, ``index_add_``;
   4. main path — the paper's FATTREE_128 fabric (128 hosts, 16 ToR
      uplinks), a 128-connection permutation of 4096-packet messages and the
      fig06 failure schedule (ToR-0 uplinks 0 and 1 down over ticks
@@ -258,12 +264,20 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     main_sr = (shapes["MAX_EV"], NC + 1)
     for B, K, S, n_ids in [(1, *main_sr, NC + 1), (1, shapes["MAX_ARR"], shapes["NQ"] + 1, 40),
                            (2, 1000, 50, 7), (1, 300, 70000, 70000), (3, 129, 129, 3),
-                           (1, 1, 1, 1)]:
+                           (1, 1, 1, 1),
+                           # many passes of the count table; past the table: warp turns
+                           (1, 4096, 50, 7), (2, 2500, 129, 60), (1, 1000, 5000, 5000)]:
         seg = rank_case(B, K, S, n_ids)
         got = sr_mod.seg_rank_cuda(seg, S)
         want = ref.seg_rank_ref(seg, S)
         torch.cuda.synchronize()
         err = max(err, equal_all([got], [want], f"seg_rank B={B} K={K} S={S}"))
+    for what, seg, S in [("one repeated key", i32(np.full((1, 1000), 3)), NC + 1),
+                         ("one key, many passes", i32(np.zeros((2, 4096))), 1),
+                         ("all ids out of range", i32(np.where(rs.rand(1, 1000) < 0.5, -1, 129)),
+                          NC + 1)]:
+        got = sr_mod.seg_rank_cuda(seg, S)
+        err = max(err, equal_all([got], [ref.seg_rank_ref(seg, S)], f"seg_rank {what}"))
     seg = rank_case(1, *main_sr, NC + 1)[0].contiguous()
     S = main_sr[1]
     out = sr_mod.seg_rank_cuda(seg, S)
@@ -350,27 +364,69 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         sv = torch.as_tensor(rs.rand(B, Q) < 0.5, device=dev) if serve else None
         return i32(tgt), u, i32(qlen), sv
 
+    def busy_case(B, K, Q, cap):
+        """Arrivals crowded on a few queues near capacity, so that tail drops
+        fall in later 128-arrival tiles too."""
+        hot = rs.randint(0, Q, size=min(Q, 6))
+        tgt = np.where(rs.rand(B, K) < 0.6, hot[rs.randint(0, len(hot), size=(B, K))],
+                       rs.randint(0, Q, size=(B, K)))
+        tgt[rs.rand(B, K) < 0.3] = Q
+        tgt[rs.rand(B, K) < 0.02] = -2
+        qlen = rs.randint(0, cap + 1, size=(B, Q))
+        qlen[:, hot] = cap - rs.randint(0, 40, size=len(hot))
+        u = torch.as_tensor(rs.rand(B, K).astype(np.float32), device=dev)
+        return i32(tgt), u, i32(qlen), torch.as_tensor(rs.rand(B, Q) < 0.5, device=dev)
+
     Q, K, cap = shapes["NQ"], shapes["MAX_ARR"], shapes["QCAP"]
-    kmin, kmax = shapes["KMIN"], shapes["KMAX"]
-    for B, KK, QQ, busy, serve in [(1, K, Q, Q, False), (1, K, Q, 12, True), (2, 300, Q, 9, True),
-                                   (1, 1000, 60000, 20, False), (1, 5, 3, 3, True)]:
-        args = queue_case(B, KK, QQ, cap, busy, serve)
-        got = qt_mod.queue_tick_cuda(*args, cap, kmin, kmax)
-        want = ref.queue_tick_ref(*args, cap, kmin, kmax, tile=qt_mod.TILE)
-        torch.cuda.synchronize()
-        err = max(err, equal_all(
-            got, want, f"queue_tick B={B} K={KK} Q={QQ} busy={busy} serve={serve}"))
-    tgt, u, qlen, _ = (t[0].contiguous() if t is not None else None
-                       for t in queue_case(1, K, Q, cap, Q, False))
-    outs = qt_mod.queue_tick_cuda(tgt, u, qlen, None, cap, kmin, kmax)
-    b, why = bound_ms(nbytes(tgt, u, qlen, *outs), K + Q)
+    kmin, kmax, pmax = shapes["KMIN"], shapes["KMAX"], shapes["PMAX"]
+    red_rcp = float(np.float32(1.0) / np.float32(kmax - kmin))  # the engine's
+    cases = [(queue_case(B, KK, QQ, cap, busy, serve), f"B={B} K={KK} Q={QQ} busy={busy}")
+             for B, KK, QQ, busy, serve in [
+                 (1, K, Q, Q, False), (1, K, Q, 12, True), (2, 300, Q, 9, True),
+                 (1, 1000, 60000, 20, False), (1, 5, 3, 3, True)]]
+    cases += [(busy_case(B, KK, QQ, cap), f"busy B={B} K={KK} Q={QQ}")
+              for KK in (300, 512, 2048) for B, QQ in [(1, 20), (1, Q), (3, Q), (2, 12000)]]
+    for (tgt_c, u_c, qlen_c, sv_c), what in cases:
+        q_head_c = i32(rs.randint(0, 4 * cap, size=qlen_c.shape))
+        for sv in (None, sv_c):
+            for form in ({}, dict(red_rcp=red_rcp, pmax=pmax, q_head=q_head_c, qcap=cap),
+                         dict(red_rcp=red_rcp, pmax=0.5, q_head=q_head_c, qcap=cap)):
+                args = (tgt_c, u_c, qlen_c, sv, cap, kmin, kmax)
+                got = qt_mod.queue_tick_cuda(*args, **form)
+                want = ref.queue_tick_ref(*args, **form, tile=qt_mod.TILE)
+                torch.cuda.synchronize()
+                err = max(err, equal_all(got, want, f"queue_tick {what} serve={sv is not None} "
+                                                    f"form={sorted(form)} pmax={form.get('pmax')}"))
+    tgt, u, qlen, _ = (t[0].contiguous() for t in queue_case(1, K, Q, cap, Q, True))
+    q_head = i32(rs.randint(0, cap, size=Q))
+    a_valid = tgt < Q  # the engine pads with Q
+    engine = dict(red_rcp=red_rcp, pmax=pmax, q_head=q_head, qcap=cap)
+
+    def call():  # the engine's launch: mark and slot inside
+        return qt_mod.queue_tick_cuda(tgt, u, qlen, None, cap, kmin, kmax, **engine)
+
+    def former():  # the engine's arrivals stage before: the default launch, then its glue
+        new_qlen, k_accept, _, pos = qt_mod.queue_tick_cuda(tgt, u, qlen, None, cap, kmin, kmax)
+        accept = a_valid & k_accept
+        mark_p = torch.clamp((pos.to(torch.float32) - kmin) * red_rcp, 0.0, 1.0) * pmax
+        mark = accept & (u < mark_p)
+        ok = (tgt >= 0) & (tgt < Q)
+        slot = (torch.where(ok, q_head[tgt.clamp(0, Q - 1)], 0) + pos) % cap
+        return new_qlen, accept, mark, pos, slot
+
+    outs = call()
+    err = max(err, equal_all(former(), outs, "queue_tick one launch vs the engine's former glue"))
+    b, why = bound_ms(nbytes(tgt, u, qlen, q_head, *outs), K + Q)
     rows.append(dict(
         name="queue_tick", route="cuda", source="src/repro_torch/csrc/queue_tick.cu",
         replaces="src/repro/kernels/queue_tick.py:75",
-        ms=time_ms(lambda: qt_mod.queue_tick_cuda(tgt, u, qlen, None, cap, kmin, kmax)),
-        eager_ms=eager_ms(lambda: qt_mod.queue_tick_cuda(tgt, u, qlen, None, cap, kmin, kmax)),
-        plain_ms=time_ms(lambda: ref.queue_tick_ref(tgt, u, qlen, None, cap, kmin, kmax)),
-        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err, shape=f"K={K} Q={Q}",
+        ms=time_ms(call), eager_ms=eager_ms(call),
+        eager_old_ms=eager_ms(former), ms_old=time_ms(former),
+        old_form="the default launch, then the mark, slot and accept glue (17 launches)",
+        plain_ms=time_ms(lambda: ref.queue_tick_ref(tgt, u, qlen, None, cap, kmin, kmax,
+                                                    **engine)),
+        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
+        shape=f"K={K} Q={Q} engine form",
     ))
     err = 0.0
 
@@ -511,7 +567,7 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     for e in dev_events:
         by_name[e.name].append(e.time_range.elapsed_us())
     ours = {}
-    for key, tag in (("seg_sum", "seg_sum"), ("seg_rank_kernel", "seg_rank"),
+    for key, tag in (("seg_sum", "seg_sum"), ("seg_rank_", "seg_rank"),
                      ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick"),
                      ("ecmp_hash_kernel", "ecmp_hash")):
         durs = [d for n, ds in by_name.items() if key in n for d in ds]
@@ -649,6 +705,7 @@ def main() -> int:
     ap.add_argument("--zoo-check-ticks", type=int, default=900,
                     help="card-vs-CPU horizon of each zoo load balancer")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -677,9 +734,18 @@ def main() -> int:
     shapes = dict(NC=sim.wl.n_conns, NH=sim.NH, NQ=sim.NQ, R=cfg.feedback_rounds,
                   NHD=sim.NQ - sim.topo.t0_down_base,
                   MAX_EV=sim.MAX_EV, MAX_ARR=sim.MAX_ARR, QCAP=cfg.queue_capacity,
-                  KMIN=cfg.kmin, KMAX=cfg.kmax, U=cfg.uplinks_per_tor)
+                  KMIN=cfg.kmin, KMAX=cfg.kmax, PMAX=cfg.pmax, U=cfg.uplinks_per_tor)
     log(f"main-path shapes: {shapes} NP={sim.NP}")
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:  # the script must stay well inside its time limit
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase:.1f} s (script so far {now - t_start:.1f} s)")
+        t_phase = now
+
     rows = kernel_phase(dev, shapes)
+    phase_done("kernels")
     for r in rows:
         lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         log(f"kernel {r['name']} ({r['shape']}): bit-exact; device {r['ms']:.5f} ms per call "
@@ -691,10 +757,13 @@ def main() -> int:
 
     totals = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)
+    phase_done("main path and profile")
     for k, n in arena_cells(dev, args.arena_ticks).items():
         totals[k] += n
+    phase_done("arena")
     card_vs_cpu(dev, args.check_ticks)
     zoo_card_vs_cpu(dev, args.zoo_check_ticks)
+    phase_done("card vs CPU")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -23,6 +23,18 @@ def require(t, name: str, dtype: torch.dtype, dim: int, device=None, optional=Fa
         raise ValueError(f"{name} must be contiguous")
 
 
+def check(kernel: str, t, name: str, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: every condition in one test, the message only on failure."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a tensor, got {type(t).__name__}")
+    if t.dtype is not dtype or t.device != device or t.shape != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            + ("" if t.is_contiguous() else " (not contiguous)"))
+
+
 def stream_ptr(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of ``device``'s current stream.  The same
     value as ``torch.cuda.current_stream(device).cuda_stream``, read

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernel library.
 
-The sources in ``repro_torch/csrc/*.cu`` expose a plain C interface, so they
-compile with ``nvcc`` alone (no PyTorch headers, seconds instead of minutes)
-and bind through ``ctypes``.  Each source compiles to its own object, all
+The sources in ``repro_torch/csrc/*.cu`` (and the ``*.cuh`` headers they
+share) expose a plain C interface, so they compile with ``nvcc`` alone (no
+PyTorch headers, seconds instead of minutes) and bind through ``ctypes``.  Each source compiles to its own object, all
 ``nvcc`` processes started together, and the objects link into one shared
-library under ``build/repro_torch/`` at the repository root.  A stamp of the sources' hash skips the build
+library under ``build/repro_torch/`` at the repository root.  A stamp of
+the hash of every file in ``csrc/`` (sources and headers) skips the build
 when nothing changed.  Nothing is built on import: the first kernel launch
 builds, so the CPU tests, which never launch, need no CUDA toolkit.
 
@@ -102,12 +103,13 @@ def build(force: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: argument types (every entry point returns cudaGetLastError())
     "repro_seg_sum": [_P, _P, _I, ctypes.c_uint, _L, _P, _I, _I, _I, _P],
     "repro_seg_rank": [_P, _P, _P, _I, _I, _I, _P],
     "repro_reps_tick": [_P] * 9 + [_I] + [_P] * 3 + [_I, _I, _I, _L] + [_P] * 9 + [_P],
-    "repro_queue_tick": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "repro_queue_tick": [_P] * 5 + [_I] * 7 + [_F, _F, _I] + [_P] * 7,
     "repro_ecmp_hash": [_P, _P, _P, _P, _L, _I, _P],
 }
 
@@ -121,6 +123,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.repro_queue_tick_scratch_ints.argtypes = [_I]
+        lib.repro_queue_tick_scratch_ints.restype = _L
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

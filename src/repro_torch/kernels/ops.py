@@ -57,11 +57,15 @@ def reps_tick(*args):
     return ref.reps_tick_ref(*args)
 
 
-def queue_tick(target, u, qlen, serve, capacity, kmin, kmax):
-    """One switch tick: serve + enqueue + RED; see ``ref.queue_tick_ref``."""
+def queue_tick(target, u, qlen, serve, capacity, kmin, kmax, red_rcp=None, pmax=1.0,
+               q_head=None, qcap=None):
+    """One switch tick: serve + enqueue + RED, optionally with the
+    simulator's RED mark (``red_rcp``, ``pmax``) and each arrival's ring slot
+    (``q_head``, ``qcap``); see ``ref.queue_tick_ref``."""
+    args = (target, u, qlen, serve, capacity, kmin, kmax, red_rcp, pmax, q_head, qcap)
     if _on_cuda(target, "queue_tick"):
-        return _qt.queue_tick_cuda(target, u, qlen, serve, capacity, kmin, kmax)
-    return ref.queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=_qt.TILE)
+        return _qt.queue_tick_cuda(*args)
+    return ref.queue_tick_ref(*args, tile=_qt.TILE)
 
 
 def ecmp_hash(flow, ev, salt, nports: int) -> torch.Tensor:

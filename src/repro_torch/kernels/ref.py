@@ -117,14 +117,23 @@ def reps_tick_ref(
 
 
 # ---------------------------------------------------------------------------
-def queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=128):
+def queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, red_rcp=None, pmax=1.0,
+                   q_head=None, qcap=None, tile=128):
     """Serve-then-enqueue with FIFO ranking, tail drop and RED marking, in
     the reference kernel's ``tile``-sized arrival chunks: each chunk's insert
     positions are computed against the running occupancy (lengths at tick
     start, minus service, plus the *accepted* arrivals of earlier chunks), so
     the chunking decides ``pos`` of rejected arrivals.  ``serve=None`` serves
     nothing.  Returns ``(new_qlen, accept, mark, pos)``; ``target (..., K)``,
-    ``qlen (..., Q)``."""
+    ``qlen (..., Q)``.
+
+    The mark is the reference kernel's, ``u < clamp((pos - kmin) / max(kmax
+    - kmin, 1), 0, 1)`` with IEEE division, unless ``red_rcp`` is given: then
+    it is the simulator's, ``u < clamp((float(pos) - kmin) * red_rcp, 0, 1) *
+    pmax`` (the float32 reciprocal multiply XLA makes of the reference
+    engine's division).  With ``q_head (..., Q)`` the result also holds each
+    arrival's ring slot ``(q_head[target] + pos) % qcap``, ``q_head`` read as
+    0 for targets outside ``[0, Q)``."""
     Q, K = qlen.shape[-1], target.shape[-1]
     dev = qlen.device
     run = qlen.to(torch.int32)
@@ -148,4 +157,12 @@ def queue_tick_ref(target, u, qlen, serve, capacity, kmin, kmax, tile=128):
         run = run + (onehot * accept[..., None]).sum(dim=-2, dtype=torch.int32)
         accepts.append(accept)
         poss.append(pos)
-    return run, torch.cat(accepts, -1), torch.cat(marks, -1), torch.cat(poss, -1)
+    accept, mark, pos = torch.cat(accepts, -1), torch.cat(marks, -1), torch.cat(poss, -1)
+    if red_rcp is not None:
+        mark_p = torch.clamp((pos.to(torch.float32) - kmin) * red_rcp, 0.0, 1.0) * pmax
+        mark = accept & (u < mark_p)
+    if q_head is None:
+        return run, accept, mark, pos
+    ok = (target >= 0) & (target < Q)
+    head = torch.gather(q_head, -1, target.clamp(0, Q - 1).to(torch.int64))
+    return run, accept, mark, pos, (torch.where(ok, head, 0) + pos) % qcap

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._checks import stream_ptr
+from repro_torch.kernels._checks import check, stream_ptr
 
 BUF = 8  # paper buffer depth, compiled into the kernel
 MAX_ROUNDS = 4  # ACK rounds one launch takes, compiled into the kernel
@@ -59,13 +59,13 @@ def reps_tick_cuda(
     ring = (*shape, BUF)
     state = (buf_ev, buf_valid, head, num_valid, explore, freezing, exit_freeze, n_cached)
     for t, (name, dt, is_ring) in zip(state, _STATE):
-        _check(t, name, dt, ring if is_ring else shape, dev)
+        check("reps_tick", t, name, dt, ring if is_ring else shape, dev)
     b8, i32 = torch.bool, torch.int32
     events = [(t, dt) for rnd in rounds for t, dt in zip(rnd, (b8, i32, b8))]
     events += ((timeout_mask, b8), (send_mask, b8), (rand_ev, i32))
     for t, dt in events:
         if t is not None:
-            _check(t, "event", dt, shape, dev)
+            check("reps_tick", t, "event", dt, shape, dev)
     if buf_ev.data_ptr() % 16 or buf_valid.data_ptr() % 8:
         raise ValueError("reps_tick: the rings must be 16-byte (buf_ev) and 8-byte "
                          "(buf_valid) aligned; pass a copy of an offset view")
@@ -91,13 +91,3 @@ def reps_tick_cuda(
     build.check(rc, "reps_tick")
     launches += 1
     return outs
-
-
-def _check(t, name: str, dtype: torch.dtype, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"reps_tick: {name} must be a tensor, got {type(t).__name__}")
-    if t.dtype is not dtype or t.device != device or t.shape != shape or not t.is_contiguous():
-        raise ValueError(
-            f"reps_tick: {name} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
-            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            + ("" if t.is_contiguous() else " (not contiguous)"))

@@ -880,17 +880,17 @@ class Simulator:
         target = torch.where(a_valid, target, NQ)
         u_red = draws.u_red
 
-        # fused enqueue kernel; service already happened, so it serves nothing
-        q_len, k_accept, _, pos = kernel_ops.queue_tick(
-            target, u_red, q_len, None, QCAP, cfg.kmin, cfg.kmax
+        # fused enqueue kernel: service already happened, so it serves nothing;
+        # it also makes the RED mark ((pos - kmin) / (kmax - kmin), which XLA
+        # multiplies by the float32 reciprocal, times pmax) and the ring slot.
+        # Its accept needs no `& a_valid`: target is NQ wherever ~a_valid,
+        # and the kernel accepts no target >= NQ.
+        q_len, accept, mark, _, slot = kernel_ops.queue_tick(
+            target, u_red, q_len, None, QCAP, cfg.kmin, cfg.kmax,
+            red_rcp=self._red_rcp, pmax=cfg.pmax, q_head=q_head, qcap=QCAP,
         )
-        accept = a_valid & k_accept
         dropd = a_valid & ~accept
-        # (pos - kmin) / (kmax - kmin): XLA multiplies by the float32 reciprocal
-        mark_p = torch.clamp((pos.to(F32) - cfg.kmin) * self._red_rcp, 0.0, 1.0) * cfg.pmax
-        mark = accept & (u_red < mark_p)
         ecn_marks_d = mark.sum(dtype=I32)
-        slot = (_get(q_head, target, 0) + pos) % QCAP
         qbuf = st.qbuf.clone()
         qbuf[torch.where(accept, target, NQ), slot] = a_idx
         # congestion drops: trim -> NACK; else silent (await RTO); orphans free

@@ -64,6 +64,83 @@ def test_reps_and_queue_kernels_match_plain_versions(dev):
             assert torch.equal(x, y)
 
 
+def _queue_case(rs, dev, B, K, Q, cap=85):
+    """Busy queues near capacity (tail drops in later tiles), padding and
+    negative targets, a row axis when B > 1."""
+    shape, qshape = ((B, K), (B, Q)) if B > 1 else ((K,), (Q,))
+    hot = rs.randint(0, Q, size=min(Q, 6))
+    tgt = np.where(rs.rand(*shape) < 0.6, hot[rs.randint(0, len(hot), size=shape)],
+                   rs.randint(0, Q, size=shape))
+    tgt[rs.rand(*shape) < 0.3] = Q
+    tgt[rs.rand(*shape) < 0.02] = -2
+    qlen = rs.randint(0, cap + 1, size=qshape)
+    qlen[..., hot] = cap - rs.randint(0, 40, size=len(hot))
+    u = rs.rand(*shape).astype(np.float32)
+    q_head = rs.randint(0, 4 * cap, size=qshape).astype(np.int32)
+    return (_on(dev, tgt.astype(np.int32)), _on(dev, u), _on(dev, qlen.astype(np.int32)),
+            _on(dev, rs.rand(*qshape) < 0.5), _on(dev, q_head))
+
+
+@pytest.mark.parametrize("K", [300, 512, 2048])
+def test_queue_tick_forms_match_plain_version(dev, K):
+    """Both forms — the TPU kernel's and the engine's (its RED mark and ring
+    slot) — against the plain version: Q = 20 and 384 in shared memory,
+    Q = 12000 in the global scratch row, one row and a row axis."""
+    rs = np.random.RandomState(K)
+    rcp = float(np.float32(1.0) / np.float32(51))
+    for B, Q in [(1, 20), (1, 384), (3, 384), (2, 20), (1, 12000), (2, 12000)]:
+        tgt, u, qlen, serve, q_head = _queue_case(rs, dev, B, K, Q)
+        for sv in (None, serve):
+            args = (tgt, u, qlen, sv, 85, 17, 68)
+            got = ops.queue_tick(*args)
+            want = ref.queue_tick_ref(*args)
+            assert len(got) == 4
+            for x, y in zip(got, want, strict=True):
+                assert torch.equal(x, y), (B, Q, sv is None)
+            for pmax in (1.0, 0.5):
+                kw = dict(red_rcp=rcp, pmax=pmax, q_head=q_head, qcap=85)
+                got = ops.queue_tick(*args, **kw)
+                want = ref.queue_tick_ref(*args, **kw)
+                assert len(got) == 5
+                for x, y in zip(got, want, strict=True):
+                    assert torch.equal(x, y), (B, Q, sv is None, pmax)
+
+
+def test_seg_rank_edge_cases_match_plain_version(dev):
+    """Many passes (K = 4096), one repeated key, all ids out of range, a row
+    axis, and S past the count table (warp turns on a shared and on a
+    global histogram)."""
+    rs = np.random.RandomState(4)
+    cases = [(np.where(rs.rand(4096) < 0.25, 50, rs.randint(0, 7, size=4096)), 50),
+             (np.full(1000, 3), 129), (np.full(4096, 0), 1),
+             (np.where(rs.rand(1000) < 0.5, 129, -1), 129),
+             (rs.randint(-1, 60, size=(3, 2500)), 57), (rs.randint(0, 40, size=(2, 128)), 129),
+             (rs.randint(0, 5000, size=1000), 5000), (rs.randint(0, 70000, size=300), 70000)]
+    for seg, S in cases:
+        seg = _on(dev, seg.astype(np.int32))
+        assert torch.equal(ops.seg_rank(seg, S), ref.seg_rank_ref(seg, S)), (tuple(seg.shape), S)
+
+
+def test_queue_and_rank_wrappers_raise(dev):
+    tgt, u, qlen, serve, q_head = _queue_case(np.random.RandomState(5), dev, 1, 300, 20)
+    with pytest.raises(ValueError, match="u must be"):
+        ops.queue_tick(tgt, u.double(), qlen, None, 85, 17, 68)
+    with pytest.raises(ValueError, match="target must be"):
+        ops.queue_tick(tgt.long(), u, qlen, None, 85, 17, 68)
+    with pytest.raises(ValueError, match="u must be"):
+        ops.queue_tick(tgt, u[:-1], qlen, None, 85, 17, 68)
+    with pytest.raises(ValueError, match="serve must be"):
+        ops.queue_tick(tgt, u, qlen, serve[:-1], 85, 17, 68)
+    with pytest.raises(ValueError, match="q_head must be"):
+        ops.queue_tick(tgt, u, qlen, None, 85, 17, 68, q_head=q_head.long(), qcap=85)
+    with pytest.raises(ValueError, match="qcap"):
+        ops.queue_tick(tgt, u, qlen, None, 85, 17, 68, q_head=q_head)
+    with pytest.raises(ValueError, match="seg must be"):
+        ops.seg_rank(tgt.long(), 20)
+    with pytest.raises(ValueError, match="seg must be"):
+        ops.seg_rank(tgt[None, None], 20)
+
+
 def test_seg_sum_field_sequence_matches_plain_version(dev):
     """Fields as they are (bool and int32 mixed, contiguous views with an
     offset among them), one row and with a row axis."""

@@ -247,3 +247,120 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_nothing():
     ops.ecmp_hash(seg, seg, seg, 4)
     assert ops.launch_counts() == {
         "seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0, "ecmp_hash": 0}
+
+
+# ---------------------------------------------------------------------------
+def _busy_queue_case(rs, K, Q, cap=85):
+    """Arrivals crowded on a few queues near capacity, so that tail drops
+    fall in later 128-arrival tiles too; 30 % padding (target Q) and a few
+    negative targets."""
+    hot = rs.randint(0, Q, size=min(Q, 6))
+    tgt = np.where(rs.rand(K) < 0.6, hot[rs.randint(0, len(hot), size=K)], rs.randint(0, Q, size=K))
+    tgt[rs.rand(K) < 0.3] = Q
+    tgt[rs.rand(K) < 0.02] = -2
+    qlen = rs.randint(0, cap + 1, size=Q)
+    qlen[hot] = cap - rs.randint(0, 40, size=len(hot))
+    return tgt.astype(np.int32), qlen.astype(np.int32)
+
+
+@pytest.mark.parametrize("serve", [False, True])
+@pytest.mark.parametrize("Q", [20, 384])
+@pytest.mark.parametrize("K", [300, 512, 2048])
+def test_queue_tick_plain_default_form_vs_pallas(K, Q, serve):
+    """The default form (the TPU kernel's function) is bit-equal to
+    ``queue_tick_pallas`` in interpret mode with busy queues whose tail
+    drops fall in later tiles."""
+    rs = RS(7 * K + Q + serve)
+    cap, kmin, kmax = 85, 17, 68
+    tgt, qlen = _busy_queue_case(rs, K, Q, cap)
+    u = rs.rand(K).astype(np.float32)
+    sv = rs.rand(Q) < 0.5 if serve else np.zeros(Q, bool)
+    got = ops.queue_tick(_t(tgt), _t(u), _t(qlen), _t(sv) if serve else None, cap, kmin, kmax)
+    assert len(got) == 4
+    got = [g.numpy() for g in got]
+    pallas = jqt.queue_tick_pallas(tgt, u, qlen, sv.astype(np.int32), cap, kmin, kmax,
+                                   interpret=True)
+    for g, p in zip(got, pallas):
+        np.testing.assert_array_equal(g, np.asarray(p))
+    real = (tgt >= 0) & (tgt < Q)
+    later = np.arange(K) >= 128
+    assert (got[1] & later).sum() > 0 and (~got[1] & real & later).sum() > 0
+
+
+def _jax_engine_mark_and_slot(pos, accept, u, target, q_head, kmin, kmax, pmax, qcap):
+    """The reference engine's RED mark and ring slot (src/repro/netsim/engine.py,
+    arrivals stage), jitted as the engine is, on the Pallas kernel's outputs."""
+    import jax
+    import jax.numpy as jnp
+
+    @jax.jit
+    def f(pos, accept, u, target, q_head):
+        mark_p = jnp.clip((pos.astype(jnp.float32) - kmin) / float(kmax - kmin), 0.0, 1.0) * pmax
+        slot = (q_head.at[target].get(mode="fill", fill_value=0) + pos) % qcap
+        return accept & (u < mark_p), slot
+
+    return [np.asarray(a) for a in f(pos, accept, u, target, q_head)]
+
+
+@pytest.mark.parametrize("pmax", [1.0, 0.5])
+@pytest.mark.parametrize("K,Q", [(512, 384), (2048, 20), (300, 384)])
+def test_queue_tick_plain_engine_form_vs_jax_engine_arithmetic(K, Q, pmax):
+    """The engine form (``red_rcp``, ``pmax``, ``q_head``) is bit-equal to the
+    JAX engine's own arithmetic composed on the Pallas kernel's outputs.  At
+    FATTREE_128's kmin = 17, kmax = 68 the engine's reciprocal multiply and
+    the kernel's division differ by one ulp at 8 ramp positions; half of the
+    arrivals get ``u`` exactly at the smaller of the two ramps, so the two
+    forms' marks must differ there."""
+    rs = RS(K + Q + int(pmax * 10))
+    cap, kmin, kmax, qcap = 85, 17, 68, 85
+    tgt, qlen = _busy_queue_case(rs, K, Q, cap)
+    tgt[tgt < 0] = Q  # the engine pads with Q; jnp would wrap a negative index
+    cool = qlen < kmin  # put them on the ramp, where the two marks can differ
+    qlen[cool] = rs.randint(kmin - 3, kmax, size=int(cool.sum()))
+    q_head = rs.randint(0, 4 * qcap, size=Q).astype(np.int32)
+    zero = np.zeros(Q, np.int32)
+    p_qlen, p_acc, _, p_pos = (np.asarray(a) for a in jqt.queue_tick_pallas(
+        tgt, np.zeros(K, np.float32), qlen, zero, cap, kmin, kmax, interpret=True))
+    rcp = np.float32(1.0) / np.float32(kmax - kmin)
+    f32 = np.float32
+    ramp_div = np.clip((p_pos - kmin).astype(f32) / f32(kmax - kmin), 0, 1)
+    ramp_rcp = np.clip((p_pos.astype(f32) - f32(kmin)) * rcp, 0, 1)
+    edge = (np.minimum(ramp_div, ramp_rcp) * f32(pmax)).astype(f32)
+    u = np.where(rs.rand(K) < 0.5, edge, rs.rand(K).astype(f32)).astype(f32)
+    want_mark, want_slot = _jax_engine_mark_and_slot(p_pos, p_acc, u, tgt, q_head, kmin, kmax,
+                                                     pmax, qcap)
+    got = ops.queue_tick(_t(tgt), _t(u), _t(qlen), None, cap, kmin, kmax, red_rcp=float(rcp),
+                         pmax=pmax, q_head=_t(q_head), qcap=qcap)
+    assert len(got) == 5
+    qlen_g, acc_g, mark_g, pos_g, slot_g = (g.numpy() for g in got)
+    np.testing.assert_array_equal(qlen_g, p_qlen)
+    np.testing.assert_array_equal(acc_g, p_acc)
+    np.testing.assert_array_equal(pos_g, p_pos)
+    np.testing.assert_array_equal(mark_g, want_mark)
+    np.testing.assert_array_equal(slot_g, want_slot)
+    default = ops.queue_tick(_t(tgt), _t(u), _t(qlen), None, cap, kmin, kmax)[2].numpy()
+    if pmax == 1.0:  # the one-ulp ramp positions are hit
+        assert (default != mark_g).any()
+        assert set(p_pos[default != mark_g]) <= {20, 23, 29, 41, 42, 65, 66, 67}
+
+
+@pytest.mark.parametrize("case", ["passes", "one_key", "all_sentinel"])
+def test_seg_rank_plain_edge_cases_vs_pallas(case):
+    """K = 4096 (many of the kernel's passes), one key repeated everywhere,
+    and ids that are all out of range."""
+    rs = RS(len(case))
+    K, S = (4096, 50) if case == "passes" else (1000, 129)
+    if case == "passes":
+        seg = rs.randint(0, 7, size=K)
+        seg[rs.rand(K) < 0.25] = S
+    elif case == "one_key":
+        seg = np.full(K, 3)
+    else:
+        seg = np.where(rs.rand(K) < 0.5, S, -1)
+    seg = seg.astype(np.int32)
+    got = ops.seg_rank(_t(seg), S).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jsr.seg_rank_pallas(seg, S, interpret=True)))
+    if case == "one_key":
+        np.testing.assert_array_equal(got, np.arange(K))
+    if case == "all_sentinel":
+        assert (got == 0).all()

@@ -56,9 +56,9 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int) -> dict:
     if device == "cpu":
         torch.set_num_threads(1)
         for name in ops.KERNEL_MODULES:  # each entry point is one call
-            def counted(*args, _fn=getattr(ops, name), _tag=f"repro_torch::{name}"):
+            def counted(*args, _fn=getattr(ops, name), _tag=f"repro_torch::{name}", **kw):
                 with record_function(_tag):
-                    return _fn(*args)
+                    return _fn(*args, **kw)
             setattr(ops, name, counted)
     elif not torch.cuda.is_available():
         raise SystemExit("tick_ops: no CUDA device (pass --device cpu to count on the CPU)")
