@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      torch / CUDA versions;
   2. build — compiles ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per source,
      all in parallel) into one library and loads it;
-  3. kernels — each of the five kernels against its plain PyTorch version on
+  3. kernels — each of the six kernels against its plain PyTorch version on
      the card, bit for bit, at the main path's shapes and at edge shapes:
      ``reps_tick`` in the TPU kernel's one-round form and with R = 2 and 4
      ACK rounds (every event class, and with classes absent; one row and
@@ -21,36 +21,47 @@ Phases, in order; any failure exits non-zero and prints no result:
      drops fall in later tiles (K = 300, 512, 2048; Q = 20, 384 and 12000,
      the last in global scratch; one row and row axes), ``seg_rank`` over
      many passes, on one repeated key, on ids all out of range and past its
-     count table; then each is timed with CUDA events (median of repeated
-     batches) at the engine's call (``reps_tick``: N = 128, R = 2, every
-     class; ``seg_sum``: the feedback call's five fields; ``queue_tick``: K =
-     512, Q = 384, engine form) beside its plain version, the engine's former
-     call form where there is one and, for ``seg_sum``, ``index_add_``;
+     count table, the flat ``ecmp_hash``, and ``next_queue`` (the routing
+     step, the redesign of ``ecmp_hash``) in both its forms on five fabrics
+     (2-tier FATTREE_128, FATTREE_128_OVERSUB4, FATTREE_1024; 3-tier
+     FATTREE_128_3T and a 32-host one) with empty slots, fresh injections
+     (queue -1), every region as the current queue, tied queue lengths,
+     with and without adaptive routing and penalty; then each is timed with
+     CUDA events (median of repeated batches) at the engine's call
+     (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
+     call's five fields; ``queue_tick``: K = 512, Q = 384, engine form;
+     ``next_queue``: K = 512, NQ = 384, engine form, ECMP) beside its plain
+     version, the engine's former call form where there is one and, for
+     ``seg_sum``, ``index_add_``;
   4. main path — the paper's FATTREE_128 fabric (128 hosts, 16 ToR
      uplinks), a 128-connection permutation of 4096-packet messages and the
      fig06 failure schedule (ToR-0 uplinks 0 and 1 down over ticks
      150-800 and 1200-2400), run for OPS and for REPS (freezing timeout
      800) on the kernels; each kernel's launch count must equal its
-     per-tick count times the ticks (``reps_tick`` 1 per tick where REPS
-     runs, ``seg_sum`` 4).
+     per-tick count times the ticks (``next_queue`` 1, ``ecmp_hash`` 0,
+     ``reps_tick`` 1 per tick where REPS runs, ``seg_sum`` 4).
      A profiled window of 100 REPS ticks then shows where a tick's time
      goes (device busy share, launches per tick, kernel device times);
-  5. arena — the LB arena's failure block at full width: FATTREE_128, a
+  5. fig18/3tier/reps — the 3-tier fabric at full width (FATTREE_128_3T), a
+     permutation of 2048-packet messages, REPS, with exact launch counts and
+     every queue region carrying traffic; card == CPU on every leaf after
+     a shorter horizon;
+  6. arena — the LB arena's failure block at full width: FATTREE_128, a
      permutation of 1024-packet messages and 5 % of the ToR uplinks down
      from tick 150 on (``benchmarks/arena.py``), for each of the nine zoo
      load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
      ECMP background) on fig05's background cohort; exact launch counts
-     per load balancer (the ECMP hash once per tick wherever packets are
-     hashed, none under adaptive RoCE; ``reps_tick`` 1 per tick where REPS
-     runs (reps, mixed));
-  6. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
+     per load balancer (``next_queue`` once per tick for every LB, adaptive
+     RoCE included; ``reps_tick`` 1 per tick where REPS runs (reps, mixed));
+  7. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
      first failure and REPS freezing), then every zoo load balancer on
      FATTREE_32_CI under a ToR-uplink failure past the RTO, each on the
      card with the kernels and on the CPU through the plain versions;
      every ``SimState`` leaf must be equal.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` counts the main path's and the arena's runs); the last line
+(``launches`` counts the main path's, fig18's and the arena's runs; the flat
+``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -168,6 +179,7 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     import torch
 
     from repro_torch.kernels import ecmp_hash as eh_mod
+    from repro_torch.kernels import next_queue as nq_mod
     from repro_torch.kernels import queue_tick as qt_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import reps_update as ru_mod
@@ -461,6 +473,139 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
         shape=f"K={K} nports={U}",
     ))
+    err = 0.0
+
+    # ---- next_queue: the routing step, the redesign of ecmp_hash -------------
+    from repro_torch.configs import arcane_paper as presets
+    from repro_torch.netsim import Topology
+    from repro_torch.netsim.engine import PCONN, PCURQ, PEV, PF, PHOP
+
+    def route_case(topo, K, NP, NC, penalty):
+        """Arrivals in the engine's form: empty slots among them, fresh
+        injections (hop 0, queue -1), every region's first and last queue as
+        a current queue, lengths in [0, 3) (ties: the first-least rule
+        decides) and 4 x capacity of penalty on 15 % of queues."""
+        cfg, NQ = topo.cfg, topo.n_queues
+        conn_src = rs.randint(0, cfg.n_hosts, size=NC)
+        near = rs.rand(NC) < 0.3  # same-ToR pairs as well as far ones
+        conn_dst = np.where(near, conn_src // cfg.hosts_per_tor * cfg.hosts_per_tor
+                            + rs.randint(0, cfg.hosts_per_tor, size=NC),
+                            rs.randint(0, cfg.n_hosts, size=NC))
+        pkt = np.zeros((PF, NP + 1), np.int64)
+        pkt[PCONN] = rs.randint(0, NC, size=NP + 1)
+        pkt[PEV] = rs.randint(0, 65536, size=NP + 1)
+        pkt[PHOP] = rs.randint(1, 5, size=NP + 1)
+        pkt[PCURQ] = rs.randint(0, NQ, size=NP + 1)
+        bounds = sorted({topo.t0_up_base, topo.agg_up_base, topo.core_down_base,
+                         topo.agg_down_base, topo.t0_down_base, NQ} - {-1})
+        edges = [q for lo, hi in zip(bounds[:-1], bounds[1:]) for q in (lo, hi - 1)]
+        pkt[PCURQ, : len(edges)] = edges
+        inj = rs.rand(NP + 1) < 0.3
+        inj[: len(edges)] = False
+        pkt[PHOP, inj] = 0
+        pkt[PCURQ, inj] = -1
+        a_idx = rs.randint(0, NP, size=K)
+        a_idx[rs.rand(K) < 0.25] = NP
+        a_idx[: min(K, len(edges))] = np.arange(min(K, len(edges)))
+        if K > 5:
+            a_idx[-5:] = NP
+        q_pen = np.where(rs.rand(NQ) < 0.15, 4 * cfg.queue_capacity, 0)
+        a_idx, pkt = i32(a_idx), i32(pkt)
+        A = pkt[:, a_idx.clamp(max=NP - 1)]
+        return dict(a_idx=a_idx, rows=(A[PHOP], A[PCURQ], A[PCONN], A[PEV]), NP=NP,
+                    conn_src=i32(conn_src), conn_dst=i32(conn_dst),
+                    q_len=i32(rs.randint(0, 3, size=NQ)), q_pen=i32(q_pen) if penalty else None)
+
+    def route_forms(g, c, adaptive):
+        """The engine's form, and the reference form on the same arrivals."""
+        hop, cur, conn, ev = c["rows"]
+        cc = conn.clamp(0, c["conn_src"].numel() - 1)
+        engine = (g, hop, cur, conn, ev, c["conn_src"], c["conn_dst"], c["q_len"], adaptive,
+                  c["q_pen"], c["a_idx"], c["NP"])
+        reference = (g, hop == 0, cur, conn, ev, c["conn_src"][cc], c["conn_dst"][cc],
+                     c["q_len"], adaptive, c["q_pen"])
+        return engine, reference
+
+    fabrics = [("FATTREE_128", {}), ("FATTREE_128_OVERSUB4", {}), ("FATTREE_1024", {}),
+               ("FATTREE_128_3T", {}),
+               ("FATTREE_32_CI", dict(hosts_per_tor=4, tiers=3, tors_per_pod=2,
+                                      aggs_per_pod=4, agg_uplinks=2))]
+    n_cases = 0
+    for name, kw in fabrics:
+        topo = Topology.build(getattr(presets, name).replace(**kw))
+        g, main_k = topo.geometry, topo.n_queues + topo.cfg.n_hosts  # the engine's MAX_ARR
+        for K in (main_k, 77, 1):
+            for penalty in (True, False):
+                c = route_case(topo, K, 32768 if K == main_k else 600, 128, penalty)
+                for adaptive in (False, True):
+                    for form, args in zip(("engine", "reference"), route_forms(g, c, adaptive)):
+                        got = nq_mod.next_queue_cuda(*args)
+                        want = ref.next_queue_ref(*args)
+                        torch.cuda.synchronize()
+                        err = max(err, equal_all([got], [want], (
+                            f"next_queue {name} K={K} {form} form adaptive={adaptive} "
+                            f"penalty={penalty}")))
+                        n_cases += 1
+    log(f"kernel next_queue: {n_cases} cases bit-exact (5 fabrics x K in (MAX_ARR, 77, 1) x "
+        f"penalty x adaptive x both forms)")
+
+    def timed(name, adaptive):  # the engine's call on one fabric: K = MAX_ARR, NP = 32768
+        topo = Topology.build(getattr(presets, name))
+        c = route_case(topo, topo.n_queues + topo.cfg.n_hosts, 32768, 128, True)
+        args = route_forms(topo.geometry, c, adaptive)[0]
+        return topo, c, args, time_ms(lambda: nq_mod.next_queue_cuda(*args))
+
+    for name, adaptive in (("FATTREE_128", True), ("FATTREE_128_3T", False),
+                           ("FATTREE_128_3T", True)):
+        topo, _, args, ms = timed(name, adaptive)
+        log(f"kernel next_queue at {name} (K={args[10].numel()}, engine form, "
+            f"adaptive={adaptive}): device {ms:.5f} ms, plain "
+            f"{time_ms(lambda: ref.next_queue_ref(*args)):.5f} ms")
+
+    # the main path's call: FATTREE_128, K = 512, engine form, ECMP (fig06)
+    topo, c, args, ms = timed("FATTREE_128", False)
+    g, NQ, NP = topo.geometry, topo.n_queues, c["NP"]
+    hop, cur, conn, ev = c["rows"]
+    a_idx, conn_src, conn_dst = c["a_idx"], c["conn_src"], c["conn_dst"]
+    a_valid = a_idx < NP  # the engine computes it for later stages either way
+
+    def former():  # the arrivals stage before: its glue, the 2-tier body, the flat hash
+        a_conn = torch.where(a_valid, conn, 0)
+        a_ev = torch.where(a_valid, ev, 0)
+        a_inj = torch.where(a_valid, hop, 1) == 0
+        a_cur = torch.where(a_valid, cur, 0)
+        a_cc = a_conn.clamp(0, conn_src.numel() - 1)
+        src, dst = conn_src[a_cc], conn_dst[a_cc]
+        H, U, T = g.hosts_per_tor, g.uplinks_per_tor, g.n_tors
+        src_tor, dst_tor = src // H, dst // H
+        same_tor = src_tor == dst_tor
+        t0_down = g.t0_down_base + dst_tor * H + dst % H
+        t0_up = g.t0_up_base + src_tor * U + eh_mod.ecmp_hash_cuda(a_conn, a_ev, src_tor, U)
+        at_t0_up = a_cur < g.core_down_base
+        spine = torch.where(at_t0_up, a_cur - g.t0_up_base, 0) % U
+        sp_down = g.core_down_base + spine * T + dst_tor
+        nxt = torch.where(a_inj, torch.where(same_tor, t0_down, t0_up),
+                          torch.where(at_t0_up, sp_down, t0_down)).to(torch.int32)
+        return torch.where(a_valid, nxt, NQ)
+
+    out = nq_mod.next_queue_cuda(*args)
+    err = max(err, equal_all([former()], [out], "next_queue one launch vs the engine's former glue"))
+    K, valid = a_idx.numel(), int(a_valid.sum())
+    # a_idx read and the target written for every slot; per arrival four
+    # packet-row words and two connection-table words (ECMP: no q_len);
+    # ~40 integer operations per arrival (the hash's ~15, the routing's ~25)
+    b, why = bound_ms(4 * K + 4 * K + 24 * valid, 40 * valid)
+    rows.append(dict(
+        name="next_queue", route="cuda", source="src/repro_torch/csrc/next_queue.cu",
+        replaces="src/repro/kernels/ecmp_hash.py:40",
+        ms=ms, eager_ms=eager_ms(lambda: nq_mod.next_queue_cuda(*args)),
+        eager_old_ms=eager_ms(former), ms_old=time_ms(former),
+        old_form="the engine's gathers and masks, Topology.next_queue's body and the flat "
+                 "ecmp_hash kernel",
+        plain_ms=time_ms(lambda: ref.next_queue_ref(*args)),
+        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
+        shape=f"K={K} ({valid} arrivals) NQ={NQ} engine form, ECMP; redesign of ecmp_hash",
+    ))
     return rows
 
 
@@ -508,10 +653,11 @@ def main_path(dev, ticks: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.netsim import summarize
 
+    # the routing step is one next_queue launch; the flat hash runs no more
     per_tick = {"ops": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 0,
-                        "ecmp_hash": 1},
+                        "next_queue": 1, "ecmp_hash": 0},
                 "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 1,
-                         "ecmp_hash": 1}}
+                         "next_queue": 1, "ecmp_hash": 0}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     for lb in ("ops", "reps"):
         sim = fig06_cell(lb, dev)
@@ -541,7 +687,7 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     """Where a main-path tick's time goes: ``torch.profiler`` over ``ticks``
     ticks of the REPS cell (after ``warm`` ticks): wall time per tick, the
     device's busy share (summed kernel time / wall; one stream, so kernels
-    do not overlap), device launches per tick and the port's five kernels'
+    do not overlap), device launches per tick and the port's kernels'
     device time per launch inside the real tick."""
     import collections
 
@@ -569,7 +715,7 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     ours = {}
     for key, tag in (("seg_sum", "seg_sum"), ("seg_rank_", "seg_rank"),
                      ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick"),
-                     ("ecmp_hash_kernel", "ecmp_hash")):
+                     ("ecmp_hash_kernel", "ecmp_hash"), ("next_queue_kernel", "next_queue")):
         durs = [d for n, ds in by_name.items() if key in n for d in ds]
         if durs:
             ours[tag] = (len(durs) / ticks, statistics.median(durs), sum(durs) / ticks)
@@ -583,6 +729,75 @@ def profile_window(dev, warm: int, ticks: int) -> None:
             f"per launch, {tot:.2f} us per tick")
     for name, durs in top:
         log(f"profile top: {sum(durs) / ticks:8.2f} us/tick {len(durs) / ticks:5.1f}x  {name[:90]}")
+
+
+def fig18_cell(device):
+    """fig18's 3-tier fabric at full width: FATTREE_128_3T (128 hosts, 8 ToRs
+    in 4 pods of 2, 4 aggs per pod with 4 core uplinks each, 16 cores), a
+    permutation of 2048-packet messages, REPS, no failures
+    (``benchmarks/fig18_three_tier.py`` at full scale)."""
+    from repro_torch.configs import FATTREE_128_3T
+    from repro_torch.core import make_lb
+    from repro_torch.netsim import Simulator, workloads
+
+    cfg = FATTREE_128_3T
+    return Simulator(cfg, workloads.permutation(cfg.n_hosts, 2048, seed=3),
+                     make_lb("reps", evs_size=cfg.evs_size), device=device)
+
+
+def three_tier_cell(dev, ticks: int, check_ticks: int) -> dict:
+    """The fig18/3tier/reps cell on the card with exact launch counts, every
+    queue region carrying traffic; then card == CPU on every SimState leaf
+    after ``check_ticks``.  Returns the launches per kernel."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import sim_state_to_numpy, summarize
+
+    sim = fig18_cell(dev)
+    topo = sim.topo
+    log(f"fig18/3tier/reps sizes: NQ={sim.NQ} MAX_ARR={sim.MAX_ARR} NP={sim.NP} "
+        f"NC={sim.wl.n_conns} regions t0_up={topo.t0_up_base} agg_up={topo.agg_up_base} "
+        f"core_down={topo.core_down_base} agg_down={topo.agg_down_base} "
+        f"t0_down={topo.t0_down_base}")
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _ = sim.run(ticks, state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    s = summarize(sim, state)
+    check_invariants(sim, state)
+    log(f"main path fig18/3tier/reps: {ticks} ticks in {secs:.3f} s = {ticks / secs:.1f} "
+        f"ticks/s; runtime_ticks={s.runtime_ticks} completed={s.completed}/{s.n_conns} "
+        f"drops_cong={s.drops_cong} timeouts={s.timeouts} launches={counts}")
+    want = {"next_queue": 1, "ecmp_hash": 0, "reps_tick": 1, "seg_sum": 4, "queue_tick": 1,
+            "seg_rank": 1}
+    for k, n in want.items():
+        if counts[k] != n * ticks:
+            raise AssertionError(
+                f"fig18/3tier/reps: {k} launched {counts[k]} times, expected {n} x {ticks}")
+    served = state.q_served.cpu()
+    bounds = [0, topo.agg_up_base, topo.core_down_base, topo.agg_down_base,
+              topo.t0_down_base, topo.n_queues]
+    per_region = [int(served[lo:hi].sum()) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    if min(per_region) == 0:
+        raise AssertionError(f"fig18/3tier/reps: a queue region served nothing: {per_region}")
+    log(f"fig18/3tier/reps: packets served per region (ToR up, agg up, core down, agg down, "
+        f"host down): {per_region}")
+    finals = []
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        st, _ = fig18_cell(d).run(check_ticks)
+        finals.append(sim_state_to_numpy(st))
+        log(f"card vs CPU: fig18/3tier/reps {check_ticks} ticks on {d} in "
+            f"{time.perf_counter() - t0:.3f} s")
+    same_leaves(*finals, "fig18/3tier/reps")
+    log(f"card vs CPU: fig18/3tier/reps: all {len(finals[0])} SimState leaves bit-equal after "
+        f"{check_ticks} ticks")
+    return counts
 
 
 def arena_cells(dev, ticks: int) -> dict:
@@ -624,8 +839,9 @@ def arena_cells(dev, ticks: int) -> dict:
             f"runtime_ticks={s.runtime_ticks} drops_cong={s.drops_cong} "
             f"drops_fail={s.drops_fail} timeouts={s.timeouts} launches={counts}")
         want = {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1,
-                # the adaptive router picks the least-loaded port and hashes nothing
-                "ecmp_hash": 0 if sim.lb.switch_adaptive else 1,
+                # one routing launch for every LB, adaptive RoCE's
+                # least-loaded pick included; the hash is inside it
+                "next_queue": 1, "ecmp_hash": 0,
                 "reps_tick": 1 if lbn == "mixed" else 0}
         for k, n in want.items():
             if counts[k] != n * ticks:
@@ -704,6 +920,9 @@ def main() -> int:
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
     ap.add_argument("--zoo-check-ticks", type=int, default=900,
                     help="card-vs-CPU horizon of each zoo load balancer")
+    ap.add_argument("--fig18-ticks", type=int, default=2000, help="fig18/3tier/reps ticks")
+    ap.add_argument("--fig18-check-ticks", type=int, default=600,
+                    help="fig18/3tier/reps card-vs-CPU horizon")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -758,6 +977,9 @@ def main() -> int:
     totals = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)
     phase_done("main path and profile")
+    for k, n in three_tier_cell(dev, args.fig18_ticks, args.fig18_check_ticks).items():
+        totals[k] += n
+    phase_done("fig18/3tier")
     for k, n in arena_cells(dev, args.arena_ticks).items():
         totals[k] += n
     phase_done("arena")

@@ -12,6 +12,17 @@ FATTREE_1024 = SimConfig(
     n_hosts=1024, hosts_per_tor=32, uplinks_per_tor=32, tiers=2,
 )
 
+# 128-node 3-tier (fig 18)
+FATTREE_128_3T = SimConfig(
+    n_hosts=128, hosts_per_tor=16, tiers=3,
+    tors_per_pod=2, aggs_per_pod=4, agg_uplinks=4,
+)
+
+# 4:1 oversubscribed variant
+FATTREE_128_OVERSUB4 = SimConfig(
+    n_hosts=128, hosts_per_tor=16, uplinks_per_tor=4, tiers=2,
+)
+
 # CI-scale variants (small, fast defaults for tests)
 FATTREE_64_CI = SimConfig(
     n_hosts=64, hosts_per_tor=8, uplinks_per_tor=8, tiers=2,

@@ -12,24 +12,20 @@
 // What bounds it: 16 bytes per element (three int32 reads, one write) and
 // about 15 integer operations, so a large call is bound by bytes.  At the
 // engine's shapes (K = MAX_ARR = 512 arrivals per tick) it moves 8 KB and is
-// bound by launch latency.  Design: one thread per element, native uint32
-// multiplies (wrapping is defined for unsigned types, unlike signed
-// overflow) and one unsigned modulo by the runtime nports.
+// bound by launch latency.  Design: one thread per element, the hash of
+// ecmp_mix.cuh (native uint32, one unsigned modulo by the runtime nports).
+//
+// The simulator's main path no longer launches this kernel: its hash sites
+// are inside next_queue.cu's routing step, which includes the same header.
+// This flat form stays the counterpart of ecmp_hash_pallas.
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "ecmp_mix.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void ecmp_hash_kernel(const int32_t* __restrict__ flow,
                                  const int32_t* __restrict__ ev,
@@ -37,10 +33,7 @@ __global__ void ecmp_hash_kernel(const int32_t* __restrict__ flow,
                                  int32_t* __restrict__ out, int64_t n, uint32_t nports) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  const uint32_t x = static_cast<uint32_t>(flow[i]) * 0x9E3779B1u ^
-                     static_cast<uint32_t>(ev[i]) * 0x85EBCA77u ^
-                     static_cast<uint32_t>(salt[i]) * 0xC2B2AE3Du;
-  out[i] = static_cast<int32_t>(mix32(x) % nports);
+  out[i] = static_cast<int32_t>(ecmp_mix::port(flow[i], ev[i], salt[i], nports));
 }
 
 }  // namespace

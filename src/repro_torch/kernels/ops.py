@@ -1,4 +1,4 @@
-"""Dispatch of the five kernels by the device of their tensors.
+"""Dispatch of the six kernels by the device of their tensors.
 
 A CPU tensor goes to the kernel's plain version in ``ref`` — that is the
 only reason the plain version runs.  A CUDA tensor goes to the hand-written
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ecmp_hash as _eh
+from repro_torch.kernels import next_queue as _nq
 from repro_torch.kernels import queue_tick as _qt
 from repro_torch.kernels import ref
 from repro_torch.kernels import reps_update as _ru
@@ -20,6 +21,7 @@ from repro_torch.kernels import seg_sum as _ss
 
 KERNEL_MODULES = {
     "seg_sum": _ss, "seg_rank": _sr, "reps_tick": _ru, "queue_tick": _qt, "ecmp_hash": _eh,
+    "next_queue": _nq,
 }
 
 
@@ -74,6 +76,18 @@ def ecmp_hash(flow, ev, salt, nports: int) -> torch.Tensor:
     if _on_cuda(flow, "ecmp_hash"):
         return _eh.ecmp_hash_cuda(flow, ev, salt, nports)
     return ref.ecmp_hash_ref(flow, ev, salt, nports)
+
+
+def next_queue(g, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptive: bool,
+               q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
+    """The routing step: each arrival's next queue on the fabric of layout
+    ``g`` (a ``next_queue.RouteGeometry``), in the reference's form or, with
+    ``a_idx``, the engine's; see ``ref.next_queue_ref``."""
+    args = (g, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptive, q_penalty,
+            a_idx, n_pkt)
+    if _on_cuda(cur_queue, "next_queue"):
+        return _nq.next_queue_cuda(*args)
+    return ref.next_queue_ref(*args)
 
 
 def launch_counts() -> dict[str, int]:

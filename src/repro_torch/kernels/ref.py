@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five hand-written kernels.
+"""Plain PyTorch versions of the six hand-written kernels.
 
 Each ``<name>_ref`` computes exactly what the CUDA kernel behind
 ``repro_torch.kernels.<name>`` must produce, and follows the reference's
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import reps as reps_core
 from repro_torch.kernels.ecmp_hash import check_nports
+from repro_torch.kernels.next_queue import RouteGeometry, check_geometry
 from repro_torch.kernels.reps_update import ack_rounds
 from repro_torch.rng import M32, _mulmod32
 
@@ -42,6 +43,100 @@ def ecmp_hash_ref(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
         ^ _mulmod32(u(salt), 0xC2B2AE3D)
     )
     return (h % nports).to(torch.int32)
+
+
+def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, dst, q_len,
+                   adaptive: bool, q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
+    """The queue each arrival enters next (``repro.netsim.topology``'s
+    ``Topology.next_queue``), int32 ``(K,)``, on the fat tree of layout ``g``.
+
+    Reference form (``a_idx`` None): ``at_injection`` bool ``(K,)`` (the
+    packet leaves its source host), ``cur_queue`` the queue just left (-1
+    at injection), ``flow_id``, ``ev``, and the ``src`` / ``dst`` host of
+    each arrival, all int32 ``(K,)``.  Engine form (``a_idx`` given, the
+    arrivals' packet slots): ``at_injection``, ``cur_queue``, ``flow_id``
+    (the connection) and ``ev`` are the gathered packet rows (hop count,
+    current queue, connection, EV), ``src`` / ``dst`` the ``(NC,)``
+    connection tables; slots ``>= n_pkt`` are no arrival and get
+    ``n_queues``.
+
+    Each choice hop (the ToR uplink; on 3 tiers also the agg uplink) takes
+    the ECMP hash of (flow, EV, salt) with salt ``src_tor`` (agg uplink:
+    ``agg_global + 7919``), or under ``adaptive`` the first least-loaded of
+    its ports by ``q_len`` (``+ q_penalty`` when given); the reference
+    computes the hash there too and overrides it.  ``//`` and ``%`` floor,
+    as in JAX."""
+    g = check_geometry(g)
+    if a_idx is not None:  # mask the empty slots, gather the hosts
+        valid = a_idx < n_pkt
+        flow_id = torch.where(valid, flow_id, 0)
+        ev = torch.where(valid, ev, 0)
+        at_injection = torch.where(valid, at_injection, 1) == 0
+        cur_queue = torch.where(valid, cur_queue, 0)
+        cc = flow_id.clamp(0, src.shape[0] - 1)
+        src, dst = src[cc], dst[cc]
+    if adaptive and q_penalty is not None:
+        q_len = q_len + q_penalty
+    dev = cur_queue.device
+    H = g.hosts_per_tor
+    src_tor, dst_tor = src // H, dst // H
+    same_tor = src_tor == dst_tor
+    t0_down = g.t0_down_base + dst_tor * H + dst % H
+
+    def choose(base, n, salt):  # the port a choice hop takes among n from base
+        if not adaptive:
+            return ecmp_hash_ref(flow_id, ev, salt, n)
+        cand = base[:, None] + torch.arange(n, dtype=torch.int32, device=dev)
+        return torch.argmin(q_len[cand.long()], dim=1).to(torch.int32)
+
+    if g.tiers == 2:
+        U = g.uplinks_per_tor
+        up_base = g.t0_up_base + src_tor * U
+        t0_up = up_base + choose(up_base, U, src_tor)
+        at_t0_up = cur_queue < g.core_down_base
+        spine = torch.where(at_t0_up, cur_queue - g.t0_up_base, 0) % U
+        sp_down = g.core_down_base + spine * g.n_tors + dst_tor
+        nxt = torch.where(
+            at_injection,
+            torch.where(same_tor, t0_down, t0_up),
+            torch.where(at_t0_up, sp_down, t0_down),
+        )
+    else:
+        A, U2, Tp, P = g.aggs_per_pod, g.agg_uplinks, g.tors_per_pod, g.n_pods
+        src_pod, dst_pod = src_tor // Tp, dst_tor // Tp
+        dst_tor_local = dst_tor % Tp
+        same_pod = src_pod == dst_pod
+
+        up_base = g.t0_up_base + src_tor * A
+        t0_up = up_base + choose(up_base, A, src_tor)
+        in_t0_up = cur_queue < g.agg_up_base
+        agg_a = torch.where(in_t0_up, cur_queue - g.t0_up_base, 0) % A
+        agg_global = src_pod * A + agg_a
+        agg_base = g.agg_up_base + agg_global * U2
+        agg_up = agg_base + choose(agg_base, U2, agg_global + 7919)
+        agg_down_same = g.agg_down_base + agg_global * Tp + dst_tor_local
+
+        in_agg_up = (cur_queue >= g.agg_up_base) & (cur_queue < g.core_down_base)
+        rel = torch.where(in_agg_up, cur_queue - g.agg_up_base, 0)
+        core = (rel // U2 % A) * U2 + rel % U2  # (p*A+a)*U2+u -> c = a*U2+u
+        core_down = g.core_down_base + core * P + dst_pod
+
+        in_core_down = (cur_queue >= g.core_down_base) & (cur_queue < g.agg_down_base)
+        core_at = torch.where(in_core_down, cur_queue - g.core_down_base, 0) // P
+        agg_down_x = g.agg_down_base + (dst_pod * A + core_at // U2) * Tp + dst_tor_local
+
+        nxt = torch.where(
+            at_injection,
+            torch.where(same_tor, t0_down, t0_up),
+            torch.where(
+                in_t0_up,
+                torch.where(same_pod, agg_down_same, agg_up),
+                torch.where(in_agg_up, core_down,
+                            torch.where(in_core_down, agg_down_x, t0_down)),
+            ),
+        )
+    nxt = nxt.to(torch.int32)
+    return nxt if a_idx is None else torch.where(valid, nxt, g.n_queues)
 
 
 # ---------------------------------------------------------------------------

@@ -866,18 +866,13 @@ class Simulator:
         a_idx = _compact(arr, self.MAX_ARR)
         a_valid = a_idx < NP
         A = pkt[:, a_idx.clamp(max=NP - 1)]  # (PF, MAX_ARR)
-        a_conn = torch.where(a_valid, A[PCONN], 0)
-        a_ev = torch.where(a_valid, A[PEV], 0)
-        a_inj = torch.where(a_valid, A[PHOP], 1) == 0
-        a_cur = torch.where(a_valid, A[PCURQ], 0)
-        a_cc = a_conn.clamp(0, NC - 1)
-        # adaptive switches see locally failed ports; hashing LBs ignore q_len
-        q_len_eff = q_len + q_penalty if self.lb.switch_adaptive else q_len
-        target = topo.next_queue(
-            a_inj, a_cur, a_conn, a_ev, self.conn_src[a_cc], self.conn_dst[a_cc],
-            q_len_eff, adaptive=self.lb.switch_adaptive,
+        # the routing step in one launch; NQ where ~a_valid.  Adaptive
+        # switches see locally failed ports (q_penalty); hashing LBs ignore
+        # q_len, which is read after service and before this tick's enqueue
+        target = topo.route(
+            a_idx, NP, A[PHOP], A[PCURQ], A[PCONN], A[PEV], self.conn_src, self.conn_dst,
+            q_len, q_penalty, adaptive=self.lb.switch_adaptive,
         )
-        target = torch.where(a_valid, target, NQ)
         u_red = draws.u_red
 
         # fused enqueue kernel: service already happened, so it serves nothing;

@@ -17,10 +17,12 @@ Every directed link has one FIFO queue at its source.  Queue-id regions:
     t0_down[t, h]      = ... + P*A*Tp + t*H + h
 
 The packet's EV selects the up-direction port through a mixing hash of
-(flow id, EV, switch salt) — the ``ecmp_hash`` kernel, one launch per hash
-site; down-direction ports follow the destination.  ``mix32`` and
-``ecmp_hash_np`` are the hash's finalizer on tensors and its Python-int
-mirror for host-side walks.
+(flow id, EV, switch salt); down-direction ports follow the destination.
+The whole hop transition is one kernel, ``next_queue`` (its plain version
+``kernels.ref.next_queue_ref``), reached through ``Topology.next_queue``
+(the reference's signature) and ``Topology.route`` (the engine's arrivals).
+``ecmp_hash`` is the flat hash kernel, ``mix32`` and ``ecmp_hash_np`` the
+hash's finalizer on tensors and its Python-int mirror for host-side walks.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.next_queue import RouteGeometry
 from repro_torch.kernels.ref import mix32  # noqa: F401  (re-exported)
 from repro_torch.netsim.config import SimConfig
 from repro_torch.rng import M32
@@ -68,6 +71,7 @@ class Topology:
     core_down_base: int
     agg_down_base: int
     t0_down_base: int
+    geometry: RouteGeometry  # the layout as the routing kernel takes it
 
     @staticmethod
     def build(cfg: SimConfig) -> "Topology":
@@ -81,20 +85,23 @@ class Topology:
             U = cfg.uplinks_per_tor
             sp_down = T * U
             t0_down = sp_down + U * T
+            nq = t0_down + T * H
             return Topology(
-                cfg=cfg, n_queues=t0_down + T * H, t0_up_base=0,
-                agg_up_base=-1, core_down_base=sp_down, agg_down_base=-1,
-                t0_down_base=t0_down,
+                cfg=cfg, n_queues=nq, t0_up_base=0, agg_up_base=-1, core_down_base=sp_down,
+                agg_down_base=-1, t0_down_base=t0_down,
+                geometry=RouteGeometry(2, H, T, U, 0, 0, 0, 0, 0, -1, sp_down, -1, t0_down, nq),
             )
         A, U2, P, Tp = cfg.aggs_per_pod, cfg.agg_uplinks, cfg.n_pods, cfg.tors_per_pod
         agg_up = T * A
         core_down = agg_up + P * A * U2
         agg_down = core_down + cfg.n_cores * P
         t0_down = agg_down + P * A * Tp
+        nq = t0_down + T * H
         return Topology(
-            cfg=cfg, n_queues=t0_down + T * H, t0_up_base=0,
-            agg_up_base=agg_up, core_down_base=core_down,
+            cfg=cfg, n_queues=nq, t0_up_base=0, agg_up_base=agg_up, core_down_base=core_down,
             agg_down_base=agg_down, t0_down_base=t0_down,
+            geometry=RouteGeometry(3, H, T, 0, A, U2, Tp, P, 0, agg_up, core_down, agg_down,
+                                   t0_down, nq),
         )
 
     @property
@@ -116,7 +123,7 @@ class Topology:
     def is_final_hop(self, q: torch.Tensor) -> torch.Tensor:
         return q >= self.t0_down_base
 
-    # -- the hop-transition function ----------------------------------------
+    # -- the hop-transition function: the ``next_queue`` kernel ----------
     def next_queue(
         self,
         at_injection: torch.Tensor,  # bool (K,): packet leaving the source host
@@ -128,78 +135,25 @@ class Topology:
         q_len: torch.Tensor,  # int32 (n_queues,): lengths (adaptive only)
         adaptive: bool,  # in-network least-queue choice
     ) -> torch.Tensor:
-        cfg = self.cfg
-        T, H = cfg.n_tors, cfg.hosts_per_tor
-        dev = cur_queue.device
-        src_tor, dst_tor = src // H, dst // H
-        dst_local = dst % H
-        same_tor = src_tor == dst_tor
-        t0_down = self.t0_down_base + dst_tor * H + dst_local
+        return kernel_ops.next_queue(
+            self.geometry, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptive)
 
-        def least_queue(base, n):  # first least-loaded of n candidate ports
-            cand = base[:, None] + torch.arange(n, dtype=torch.int32, device=dev)
-            return torch.argmin(q_len[cand.long()], dim=1).to(torch.int32)
-
-        if cfg.tiers == 2:
-            U = cfg.uplinks_per_tor
-            if adaptive:  # the reference hashes, then overrides: no launch here
-                up_choice = least_queue(self.t0_up_base + src_tor * U, U)
-            else:
-                up_choice = kernel_ops.ecmp_hash(flow_id, ev, src_tor, U)
-            t0_up = self.t0_up_base + src_tor * U + up_choice
-            at_t0_up = cur_queue < self.core_down_base
-            spine = torch.where(at_t0_up, cur_queue - self.t0_up_base, 0) % U
-            sp_down = self.core_down_base + spine * T + dst_tor
-            nxt = torch.where(
-                at_injection,
-                torch.where(same_tor, t0_down, t0_up),
-                torch.where(at_t0_up, sp_down, t0_down),
-            )
-            return nxt.to(torch.int32)
-
-        # ---- 3-tier ----
-        A, U2, Tp, P = cfg.aggs_per_pod, cfg.agg_uplinks, cfg.tors_per_pod, cfg.n_pods
-        src_pod, dst_pod = src_tor // Tp, dst_tor // Tp
-        dst_tor_local = dst_tor % Tp
-        same_pod = src_pod == dst_pod
-
-        if adaptive:
-            up1 = least_queue(self.t0_up_base + src_tor * A, A)
-        else:
-            up1 = kernel_ops.ecmp_hash(flow_id, ev, src_tor, A)
-        t0_up = self.t0_up_base + src_tor * A + up1
-
-        in_t0_up = cur_queue < self.agg_up_base
-        agg_a = torch.where(in_t0_up, cur_queue - self.t0_up_base, 0) % A
-        agg_global = src_pod * A + agg_a
-        if adaptive:
-            up2 = least_queue(self.agg_up_base + agg_global * U2, U2)
-        else:
-            up2 = kernel_ops.ecmp_hash(flow_id, ev, agg_global + 7919, U2)
-        agg_up = self.agg_up_base + agg_global * U2 + up2
-        agg_down_same = self.agg_down_base + agg_global * Tp + dst_tor_local
-
-        in_agg_up = (cur_queue >= self.agg_up_base) & (cur_queue < self.core_down_base)
-        rel = torch.where(in_agg_up, cur_queue - self.agg_up_base, 0)
-        core = (rel // U2 % A) * U2 + rel % U2  # (p*A+a)*U2+u -> c = a*U2+u
-        core_down = self.core_down_base + core * P + dst_pod
-
-        in_core_down = (cur_queue >= self.core_down_base) & (cur_queue < self.agg_down_base)
-        core_at = torch.where(in_core_down, cur_queue - self.core_down_base, 0) // P
-        dst_agg = core_at // U2
-        agg_down_x = self.agg_down_base + (dst_pod * A + dst_agg) * Tp + dst_tor_local
-
-        nxt = torch.where(
-            at_injection,
-            torch.where(same_tor, t0_down, t0_up),
-            torch.where(
-                in_t0_up,
-                torch.where(same_pod, agg_down_same, agg_up),
-                torch.where(
-                    in_agg_up,
-                    core_down,
-                    torch.where(in_core_down, agg_down_x, t0_down),
-                ),
-            ),
-        )
-        return nxt.to(torch.int32)
+    def route(
+        self,
+        a_idx: torch.Tensor,  # int32 (K,): packet slot of each arrival, >= n_pkt: none
+        n_pkt: int,
+        hop: torch.Tensor,  # int32 (K,) gathered packet rows: hops so far (0: injection)
+        cur_queue: torch.Tensor,  # queue just dequeued from (-1 at injection)
+        conn: torch.Tensor,  # connection (the hash's flow id)
+        ev: torch.Tensor,  # entropy value
+        conn_src: torch.Tensor,  # int32 (NC,) connection -> source host
+        conn_dst: torch.Tensor,  # int32 (NC,) connection -> destination host
+        q_len: torch.Tensor,  # int32 (n_queues,)
+        q_penalty: torch.Tensor | None,  # int32 (n_queues,) added to q_len (adaptive only)
+        adaptive: bool,
+    ) -> torch.Tensor:
+        """The engine's arrivals: each arrival's next queue, ``n_queues``
+        for the empty slots, in one launch."""
+        return kernel_ops.next_queue(
+            self.geometry, hop, cur_queue, conn, ev, conn_src, conn_dst, q_len, adaptive,
+            q_penalty=q_penalty, a_idx=a_idx, n_pkt=n_pkt)

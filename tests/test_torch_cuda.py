@@ -1,6 +1,7 @@
 """The port on a CUDA device: each hand-written kernel against its plain
 version, and short simulations on the card (ECMP-hashing, REPS, zoo and
-adaptive load balancers) against the same ones on the CPU — bit for bit.  Marked ``cuda``; without a GPU every test skips with a
+adaptive load balancers; 2- and 3-tier) against the same ones on the CPU —
+bit for bit.  Marked ``cuda``; without a GPU every test skips with a
 reason.  This file imports no JAX, so it also runs where only the port is
 installed:
 
@@ -10,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import FATTREE_32_CI
+from repro_torch.configs import FATTREE_32_CI, arcane_paper as presets
 from repro_torch.core import make_lb
 from repro_torch.kernels import ops, ref
 from repro_torch.netsim import Simulator, Topology, failures, sim_state_to_numpy, workloads
+from repro_torch.netsim.engine import PCONN, PCURQ, PEV, PF, PHOP
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +31,66 @@ def _on(dev, a):
     return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
 
+# ---------------------------------------------------------------------------
+# routing cases, shared with tests/test_torch_route.py (which holds the plain
+# version against JAX on them); numpy only, so this file needs no JAX
+ROUTE_FABRICS = {
+    2: [("FATTREE_128", {}), ("FATTREE_128_OVERSUB4", {})],
+    3: [("FATTREE_128_3T", {}),
+        ("FATTREE_32_CI", dict(hosts_per_tor=4, tiers=3, tors_per_pod=2, aggs_per_pod=4,
+                               agg_uplinks=2))],
+}
+
+
+def route_regions(topo):
+    """``[start, end)`` of every queue region of a topology's layout (the
+    port's or the reference's: both have these attributes)."""
+    if topo.cfg.tiers == 2:
+        bounds = [topo.t0_up_base, topo.core_down_base, topo.t0_down_base, topo.n_queues]
+    else:
+        bounds = [topo.t0_up_base, topo.agg_up_base, topo.core_down_base, topo.agg_down_base,
+                  topo.t0_down_base, topo.n_queues]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def route_case(topo, seed, K=None, NP=700, NC=128, penalty=True):
+    """Packet table, arrival slots, connection tables, queue lengths and
+    penalty for K arrivals (default: the engine's MAX_ARR = NQ + NH): empty
+    slots among the arrivals, fresh injections (hop 0, queue -1), every
+    region's first and last queue as a current queue, lengths in [0, 3) (so
+    ties are common) and, with ``penalty``, 4 x capacity on 15 % of queues."""
+    rs = np.random.RandomState(seed)
+    cfg, NQ = topo.cfg, topo.n_queues
+    K = K or NQ + cfg.n_hosts
+    conn_src = rs.randint(0, cfg.n_hosts, size=NC)
+    near = rs.rand(NC) < 0.3  # same-ToR pairs as well as far ones
+    conn_dst = np.where(near, (conn_src // cfg.hosts_per_tor) * cfg.hosts_per_tor
+                        + rs.randint(0, cfg.hosts_per_tor, size=NC),
+                        rs.randint(0, cfg.n_hosts, size=NC))
+    pkt = np.zeros((PF, NP + 1), np.int32)
+    pkt[PCONN] = rs.randint(0, NC, size=NP + 1)
+    pkt[PEV] = rs.randint(0, 65536, size=NP + 1)
+    pkt[PHOP] = rs.randint(1, 5, size=NP + 1)
+    pkt[PCURQ] = rs.randint(0, NQ, size=NP + 1)
+    edges = [q for lo, hi in route_regions(topo) for q in (lo, hi - 1)]
+    pkt[PCURQ, : len(edges)] = edges
+    inj = rs.rand(NP + 1) < 0.3
+    inj[: len(edges)] = False
+    pkt[PHOP, inj] = 0
+    pkt[PCURQ, inj] = -1
+    a_idx = rs.randint(0, NP, size=K)
+    a_idx[rs.rand(K) < 0.25] = NP
+    a_idx[-5:] = NP
+    a_idx[: len(edges)] = np.arange(len(edges))
+    q_len = rs.randint(0, 3, size=NQ)
+    q_pen = np.where(rs.rand(NQ) < 0.15, 4 * cfg.queue_capacity, 0) if penalty \
+        else np.zeros(NQ, np.int64)
+    i32 = lambda a: np.asarray(a, np.int32)
+    return dict(pkt=pkt, a_idx=i32(a_idx), conn_src=i32(conn_src), conn_dst=i32(conn_dst),
+                q_len=i32(q_len), q_pen=i32(q_pen), NP=NP, NC=NC)
+
+
+# ---------------------------------------------------------------------------
 def test_seg_kernels_match_plain_versions(dev):
     rs = np.random.RandomState(0)
     for F, K, S in [(5, 128, 387), (2, 300, 129), (5, 128, 20000)]:
@@ -198,6 +260,67 @@ def test_ecmp_hash_kernel_matches_plain_version(dev):
         ops.ecmp_hash(*args, 0)
 
 
+@pytest.mark.parametrize("tiers", [2, 3])
+def test_next_queue_kernel_matches_plain_version(dev, tiers):
+    """Both forms on every routing case, and the engine's shapes, with and
+    without adaptive routing and the penalty: kernel == plain version."""
+    for name, kw in ROUTE_FABRICS[tiers]:
+        topo = Topology.build(getattr(presets, name).replace(**kw))
+        g = topo.geometry
+        for seed in range(3):
+            c = {k: _on(dev, v) if isinstance(v, np.ndarray) else v
+                 for k, v in route_case(topo, 100 * tiers + seed, penalty=seed != 1).items()}
+            A = c["pkt"][:, c["a_idx"].clamp(max=c["NP"] - 1)]
+            rows = (A[PHOP], A[PCURQ], A[PCONN], A[PEV])
+            cc = A[PCONN].clamp(0, c["NC"] - 1)
+            flat = (A[PHOP] == 0, A[PCURQ], A[PCONN], A[PEV], c["conn_src"][cc], c["conn_dst"][cc])
+            for adaptive in (False, True):
+                pen = c["q_pen"] if seed != 2 else None
+                engine = (g, *rows, c["conn_src"], c["conn_dst"], c["q_len"], adaptive, pen,
+                          c["a_idx"], c["NP"])
+                reference = (g, *[t.contiguous() for t in flat], c["q_len"], adaptive, pen)
+                for args in (engine, reference):
+                    got = ops.next_queue(*args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, ref.next_queue_ref(*args)), (name, seed, adaptive)
+
+
+def test_next_queue_wrapper_raises(dev):
+    topo = Topology.build(presets.FATTREE_128_3T)
+    g, q = topo.geometry, _on(dev, np.zeros(8, np.int32))
+    q_len = _on(dev, np.zeros(topo.n_queues, np.int32))
+    with pytest.raises(ValueError, match="bool"):  # the reference form takes bool flags
+        ops.next_queue(g, q, q, q, q, q, q, q_len, False)
+    with pytest.raises(ValueError, match="connection tables"):
+        ops.next_queue(g, q, q, q, q, q[:0], q[:0], q_len, False, a_idx=q, n_pkt=8)
+    with pytest.raises(ValueError, match="q_len"):
+        ops.next_queue(g, q == 0, q, q, q, q, q, q, True)
+    with pytest.raises(ValueError, match="agg_uplinks"):
+        ops.next_queue(g._replace(agg_uplinks=0), q == 0, q, q, q, q, q, q_len, False)
+
+
+@pytest.mark.parametrize("lbn", ["reps", "adaptive_roce"])
+def test_three_tier_card_run_equals_cpu_run(dev, lbn):
+    """The 3-tier fabric of tests/test_torch_three_tier.py with one agg
+    uplink down: card == CPU on every leaf, one routing launch per tick."""
+    cfg = FATTREE_32_CI.replace(hosts_per_tor=4, tiers=3, tors_per_pod=2, aggs_per_pod=4,
+                                agg_uplinks=2, rto_ticks=500, max_msg_pkts=256)
+    down = Topology.build(cfg).agg_up_base
+    kw = dict(evs_size=256, **(dict(freezing_timeout=200) if lbn == "reps" else {}))
+    finals = []
+    for d in (dev, "cpu"):
+        sim = Simulator(cfg, workloads.permutation(32, 48, seed=3), make_lb(lbn, **kw),
+                        failures=failures.link_down([down], 30, 600), device=d)
+        ops.reset_launch_counts()
+        state, _ = sim.run(700)
+        counts = ops.launch_counts()
+        finals.append(sim_state_to_numpy(state))
+        if d == dev:
+            assert counts["next_queue"] == 700 and counts["ecmp_hash"] == 0, counts
+    for k in finals[0]:
+        assert finals[0][k].tobytes() == finals[1][k].tobytes(), k
+
+
 @pytest.mark.parametrize("lbn", ["ops", "reps", "plb", "bitmap", "mixed", "adaptive_roce"])
 def test_card_run_equals_cpu_run(dev, lbn):
     cfg = FATTREE_32_CI
@@ -217,8 +340,9 @@ def test_card_run_equals_cpu_run(dev, lbn):
         finals.append(sim_state_to_numpy(state))
         if d == dev:
             assert counts["seg_sum"] == 4 * 470 and counts["queue_tick"] == 470
-            # the adaptive router picks by queue length and hashes nothing
-            assert counts["ecmp_hash"] == (0 if lbn == "adaptive_roce" else 470)
+            # one routing launch per tick for every LB, adaptive RoCE's
+            # least-loaded pick included; the hash is inside it
+            assert counts["next_queue"] == 470 and counts["ecmp_hash"] == 0
             # one fused REPS launch per tick (both ACK rounds, timeouts, sends)
             assert counts["reps_tick"] == (470 if lbn in ("reps", "mixed") else 0)
     for k in finals[0]:

@@ -15,7 +15,9 @@ from repro.kernels import ref as jref
 from repro.kernels import reps_update as jru
 from repro.kernels import seg_rank as jsr
 from repro.kernels import seg_sum as jss
+from repro_torch.configs import FATTREE_32_CI
 from repro_torch.kernels import ops, ref
+from repro_torch.netsim import Topology
 
 torch.set_num_threads(1)  # the suite's parallel workers share the host's cores
 
@@ -245,8 +247,12 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_nothing():
     ops.seg_sum(seg, torch.ones((2, 4), dtype=torch.int32), 3)
     ops.seg_rank(seg, 3)
     ops.ecmp_hash(seg, seg, seg, 4)
+    g = Topology.build(FATTREE_32_CI).geometry
+    ops.next_queue(g, seg > 0, seg, seg, seg, seg, seg, torch.zeros(g.n_queues, dtype=torch.int32),
+                   True)
     assert ops.launch_counts() == {
-        "seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0, "ecmp_hash": 0}
+        "seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0, "ecmp_hash": 0,
+        "next_queue": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -73,7 +73,8 @@ def assert_states_equal(a: dict, b: dict, where: str) -> None:
 
 # ---------------------------------------------------------------------------
 def test_presets_match_reference():
-    for name in ("FATTREE_128", "FATTREE_1024", "FATTREE_32_CI", "FATTREE_64_CI"):
+    for name in ("FATTREE_128", "FATTREE_1024", "FATTREE_32_CI", "FATTREE_64_CI",
+                 "FATTREE_128_3T", "FATTREE_128_OVERSUB4"):
         j, t = getattr(jpresets, name), getattr(tpresets, name)
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         for backend in ("arrivals_backend", "kernels_backend"):

@@ -14,7 +14,7 @@ over ``--ticks`` more.
 - On the card it counts the device kernels the tick launches, by kernel
   name, with their device time per tick.
 - On the CPU it counts the aten calls the tick makes at its top level; each
-  of the port's five kernel entry points (``repro_torch.kernels.ops``) counts
+  of the port's kernel entry points (``repro_torch.kernels.ops``) counts
   as one call and its plain version's insides are not counted.  That is the
   tick's launch count as far as the CPU can show it: a view (``aten::slice``,
   ``aten::select``, ...) is counted here and launches nothing on the card.
