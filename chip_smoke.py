@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -21,18 +21,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      drops fall in later tiles (K = 300, 512, 2048; Q = 20, 384 and 12000,
      the last in global scratch; one row and row axes), ``seg_rank`` over
      many passes, on one repeated key, on ids all out of range and past its
-     count table, the flat ``ecmp_hash``, and ``next_queue`` (the routing
-     step, the redesign of ``ecmp_hash``) in both its forms on five fabrics
-     (2-tier FATTREE_128, FATTREE_128_OVERSUB4, FATTREE_1024; 3-tier
-     FATTREE_128_3T and a 32-host one) with empty slots, fresh injections
-     (queue -1), every region as the current queue, tied queue lengths,
-     with and without adaptive routing and penalty; then each is timed with
+     count table, the flat ``ecmp_hash`` (one port count, and one per lane),
+     and ``next_queue`` (the routing step, the redesign of ``ecmp_hash``) in
+     both its forms on five fabrics (2-tier FATTREE_128,
+     FATTREE_128_OVERSUB4, FATTREE_1024; 3-tier FATTREE_128_3T and a 32-host
+     one) with empty slots, fresh injections (queue -1), every region as the
+     current queue, tied queue lengths, with and without adaptive routing
+     and penalty, and with a fleet's row axis (B = 1, 4, 64 rows in one
+     launch, against the plain version and B one-row launches; penalty
+     shared and per row); then each is timed with
      CUDA events (median of repeated batches) at the engine's call
      (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
      call's five fields; ``queue_tick``: K = 512, Q = 384, engine form;
      ``next_queue``: K = 512, NQ = 384, engine form, ECMP) beside its plain
      version, the engine's former call form where there is one and, for
-     ``seg_sum``, ``index_add_``;
+     ``seg_sum``, ``index_add_`` (and ``next_queue`` at a 64-row fleet's call);
   4. main path — the paper's FATTREE_128 fabric (128 hosts, 16 ToR
      uplinks), a 128-connection permutation of 4096-packet messages and the
      fig06 failure schedule (ToR-0 uplinks 0 and 1 down over ticks
@@ -57,11 +60,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      first failure and REPS freezing), then every zoo load balancer on
      FATTREE_32_CI under a ToR-uplink failure past the RTO, each on the
      card with the kernels and on the CPU through the plain versions;
-     every ``SimState`` leaf must be equal.
+     every ``SimState`` leaf must be equal;
+  8. fleet — the fig06/reps cell under many seeds (``FleetRunner``, one
+     tick over a row axis): B = 4 rows equal four serial card runs on every
+     leaf and trace field; a small fleet (FATTREE_32_CI, B = 3) equals its
+     CPU run; each kernel's launches per tick are exact and the same at
+     B = 1, 4, 16, 64; row-ticks/s against B from interleaved rounds
+     (median, min, max per B); a profiled window of 100 ticks at B = 64.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` counts the main path's, fig18's and the arena's runs; the flat
-``ecmp_hash`` is launched there no more); the last line
+(``launches`` counts the main path's, fig18's, the arena's and the fleet's
+runs; the flat ``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -459,6 +468,27 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         want = ref.ecmp_hash_ref(*args, nports)
         torch.cuda.synchronize()
         err = max(err, equal_all([got], [want], f"ecmp_hash shape={shape} nports={nports}"))
+    # one port count per lane (1..16, a seventh of the lanes at 1), as the
+    # reference's TableTopology hashes: shaped like flow, and one (K,) row
+    # of counts broadcast over (B, K)
+    for shape, lanes in [((K,), (K,)), ((3, K), (3, K)), ((4, 300), (300,)), ((77,), (77,))]:
+        args = hash_case(shape, True)
+        counts = rs.randint(1, 17, size=lanes)
+        counts.reshape(-1)[::7] = 1
+        nports = i32(counts)
+        got = eh_mod.ecmp_hash_cuda(*args, nports)
+        want = ref.ecmp_hash_ref(*args, nports)
+        torch.cuda.synchronize()
+        err = max(err, equal_all([got], [want], f"ecmp_hash shape={shape} per-lane nports"))
+    flow, ev, salt = hash_case((K,))
+    lanes = i32(rs.randint(1, 17, size=K))
+    lane_b, lane_why = bound_ms(nbytes(flow, ev, salt, lanes, flow), 15 * K)
+    log("kernel ecmp_hash: per-lane nports (1..16, lanes at 1; shaped like flow and broadcast "
+        f"over rows) bit-exact; at K={K}: device "
+        f"{time_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, lanes)):.5f} ms, eager "
+        f"{eager_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, lanes)):.5f} ms, plain "
+        f"{time_ms(lambda: ref.ecmp_hash_ref(flow, ev, salt, lanes)):.5f} ms, bound "
+        f"{lane_b:.3e} ms ({lane_why})")
     flow, ev, salt = hash_case((K,))
     out = eh_mod.ecmp_hash_cuda(flow, ev, salt, U)
     # ~15 integer operations per element: 3 multiplies and 2 xors to combine,
@@ -517,7 +547,8 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
                     q_len=i32(rs.randint(0, 3, size=NQ)), q_pen=i32(q_pen) if penalty else None)
 
     def route_forms(g, c, adaptive):
-        """The engine's form, and the reference form on the same arrivals."""
+        """The engine's form, and the reference form on the same arrivals
+        (one run's ``(K,)`` or a fleet's ``(B, K)``)."""
         hop, cur, conn, ev = c["rows"]
         cc = conn.clamp(0, c["conn_src"].numel() - 1)
         engine = (g, hop, cur, conn, ev, c["conn_src"], c["conn_dst"], c["q_len"], adaptive,
@@ -548,6 +579,43 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
                         n_cases += 1
     log(f"kernel next_queue: {n_cases} cases bit-exact (5 fabrics x K in (MAX_ARR, 77, 1) x "
         f"penalty x adaptive x both forms)")
+
+    def fleet_route(topo, B):
+        """B rows of the engine's arrivals on one fabric: each row its own
+        packet table, slots and queue lengths; one workload's connection
+        tables; the penalty shared (one failure schedule) or per row."""
+        K = topo.n_queues + topo.cfg.n_hosts
+        cs = [route_case(topo, K, 32768, 128, True) for _ in range(B)]
+        stack = lambda f: torch.stack([f(c) for c in cs])
+        return dict(rows=tuple(stack(lambda c, j=j: c["rows"][j]) for j in range(4)),
+                    a_idx=stack(lambda c: c["a_idx"]), q_len=stack(lambda c: c["q_len"]),
+                    NP=32768, conn_src=cs[0]["conn_src"], conn_dst=cs[0]["conn_dst"],
+                    pen_shared=cs[0]["q_pen"], pen_rows=stack(lambda c: c["q_pen"]))
+
+    topo = Topology.build(presets.FATTREE_128)
+    n_rows_cases = 0
+    for B in (1, 4, 64):
+        c = fleet_route(topo, B)
+        for pen in ("pen_shared", "pen_rows", None):
+            for adaptive in (False, True):
+                for form, args in zip(("engine", "reference"), route_forms(
+                        topo.geometry, dict(c, q_pen=c[pen] if pen else None), adaptive)):
+                    args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
+                                 for a in args)
+                    got = nq_mod.next_queue_cuda(*args)
+                    want = ref.next_queue_ref(*args)
+                    # row by row: (B, ...) inputs sliced, the shared ones as they are
+                    one = torch.stack([nq_mod.next_queue_cuda(*(
+                        a[b].contiguous() if isinstance(a, torch.Tensor) and a.dim() == 2 else a
+                        for a in args)) for b in range(B)])
+                    torch.cuda.synchronize()
+                    what = f"next_queue rows B={B} {form} form adaptive={adaptive} penalty={pen}"
+                    err = max(err, equal_all([got], [want], what))
+                    err = max(err, equal_all([got], [one], what + " vs one-row launches"))
+                    n_rows_cases += 1
+    log(f"kernel next_queue with rows: {n_rows_cases} cases bit-exact against the plain version "
+        f"and against B one-row launches (FATTREE_128, B in (1, 4, 64) x penalty shared / per "
+        f"row / none x adaptive x both forms)")
 
     def timed(name, adaptive):  # the engine's call on one fabric: K = MAX_ARR, NP = 32768
         topo = Topology.build(getattr(presets, name))
@@ -595,6 +663,16 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     # packet-row words and two connection-table words (ECMP: no q_len);
     # ~40 integer operations per arrival (the hash's ~15, the routing's ~25)
     b, why = bound_ms(4 * K + 4 * K + 24 * valid, 40 * valid)
+    # a fleet's call: B = 64 rows of the engine's arrivals, penalty shared
+    c64 = fleet_route(topo, 64)
+    args64 = route_forms(g, dict(c64, q_pen=c64["pen_shared"]), False)[0]
+    valid64 = int((c64["a_idx"] < NP).sum())
+    b64, why64 = bound_ms(8 * c64["a_idx"].numel() + 24 * valid64, 40 * valid64)
+    log(f"kernel next_queue at B=64 rows (K=64x{K}, {valid64} arrivals, engine form, ECMP): "
+        f"device {time_ms(lambda: nq_mod.next_queue_cuda(*args64)):.5f} ms, eager "
+        f"{eager_ms(lambda: nq_mod.next_queue_cuda(*args64)):.5f} ms, plain "
+        f"{time_ms(lambda: ref.next_queue_ref(*args64)):.5f} ms, bound {b64:.3e} ms ({why64}); "
+        f"B=1: device {ms:.5f} ms")
     rows.append(dict(
         name="next_queue", route="cuda", source="src/repro_torch/csrc/next_queue.cu",
         replaces="src/repro/kernels/ecmp_hash.py:40",
@@ -610,12 +688,13 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-def fig06_cell(lb_name: str, device):
+def fig06_scenario(lb_name: str) -> tuple:
     """The FATTREE_128 fig06 cell: permutation of 4096-packet messages under
-    two transient ToR-0 uplink failures."""
+    two transient ToR-0 uplink failures; ``(cfg, workload, lb, failures=,
+    watch_queues=)`` as ``Simulator`` and ``FleetRunner`` take them."""
     from repro_torch.configs import FATTREE_128
     from repro_torch.core import make_lb
-    from repro_torch.netsim import FailureSchedule, Simulator, Topology, failures, workloads
+    from repro_torch.netsim import FailureSchedule, Topology, failures, workloads
 
     cfg = FATTREE_128
     ups = Topology.build(cfg).t0_up_queues(0)
@@ -627,8 +706,22 @@ def fig06_cell(lb_name: str, device):
     kw = dict(evs_size=cfg.evs_size)
     if lb_name == "reps":
         kw.update(freezing_timeout=800)
-    return Simulator(cfg, wl, make_lb(lb_name, **kw), failures=fs,
-                     watch_queues=Topology.build(cfg).t0_up_queues(0), device=device)
+    return (cfg, wl, make_lb(lb_name, **kw)), dict(failures=fs, watch_queues=ups)
+
+
+def fig06_cell(lb_name: str, device, seed: int = 0):
+    from repro_torch.netsim import Simulator
+
+    args, kw = fig06_scenario(lb_name)
+    return Simulator(*args, **kw, seed=seed, device=device)
+
+
+def fig06_fleet(seeds, device):
+    """The fig06/reps cell under ``seeds``, one row each."""
+    from repro_torch.netsim import FleetRunner
+
+    args, kw = fig06_scenario("reps")
+    return FleetRunner(*args, **kw, seeds=tuple(seeds), device=device)
 
 
 def check_invariants(sim, state) -> None:
@@ -689,24 +782,36 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     device's busy share (summed kernel time / wall; one stream, so kernels
     do not overlap), device launches per tick and the port's kernels'
     device time per launch inside the real tick."""
+    sim = fig06_cell("reps", dev)
+    state, _ = sim.run(warm)
+    draws = sim.tick_draws(sim.base_key, warm, ticks)
+
+    def step(i):
+        nonlocal state
+        state, _ = sim.tick_fn(state, warm + i, draws.row(i))
+
+    profile_ticks(f"REPS, ticks {warm}-{warm + ticks}", step, ticks)
+
+
+def profile_ticks(label: str, step, ticks: int) -> None:
+    """``step(i)`` for ``i < ticks`` under ``torch.profiler``: wall time per
+    tick, the device's busy share, device launches per tick, and the port's
+    kernels' device time per launch inside the real tick."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    sim = fig06_cell("reps", dev)
-    state, _ = sim.run(warm)
-    draws = sim.tick_draws(sim.base_key, warm, ticks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(ticks):
-            state, _ = sim.tick_fn(state, warm + i, draws.row(i))
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
-        log("profile: the profiler recorded no device time; busy share not measured")
+        log(f"profile ({label}): the profiler recorded no device time; busy share not measured")
         return
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
     by_name = collections.defaultdict(list)
@@ -720,15 +825,16 @@ def profile_window(dev, warm: int, ticks: int) -> None:
         if durs:
             ours[tag] = (len(durs) / ticks, statistics.median(durs), sum(durs) / ticks)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
-    log(f"profile (REPS, ticks {warm}-{warm + ticks}): {wall_us / ticks:.1f} us wall per tick "
+    log(f"profile ({label}): {wall_us / ticks:.1f} us wall per tick "
         f"(profiler on), device busy {busy_us / ticks:.1f} us per tick = "
         f"{100 * busy_us / wall_us:.2f} % busy, {len(dev_events) / ticks:.1f} device "
         f"launches per tick")
     for tag, (per_tick, med, tot) in ours.items():
-        log(f"profile: {tag}: {per_tick:.1f} launches per tick, median {med:.2f} us device "
-            f"per launch, {tot:.2f} us per tick")
+        log(f"profile ({label}): {tag}: {per_tick:.1f} launches per tick, median {med:.2f} us "
+            f"device per launch, {tot:.2f} us per tick")
     for name, durs in top:
-        log(f"profile top: {sum(durs) / ticks:8.2f} us/tick {len(durs) / ticks:5.1f}x  {name[:90]}")
+        log(f"profile top ({label}): {sum(durs) / ticks:8.2f} us/tick {len(durs) / ticks:5.1f}x  "
+            f"{name[:90]}")
 
 
 def fig18_cell(device):
@@ -854,6 +960,120 @@ def arena_cells(dev, ticks: int) -> dict:
     return totals
 
 
+FLEET_PER_TICK = {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "next_queue": 1,
+                  "reps_tick": 1, "ecmp_hash": 0}  # fig06/reps: whatever the fleet's B
+
+
+def fleet_counts(counts: dict, ticks: int, what: str) -> None:
+    for k, n in FLEET_PER_TICK.items():
+        if counts[k] != n * ticks:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} times, expected {n} x {ticks}")
+
+
+def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds: int,
+                warm: int) -> dict:
+    """The fig06/reps cell as a fleet of seeds (``FleetRunner``): (a) B = 4
+    rows equal four serial card runs on every SimState leaf and trace field;
+    (b) a small fleet (FATTREE_32_CI, B = 3) is the same on the card and on
+    the CPU; (c) each kernel's launches per tick are exact and the same at
+    every B; (d) row-ticks/s against B in (1, 4, 16, 64), ``rounds`` rounds
+    with the B values interleaved, ``bench_ticks`` ticks each from a state
+    warmed for ``warm`` ticks; (e) a profiled window of 100 ticks at B = 64.
+    Returns the launches of the fleet runs per kernel."""
+    import torch
+
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.core import make_lb
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import FleetRunner, Topology, failures, sim_state_to_numpy, workloads
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+
+    def counted(what, ticks, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        fleet_counts(counts, ticks, what)
+        for k, n in counts.items():
+            totals[k] += n
+        return out, secs, counts
+
+    # (a) rows == serial runs, at full width
+    seeds = (0, 1, 2, 3)
+    fleet = fig06_fleet(seeds, dev)
+    (states, traces), secs, counts = counted("fleet B=4", rows_ticks, lambda: fleet.run(rows_ticks))
+    log(f"fleet fig06/reps B=4: {rows_ticks} ticks in {secs:.3f} s = "
+        f"{4 * rows_ticks / secs:.1f} row-ticks/s; launches={counts}")
+    for i, s in enumerate(seeds):
+        st, tr = fig06_cell("reps", dev, seed=s).run(rows_ticks)
+        same_leaves(sim_state_to_numpy(fleet.state_at(states, i)), sim_state_to_numpy(st),
+                    f"fleet row {i} vs serial seed {s}")
+        for f in tr._fields:
+            if not torch.equal(getattr(traces, f)[:, i], getattr(tr, f)):
+                raise AssertionError(f"fleet row {i}: trace {f} differs from serial seed {s}")
+    sums = fleet.summaries(states)
+    log(f"fleet rows == serial: all {len(sim_state_to_numpy(st))} SimState leaves and all "
+        f"{len(tr._fields)} trace fields of each of the {len(seeds)} rows bit-equal to a serial "
+        f"card run of its seed after {rows_ticks} ticks (completed per row "
+        f"{[x.completed for x in sums]}, timeouts {[x.timeouts for x in sums]})")
+    del fleet, states, traces
+
+    # (b) card == CPU, a small fleet
+    cfg = FATTREE_32_CI
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+    finals = []
+    for d in (dev, "cpu"):
+        small = FleetRunner(cfg, workloads.permutation(32, 48, seed=3),
+                            make_lb("reps", evs_size=cfg.evs_size, freezing_timeout=200),
+                            failures=failures.link_down(ups, 30, 300), seeds=(0, 5, 9), device=d)
+        st, _ = small.run(check_ticks)
+        finals.append([sim_state_to_numpy(small.state_at(st, i)) for i in range(small.n_runs)])
+    for i, (a, b) in enumerate(zip(*finals)):
+        same_leaves(a, b, f"small fleet row {i}")
+    log(f"card vs CPU: fleet FATTREE_32_CI/reps B=3: all {len(finals[0][0])} SimState leaves "
+        f"of every row bit-equal after {check_ticks} ticks")
+
+    # (c) + (d) launches per tick and row-ticks/s against B, interleaved
+    Bs = (1, 4, 16, 64)
+    fleets, warmed = {}, {}
+    for B in Bs:
+        fleets[B] = fig06_fleet(range(B), dev)
+        warmed[B], _ = fleets[B].run(warm)
+    rate = {B: [] for B in Bs}
+    for r in range(rounds):
+        for B in (Bs if r % 2 == 0 else Bs[::-1]):
+            f = fleets[B]
+            _, secs, counts = counted(f"fleet B={B}", bench_ticks, lambda: f.sim.run_rows(
+                bench_ticks, warmed[B], f.base_keys(), first_tick=warm))
+            rate[B].append(B * bench_ticks / secs)
+            log(f"fleet bench round {r} B={B}: {bench_ticks} ticks (from tick {warm}) in "
+                f"{secs:.3f} s = {bench_ticks / secs:.2f} ticks/s = {B * bench_ticks / secs:.1f} "
+                f"row-ticks/s; launches per tick "
+                f"{ {k: n / bench_ticks for k, n in counts.items()} }")
+    base = statistics.median(rate[1])
+    for B in Bs:
+        med = statistics.median(rate[B])
+        log(f"fleet row-ticks/s B={B}: median {med:.1f} (min {min(rate[B]):.1f}, max "
+            f"{max(rate[B]):.1f}, {len(rate[B])} rounds), {1e3 * B / med:.3f} ms per tick, "
+            f"{med / base:.2f}x B=1")
+
+    # (e) where a B = 64 tick's time goes
+    B, f = 64, fleets[64]
+    st = warmed[B]
+    draws = f.sim.tick_draws(f.base_keys(), warm, 100)
+
+    def step(i):
+        nonlocal st
+        st, _ = f.sim.step_rows(st, warm + i, draws.row(i))
+
+    profile_ticks(f"fleet B={B}, ticks {warm}-{warm + 100}", step, 100)
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -915,14 +1135,21 @@ def zoo_card_vs_cpu(dev, ticks: int) -> None:
 # ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
-    ap.add_argument("--arena-ticks", type=int, default=2000, help="arena ticks per cell")
+    ap.add_argument("--ticks", type=int, default=2500, help="main-path ticks per cell")
+    ap.add_argument("--arena-ticks", type=int, default=1100, help="arena ticks per cell")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
-    ap.add_argument("--zoo-check-ticks", type=int, default=900,
+    ap.add_argument("--zoo-check-ticks", type=int, default=700,
                     help="card-vs-CPU horizon of each zoo load balancer")
     ap.add_argument("--fig18-ticks", type=int, default=2000, help="fig18/3tier/reps ticks")
     ap.add_argument("--fig18-check-ticks", type=int, default=600,
                     help="fig18/3tier/reps card-vs-CPU horizon")
+    ap.add_argument("--fleet-ticks", type=int, default=1200,
+                    help="ticks of the B=4 fleet held against serial runs")
+    ap.add_argument("--fleet-check-ticks", type=int, default=600,
+                    help="card-vs-CPU horizon of the small fleet")
+    ap.add_argument("--fleet-bench-ticks", type=int, default=400,
+                    help="timed ticks per fleet per round")
+    ap.add_argument("--fleet-rounds", type=int, default=3, help="interleaved rounds over B")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -986,6 +1213,10 @@ def main() -> int:
     card_vs_cpu(dev, args.check_ticks)
     zoo_card_vs_cpu(dev, args.zoo_check_ticks)
     phase_done("card vs CPU")
+    for k, n in fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks, args.fleet_bench_ticks,
+                            args.fleet_rounds, warm=300).items():
+        totals[k] += n
+    phase_done("fleet")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

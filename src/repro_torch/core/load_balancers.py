@@ -33,10 +33,16 @@ One change of shape from the reference: there each callback takes its key
 and draws from it.  A counter-based draw depends only on the key, never on
 the state, so here every draw is split out: ``draw`` / ``draw_ack`` /
 ``draw_timeout`` make it for keys with any leading axes at once (the engine
-passes a chunk of ticks, ``(T, 2)`` or ``(T, R, 2)`` keys; a single ``(2,)``
-key gives one call's draw), bit-equal row by row to what the reference
-draws call by call, and the callback receives one call's row.  That keeps
-the random number generator out of the tick's launch count.
+passes a chunk of ticks, ``(T, B, 2)`` or ``(T, R, B, 2)`` keys for B runs; a
+single ``(2,)`` key gives one call's draw), bit-equal row by row to what the
+reference draws call by call, and the callback receives one call's row.
+That keeps the random number generator out of the tick's launch count.
+
+Every method works connection by connection: no state, draw or result
+mixes two connections.  A draw's first axis after the key axes is the
+connection axis (``(..., N)``, ``(..., N, K)``).  So the engine hands B runs
+of one scenario to a load balancer as ``B * N`` connections: ``(B, N, ...)``
+leaves and draws viewed as ``(B * N, ...)``.
 
 The flight recorder's ``trace`` port waits for the tracer slice.
 """
@@ -108,6 +114,13 @@ class _State:
 
 def _rand_evs(keys: torch.Tensor, n: int, evs_size: int) -> torch.Tensor:
     return rng.randint(keys, (n,), 0, evs_size)
+
+
+def _conn_major(draws: torch.Tensor) -> torch.Tensor:
+    """``(..., S, N)`` candidates from S split keys as ``(..., N, S)``,
+    contiguous: every draw's first axis after the key axes is the
+    connection axis."""
+    return draws.movedim(-2, -1).contiguous()
 
 
 def _f32(v: float) -> float:
@@ -411,11 +424,11 @@ class MprdmaLB(LoadBalancer):
         )
 
     def draw(self, keys, n_conns):
-        # split(key) -> two candidates per connection: (..., 2, N)
-        return _rand_evs(rng.split(keys), n_conns, self.evs_size)
+        # split(key) -> two candidates per connection, connection-major: (..., N, 2)
+        return _conn_major(_rand_evs(rng.split(keys), n_conns, self.evs_size))
 
     def choose_ev(self, state, mask, draw, now):
-        cand1, cand2 = draw[0], draw[1]
+        cand1, cand2 = draw[:, 0], draw[:, 1]
         bad1 = (state.bad_evs == cand1[:, None]).any(dim=1)
         return torch.where(bad1, cand2, cand1), state  # one resample on a hit
 
@@ -450,13 +463,13 @@ class BitmapLB(LoadBalancer):
             bad=torch.zeros((n_conns, self.evs_size), dtype=torch.bool, device=key.device))
 
     def draw(self, keys, n_conns):
-        # split(key, R) -> R candidates per connection: (..., R, N)
-        return _rand_evs(rng.split(keys, self.resamples), n_conns, self.evs_size)
+        # split(key, R) -> R candidates per connection, connection-major: (..., N, R)
+        return _conn_major(_rand_evs(rng.split(keys, self.resamples), n_conns, self.evs_size))
 
     def choose_ev(self, state, mask, draw, now):
-        ev = draw[0]
+        ev = draw[:, 0]
         for i in range(1, self.resamples):
-            ev = torch.where(_pick(state.bad, ev), draw[i], ev)
+            ev = torch.where(_pick(state.bad, ev), draw[:, i], ev)
         return ev, state
 
     def on_ack(self, state, mask, ev, ecn, now, draw):

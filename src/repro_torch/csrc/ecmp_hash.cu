@@ -1,7 +1,12 @@
 // ecmp_hash: out[i] = mix32(flow[i]*0x9E3779B1 ^ ev[i]*0x85EBCA77
-//                           ^ salt[i]*0xC2B2AE3D) % nports
+//                           ^ salt[i]*0xC2B2AE3D) % nports[i]
 // with mix32 the murmur3 finalizer (constants 0x7FEB352D, 0x846CA68B), all in
 // wrapping uint32 arithmetic; the port a switch picks for each packet.
+// nports is one count for every element, or one per element (a generated
+// fabric's switches differ in their up-degree, the reference's
+// TableTopology hashes with maximum(deg, 1) per arrival): then each thread
+// reads its own lane, once, beside its three inputs, and the launch is the
+// same one.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ecmp_hash.py
 // (ecmp_hash_pallas / _mix_kernel), which hashed (8, 128) int32 tiles of a
@@ -10,7 +15,8 @@
 // element count, and the ragged end is masked by the thread index.
 //
 // What bounds it: 16 bytes per element (three int32 reads, one write) and
-// about 15 integer operations, so a large call is bound by bytes.  At the
+// about 15 integer operations (20 bytes with per-element port counts), so a
+// large call is bound by bytes.  At the
 // engine's shapes (K = MAX_ARR = 512 arrivals per tick) it moves 8 KB and is
 // bound by launch latency.  Design: one thread per element, the hash of
 // ecmp_mix.cuh (native uint32, one unsigned modulo by the runtime nports).
@@ -30,25 +36,31 @@ constexpr int kThreads = 256;
 __global__ void ecmp_hash_kernel(const int32_t* __restrict__ flow,
                                  const int32_t* __restrict__ ev,
                                  const int32_t* __restrict__ salt,
+                                 const int32_t* __restrict__ nports_lane,
                                  int32_t* __restrict__ out, int64_t n, uint32_t nports) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  out[i] = static_cast<int32_t>(ecmp_mix::port(flow[i], ev[i], salt[i], nports));
+  const uint32_t m = nports_lane == nullptr ? nports : static_cast<uint32_t>(nports_lane[i]);
+  out[i] = static_cast<int32_t>(ecmp_mix::port(flow[i], ev[i], salt[i], m));
 }
 
 }  // namespace
 
 // flow, ev, salt, out: n int32 each (any row axis flattened), launched on
-// `stream`; nports >= 1 (the wrapper checks).  Returns cudaGetLastError().
-extern "C" int repro_ecmp_hash(const void* flow, const void* ev, const void* salt, void* out,
-                               long long n, int nports, void* stream) {
+// `stream`.  nports_lane: n int32 per-element port counts, or null for the
+// scalar nports; every count >= 1 (the wrapper checks the scalar; per-element
+// counts are the caller's contract, as a count of 0 has no port).  Returns
+// cudaGetLastError().
+extern "C" int repro_ecmp_hash(const void* flow, const void* ev, const void* salt,
+                               const void* nports_lane, void* out, long long n, int nports,
+                               void* stream) {
   if (n > 0) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     ecmp_hash_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(flow), static_cast<const int32_t*>(ev),
-        static_cast<const int32_t*>(salt), static_cast<int32_t*>(out), n,
-        static_cast<uint32_t>(nports));
+        static_cast<const int32_t*>(salt), static_cast<const int32_t*>(nports_lane),
+        static_cast<int32_t*>(out), n, static_cast<uint32_t>(nports));
   }
   return static_cast<int>(cudaGetLastError());
 }

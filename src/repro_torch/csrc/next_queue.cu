@@ -22,9 +22,17 @@
 //     count, 0 at injection), and src / dst are the connection tables,
 //     gathered here through the connection id (clamped to [0, n_conns)).
 //
+// Rows: a fleet of B runs of one scenario routes every run's arrivals in this
+// one launch.  The arrival arrays are (B, K) and flattened (thread i serves
+// row i / K); q_len is (B, n_queues), each row read at row * n_queues;
+// q_penalty is one (n_queues,) row shared by every run (pen_row_stride 0: one
+// failure schedule) or (B, n_queues); the engine form's connection tables
+// are shared (one workload).  B = 1 is the one-run call.
+//
 // What bounds it: at the engine's K = 512 arrivals it reads ~20 bytes and
-// writes 4 per arrival (plus q_len under adaptive), ~12 KB in all, a few ns
-// of HBM time: it is bound by launch latency, like the rest of the tick.
+// writes 4 per arrival (plus q_len under adaptive), ~12 KB per row, a few ns
+// of HBM time: it is bound by launch latency, like the rest of the tick, at
+// B = 64 rows too (~0.8 MB, 32768 threads in 256 blocks).
 // Design: one thread per arrival, the ragged end masked by the thread index;
 // every row load goes out before the first branch on one; empty slots stop
 // before any gather, so no table or q_len read happens at a garbage index.
@@ -99,11 +107,16 @@ __device__ __forceinline__ int choose(bool adaptive, const int32_t* __restrict__
 }
 
 __global__ void __launch_bounds__(kThreads)
-    next_queue_kernel(const Fabric f, const Arrivals a, const int32_t* __restrict__ q_len,
-                      const int32_t* __restrict__ q_pen, bool adaptive, int k,
-                      int32_t* __restrict__ out) {
+    next_queue_kernel(const Fabric f, const Arrivals a, const int32_t* __restrict__ q_len_rows,
+                      const int32_t* __restrict__ q_pen_rows, int pen_row_stride, bool adaptive,
+                      int k, int row_len, int32_t* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= k) return;
+  // this arrival's run: its queue lengths (and penalty, unless shared)
+  const int row = i / row_len;
+  const int32_t* __restrict__ q_len = q_len_rows + static_cast<int64_t>(row) * f.n_queues;
+  const int32_t* __restrict__ q_pen =
+      q_pen_rows == nullptr ? nullptr : q_pen_rows + static_cast<int64_t>(row) * pen_row_stride;
   const bool engine = a.a_idx != nullptr;
   // every row holds a value for every slot (the engine gathers clamped
   // rows), so all loads go out before the first branch on one
@@ -173,17 +186,19 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // fabric: host array of kFabricInts ints (RouteGeometry's order; the wrapper
-// checks the divisors >= 1).  at_injection: k bool flags, or k int32 hop
-// counts in the engine form; cur, flow, ev: k int32; src, dst: k int32 hosts,
-// or (n_conns,) int32 connection tables in the engine form (n_conns >= 1);
-// a_idx: k int32 packet slots (engine form) or null.  q_len: (n_queues,)
-// int32, read only under adaptive; q_penalty: (n_queues,) int32 or null.
-// out: k int32.  Returns cudaGetLastError().
+// checks the divisors >= 1).  k = B * row_len arrivals of B rows: at_injection
+// k bool flags, or k int32 hop counts in the engine form; cur, flow, ev: k
+// int32; src, dst: k int32 hosts, or (n_conns,) int32 connection tables
+// shared by the rows in the engine form (n_conns >= 1); a_idx: k int32 packet
+// slots (engine form) or null.  q_len: (B, n_queues) int32, read only under
+// adaptive; q_penalty: null, or int32 rows pen_row_stride apart (0: one
+// (n_queues,) row for all, n_queues: one per row).  out: k int32.  Returns
+// cudaGetLastError().
 extern "C" int repro_next_queue(const int* fabric, const void* at_injection, const void* cur,
                                 const void* flow, const void* ev, const void* src,
                                 const void* dst, const void* a_idx, int n_pkt, int n_conns,
-                                const void* q_len, const void* q_penalty, int adaptive, int k,
-                                void* out, void* stream) {
+                                const void* q_len, const void* q_penalty, int pen_row_stride,
+                                int adaptive, int k, int row_len, void* out, void* stream) {
   Fabric f;
   std::memcpy(&f, fabric, sizeof f);
   const Arrivals a{at_injection,
@@ -195,11 +210,11 @@ extern "C" int repro_next_queue(const int* fabric, const void* at_injection, con
                    static_cast<const int32_t*>(a_idx),
                    n_pkt,
                    n_conns};
-  if (k > 0) {
+  if (k > 0 && row_len > 0) {
     next_queue_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         f, a, static_cast<const int32_t*>(q_len), static_cast<const int32_t*>(q_penalty),
-        adaptive != 0, k, static_cast<int32_t*>(out));
+        pen_row_stride, adaptive != 0, k, row_len, static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ queue it enters next in the 2- or 3-tier fat tree (``Topology.next_queue``
 of the reference, ECMP hash or first least-loaded port at each choice hop).
 The redesign for this card of ``ecmp_hash``, the port of the Pallas kernel
 ``repro.kernels.ecmp_hash``: the hash sites, the gathers around them and
-the hop transition are one kernel.  The plain version is
+the hop transition are one kernel, for one run's arrivals ``(K,)`` or a
+fleet's ``(B, K)``.  The plain version is
 ``repro_torch.kernels.ref.next_queue_ref``.
 """
 from __future__ import annotations
@@ -64,14 +65,18 @@ def _fabric(g: RouteGeometry) -> ctypes.Array:
 
 def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, dst, q_len,
                     adaptive: bool, q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
-    """``(K,)`` CUDA tensors -> int32 ``(K,)`` next queues; the arguments as
-    ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is given)."""
+    """``(K,)`` CUDA tensors -> int32 ``(K,)`` next queues, or with a leading
+    row axis ``(B, K)`` -> ``(B, K)`` in the same one launch (``q_len`` then
+    ``(B, NQ)``, ``q_penalty`` ``(NQ,)`` shared or ``(B, NQ)``); the
+    arguments as ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is
+    given)."""
     global launches
     fabric = _fabric(g)
-    if not isinstance(cur_queue, torch.Tensor) or cur_queue.dim() != 1 \
+    if not isinstance(cur_queue, torch.Tensor) or cur_queue.dim() not in (1, 2) \
             or cur_queue.device.type != "cuda":
-        raise ValueError("next_queue: cur_queue must be a (K,) CUDA tensor")
+        raise ValueError("next_queue: cur_queue must be a (K,) or (B, K) CUDA tensor")
     dev, shape, i32 = cur_queue.device, cur_queue.shape, torch.int32
+    rows = shape[:-1]  # () or (B,)
     engine = a_idx is not None
     for t, name in ((cur_queue, "cur_queue"), (flow_id, "flow_id"), (ev, "ev")):
         check("next_queue", t, name, i32, shape, dev)
@@ -85,15 +90,19 @@ def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src,
             raise ValueError("next_queue: the engine form needs (NC,) connection tables, NC >= 1")
     for t, name in ((src, "src"), (dst, "dst")):
         check("next_queue", t, name, i32, (n_conns,) if engine else shape, dev)
-    check("next_queue", q_len, "q_len", i32, (g.n_queues,), dev)
+    nq = g.n_queues
+    check("next_queue", q_len, "q_len", i32, (*rows, nq), dev)
+    pen_stride = 0
     if q_penalty is not None:
-        check("next_queue", q_penalty, "q_penalty", i32, (g.n_queues,), dev)
+        per_row = bool(rows) and q_penalty.dim() == 2
+        check("next_queue", q_penalty, "q_penalty", i32, (*rows, nq) if per_row else (nq,), dev)
+        pen_stride = nq if per_row else 0
     out = torch.empty(shape, dtype=i32, device=dev)
     rc = build.library().repro_next_queue(
         fabric, at_injection.data_ptr(), cur_queue.data_ptr(), flow_id.data_ptr(),
         ev.data_ptr(), src.data_ptr(), dst.data_ptr(), ptr(a_idx), int(n_pkt), n_conns,
-        q_len.data_ptr(), ptr(q_penalty), int(bool(adaptive)), shape[0], out.data_ptr(),
-        stream_ptr(dev),
+        q_len.data_ptr(), ptr(q_penalty), pen_stride, int(bool(adaptive)), out.numel(),
+        shape[-1], out.data_ptr(), stream_ptr(dev),
     )
     build.check(rc, "next_queue")
     launches += 1

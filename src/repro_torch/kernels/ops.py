@@ -70,9 +70,11 @@ def queue_tick(target, u, qlen, serve, capacity, kmin, kmax, red_rcp=None, pmax=
     return ref.queue_tick_ref(*args, tile=_qt.TILE)
 
 
-def ecmp_hash(flow, ev, salt, nports: int) -> torch.Tensor:
+def ecmp_hash(flow, ev, salt, nports) -> torch.Tensor:
     """``(K,)`` int32 (flow, EV, salt) -> the ECMP port in ``[0, nports)``;
-    optional leading row axis; see ``ref.ecmp_hash_ref``."""
+    optional leading row axis; ``nports`` an int or an int32 tensor of
+    per-lane counts that broadcasts against ``flow``; see
+    ``ref.ecmp_hash_ref``."""
     if _on_cuda(flow, "ecmp_hash"):
         return _eh.ecmp_hash_cuda(flow, ev, salt, nports)
     return ref.ecmp_hash_ref(flow, ev, salt, nports)

@@ -31,11 +31,20 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def ecmp_hash_ref(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
-                  nports: int) -> torch.Tensor:
+                  nports) -> torch.Tensor:
     """Port in ``[0, nports)`` for each (flow, EV, salt), as int32:
     ``mix32(flow*0x9E3779B1 ^ ev*0x85EBCA77 ^ salt*0xC2B2AE3D) % nports``
-    in wrapping uint32 arithmetic.  Any shape; the three inputs broadcast."""
+    in wrapping uint32 arithmetic.  Any shape; the three inputs broadcast,
+    and so does ``nports`` when it is an integer tensor of per-lane port
+    counts (the reference's ``jnp.asarray(nports, jnp.uint32)``).  Every
+    lane must be ``>= 1``: checked here for CPU tensors, where reading them
+    costs no device sync; on the card it is the caller's contract, as for
+    the kernel."""
     nports = check_nports(nports)
+    if isinstance(nports, torch.Tensor):
+        nports = nports.to(torch.int64)
+        if nports.device.type == "cpu" and bool((nports < 1).any()):
+            raise ValueError("ecmp_hash needs nports >= 1 in every lane")
     u = lambda t: t.to(torch.int64) & M32
     h = mix32(
         _mulmod32(u(flow), 0x9E3779B1)
@@ -59,6 +68,12 @@ def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, 
     current queue, connection, EV), ``src`` / ``dst`` the ``(NC,)``
     connection tables; slots ``>= n_pkt`` are no arrival and get
     ``n_queues``.
+
+    Rows: the arrivals may carry a leading row axis ``(B, K)`` (a fleet of
+    runs of one scenario); ``q_len`` is then ``(B, n_queues)``, ``q_penalty``
+    ``(n_queues,)`` shared or ``(B, n_queues)``, and the engine form's
+    connection tables stay ``(NC,)``, shared.  Row ``b`` is the one-row call
+    on row ``b``'s inputs.
 
     Each choice hop (the ToR uplink; on 3 tiers also the agg uplink) takes
     the ECMP hash of (flow, EV, salt) with salt ``src_tor`` (agg uplink:
@@ -86,8 +101,9 @@ def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, 
     def choose(base, n, salt):  # the port a choice hop takes among n from base
         if not adaptive:
             return ecmp_hash_ref(flow_id, ev, salt, n)
-        cand = base[:, None] + torch.arange(n, dtype=torch.int32, device=dev)
-        return torch.argmin(q_len[cand.long()], dim=1).to(torch.int32)
+        cand = base[..., None] + torch.arange(n, dtype=torch.int32, device=dev)
+        lens = torch.gather(q_len, -1, cand.flatten(-2).long()).view(cand.shape)
+        return torch.argmin(lens, dim=-1).to(torch.int32)
 
     if g.tiers == 2:
         U = g.uplinks_per_tor

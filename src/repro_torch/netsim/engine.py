@@ -55,6 +55,18 @@ gets there with PyTorch:
     hash and REPS's update go through ``repro_torch.kernels.ops``: on a
     CUDA device the hand-written kernel runs, on the CPU its plain version
     in ``kernels/ref.py``.  Nothing else chooses between the two.
+  * Rows.  There is one tick body, ``Simulator.step_rows``, over state with a
+    leading row axis B: B runs of one scenario (one workload, one failure
+    schedule, one load balancer; a seed each) step in lock-step, and every
+    kernel is one launch per tick whatever B is.  Per-row gathers and
+    scatters are one advanced index with a precomputed row index beside the
+    tick's own, reductions run over the last axis, and the load balancer
+    sees the rows as more connections.  ``Simulator.run``, ``step_scenario``
+    and ``tick_fn`` are its B = 1 case (the row axis added and dropped as
+    views); ``repro_torch.netsim.fleet.FleetRunner`` is its B > 1 case:
+
+        fleet = FleetRunner(cfg, wl, make_lb("reps"), seeds=range(64))  # on the card
+        states, traces = fleet.run(4000)       # leaves (64, ...), traces (4000, 64, ...)
 
 Not ported yet: conn-scale mode (``conn_sharding`` / the active set), the
 conn-axis mesh and the flight recorder's events (``emit_events``); each
@@ -63,6 +75,7 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -280,7 +293,12 @@ class SimState:
     lanes and is never read: ``pkt`` is ``(PF, NP + 1)``, ``qbuf`` ``(NQ +
     1, QCAP)``, ``c_rtx``/``c_rcv`` ``(NC + 1, MSG)`` and ``fl`` ``(NP +
     1,)``.  ``as_idx``/``as_count`` are the reference's dense-mode
-    placeholders (empty and 0), kept so the two leaf sets match."""
+    placeholders (empty and 0), kept so the two leaf sets match.
+
+    The shapes below are one run's.  The tick itself (``Simulator.step_rows``)
+    takes B runs of one scenario at once: then every leaf, the load
+    balancer's included, has a leading row axis B (``fl_head`` ``(B,)``,
+    ``s_stats`` ``(B, N_STATS)``, ...)."""
 
     pkt: torch.Tensor  # (PF, NP + 1) int32 packed packet table
     qbuf: torch.Tensor  # (NQ + 1, QCAP) int32
@@ -312,35 +330,35 @@ class SimState:
 
     @property
     def s_drops_cong(self):
-        return self.s_stats[ST_DROPS_CONG]
+        return self.s_stats[..., ST_DROPS_CONG]
 
     @property
     def s_drops_fail(self):
-        return self.s_stats[ST_DROPS_FAIL]
+        return self.s_stats[..., ST_DROPS_FAIL]
 
     @property
     def s_timeouts(self):
-        return self.s_stats[ST_TIMEOUTS]
+        return self.s_stats[..., ST_TIMEOUTS]
 
     @property
     def s_delivered(self):
-        return self.s_stats[ST_DELIVERED]
+        return self.s_stats[..., ST_DELIVERED]
 
     @property
     def s_ecn_marks(self):
-        return self.s_stats[ST_ECN]
+        return self.s_stats[..., ST_ECN]
 
     @property
     def s_injected(self):
-        return self.s_stats[ST_INJECTED]
+        return self.s_stats[..., ST_INJECTED]
 
     @property
     def s_unprocessed(self):
-        return self.s_stats[ST_UNPROC]
+        return self.s_stats[..., ST_UNPROC]
 
     @property
     def s_alloc_fail(self):
-        return self.s_stats[ST_ALLOC_FAIL]
+        return self.s_stats[..., ST_ALLOC_FAIL]
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
@@ -357,19 +375,10 @@ class TickTrace(NamedTuple):
     watch_served: torch.Tensor  # (W,) int32 0/1
 
 
-def tree_index(x, i: int):
-    """Index ``i`` on the leading axis of every tensor of a draw (a tensor,
-    a tuple of draws, or ``None``)."""
-    if x is None:
-        return None
-    if isinstance(x, tuple):
-        return tuple(tree_index(v, i) for v in x)
-    return x[i]
-
-
 class TickDraws(NamedTuple):
     """Every random input of a run of ticks, drawn from the tick keys ahead
-    of the ticks (leading axis T).  The load balancer's draws are whatever
+    of the ticks (leading axis T; a fleet's draws have the row axis after it,
+    see ``Simulator.tick_draws``).  The load balancer's draws are whatever
     its ``draw`` / ``draw_ack`` / ``draw_timeout`` return (``None`` when it
     draws nothing there)."""
 
@@ -380,7 +389,24 @@ class TickDraws(NamedTuple):
     lb_timeout: Any  # (T, ...) on_timeout's draw from fold 5
 
     def row(self, i: int) -> "TickDraws":
-        return TickDraws(*(tree_index(x, i) for x in self))
+        return tree_map(lambda t: t[i], self)
+
+    def _row_axis(self, fn, lead: int) -> "TickDraws":
+        """``fn(t, axis)`` on every tensor, ``axis`` the row axis of a fleet's
+        draws: ``lead`` (1 in a chunk ``(T, B, ...)``, 0 in a tick's row), one
+        further in ``lb_ack`` (rounds before rows)."""
+        f = lambda x, ax: tree_map(lambda t: fn(t, ax), x)
+        return TickDraws(u_red=f(self.u_red, lead), u_gray=f(self.u_gray, lead),
+                         lb=f(self.lb, lead), lb_ack=f(self.lb_ack, lead + 1),
+                         lb_timeout=f(self.lb_timeout, lead))
+
+    def _rows_out(self) -> "TickDraws":
+        """A chunk of one row's draws without the row axis (views)."""
+        return self._row_axis(lambda t, ax: t.select(ax, 0), 1)
+
+    def _rows_in(self) -> "TickDraws":
+        """One run's tick of draws as a one-row tick (views)."""
+        return self._row_axis(lambda t, ax: t.unsqueeze(ax), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -421,19 +447,117 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """Indices of set bits in ascending order, padded with ``len(mask)``
-    (binary search over the running popcount, as the reference)."""
-    cs = torch.cumsum(mask, 0, dtype=I32)
-    targets = torch.arange(1, size + 1, dtype=I32, device=mask.device)
-    return torch.searchsorted(cs, targets, out_int32=True)
+def tree_map(fn, x, *rest):
+    """``fn`` over the tensors of a state tree (a ``SimState``, a load
+    balancer's state: dataclasses, tuples, named tuples, tensors, ``None``),
+    with ``rest`` trees of the same structure as further arguments.  The
+    tick maps a few trees per call, so the common cases come first."""
+    if isinstance(x, torch.Tensor):
+        return fn(x, *rest)
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        leaves = (tree_map(fn, *vs) for vs in zip(x, *rest))
+        return type(x)(*leaves) if hasattr(x, "_fields") else tuple(leaves)
+    names = _field_names(type(x))
+    return type(x)(**{n: tree_map(fn, getattr(x, n), *(getattr(r, n) for r in rest))
+                      for n in names})
 
 
-def _get(vec: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
-    """``vec.at[idx].get(mode="fill", fill_value=fill)``."""
-    n = vec.shape[0]
+@functools.lru_cache(maxsize=None)
+def _field_names(cls) -> tuple[str, ...]:
+    if not dataclasses.is_dataclass(cls):
+        raise TypeError(f"a state tree holds tensors, tuples and dataclasses, not {cls.__name__}")
+    return tuple(f.name for f in dataclasses.fields(cls))
+
+
+def add_rows(x):
+    """A one-run state, trace or tick's draws as one row: a leading row axis
+    of length 1 on every tensor, as a view."""
+    return tree_map(lambda t: t[None], x)
+
+
+def drop_rows(x):
+    """The inverse of ``add_rows``: row 0 of every tensor, as a view."""
+    return tree_map(lambda t: t[0], x)
+
+
+def _compact(mask: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """Indices of set bits of each row of ``mask (B, N)`` in ascending order,
+    padded with ``N`` (binary search over the running popcount, as the
+    reference); ``ranks`` is ``(B, size)`` int32 ``1..size``."""
+    cs = torch.cumsum(mask, -1, dtype=I32)
+    return torch.searchsorted(cs, ranks, out_int32=True)
+
+
+def _get(vec: torch.Tensor, idx: torch.Tensor, fill, rows=None) -> torch.Tensor:
+    """``vec.at[idx].get(mode="fill", fill_value=fill)`` on the last axis:
+    ``vec (N,)`` shared by every row, or ``vec (B, N)`` read in each row of
+    ``idx (B, K)`` (``rows``: the row of each element, ``_Rows.of``)."""
+    n = vec.shape[-1]
     ok = (idx >= 0) & (idx < n)
-    return torch.where(ok, vec[idx.clamp(0, n - 1)], fill)
+    safe = idx.clamp(0, n - 1)
+    return torch.where(ok, vec[safe] if rows is None else vec[rows, safe], fill)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rows:
+    """Index tensors and constants of a tick over ``B`` rows, made once per
+    ``B`` (and index width) on the simulator's device.
+
+    A per-row gather or scatter is one advanced index: the tick's int32
+    index beside a row index.  The row indices are int64 and materialized at
+    the full index shape, contiguous: the index kernel then converts only
+    the tick's index (as a one-run index would), and on a CUDA device, where
+    advanced indexing makes every index tensor contiguous unless their
+    strides all match, nothing else is copied."""
+
+    B: int
+    device: torch.device
+    ranks: dict  # size -> (B, size) int32 1..size, the compaction targets
+    inject: tuple  # (FLYING, 0, -1) rows (B, NH) of the injected packets' fixed fields
+    _index: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def make(B: int, NH: int, sizes, device) -> "_Rows":
+        full = lambda v: torch.full((B, NH), v, dtype=I32, device=device)
+        return _Rows(
+            B=B, device=device,
+            ranks={n: torch.arange(1, n + 1, dtype=I32, device=device).repeat(B, 1)
+                   for n in sizes},
+            inject=(full(FLYING), full(0), full(-1)),
+        )
+
+    def _iota(self, shape: tuple, axis: int) -> torch.Tensor:
+        """``arange(shape[axis])`` along ``axis``, materialized at ``shape``
+        (int64, contiguous), made once."""
+        t = self._index.get((shape, axis))
+        if t is None:
+            view = [1] * len(shape)
+            view[axis] = shape[axis]
+            ar = torch.arange(shape[axis], dtype=torch.int64, device=self.device)
+            t = self._index[(shape, axis)] = ar.view(view).expand(shape).contiguous()
+        return t
+
+    def of(self, idx: torch.Tensor) -> torch.Tensor:
+        """The row of each element of a ``(B, K)`` index."""
+        return self._iota((self.B, idx.shape[-1]), 0)
+
+    def col(self, idx: torch.Tensor) -> torch.Tensor:
+        """The column of each element of a ``(B, K)`` index."""
+        return self._iota((self.B, idx.shape[-1]), 1)
+
+    def pkt_get(self, pkt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Every field of slots ``idx (B, K)`` of each row's packet table
+        ``pkt (B, PF, NP + 1)``: ``(PF, B, K)``, one gather."""
+        shape = (PF, self.B, idx.shape[-1])
+        return pkt[self._iota(shape, 1), self._iota(shape, 0), idx[None]]
+
+    def pkt_set(self, pkt: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+        """``pkt_get``'s scatter, in place: slots unique within a row stay
+        unique across rows, and only the sentinel column ``NP`` repeats."""
+        shape = (PF, self.B, idx.shape[-1])
+        pkt[self._iota(shape, 1), self._iota(shape, 0), idx[None]] = rows
 
 
 class Simulator:
@@ -530,7 +654,6 @@ class Simulator:
 
         # constants reused every tick
         self._qid = torch.arange(self.NQ, dtype=I32, device=dev)
-        self._hid = torch.arange(self.NH, dtype=I32, device=dev)
         self._cph = torch.arange(self.CPH, dtype=I32, device=dev)
         self._ones_nc = torch.ones((NC,), dtype=F32, device=dev)
         self._hc_safe = self.host_conns.clamp(0, max(NC - 1, 0))
@@ -538,6 +661,8 @@ class Simulator:
         self._dep_safe = self.conn_dep.clamp(0, max(NC - 1, 0))
         self._no_dep = self.conn_dep < 0
         self._red_rcp = _f32(np.float32(1.0) / np.float32(cfg.kmax - cfg.kmin))
+
+        self._row_consts: dict[int, _Rows] = {}  # B -> the tick's row indices
 
         self.base_key = rng.PRNGKey(seed, device=dev)
 
@@ -608,26 +733,29 @@ class Simulator:
             raise ValueError(cfg.cc)
         return torch.clamp(cwnd, 1.0, float(cfg.max_cwnd_pkts)), alpha
 
-    # -- (NC + 1, MSG) bitmaps with a sentinel row -----------------------
-    def _bm_get(self, bmap, conns, seqs):
-        """``bmap.at[conns, seqs].get(mode="fill", fill_value=True)``."""
+    # -- (B, NC + 1, MSG) bitmaps with a sentinel row ----------------------
+    def _bm_get(self, bmap, conns, seqs, R: _Rows):
+        """``bmap.at[conns, seqs].get(mode="fill", fill_value=True)`` in each
+        row."""
         NC, MSG = self.wl.n_conns, self.MSG
         ok = (conns >= 0) & (conns < NC) & (seqs >= 0) & (seqs < MSG)
-        return torch.where(ok, bmap[conns.clamp(0, NC), seqs.clamp(0, MSG - 1)], True)
+        return torch.where(ok, bmap[R.of(conns), conns.clamp(0, NC), seqs.clamp(0, MSG - 1)],
+                           True)
 
-    def _bm_or(self, bmap, conns, seqs, vals):
-        """``bmap.at[conns, seqs].max(vals, mode="drop")`` in place: only
-        the constant True is written, so repeated indices are harmless."""
+    def _bm_or(self, bmap, conns, seqs, vals, R: _Rows):
+        """``bmap.at[conns, seqs].max(vals, mode="drop")`` in place, in each
+        row: only the constant True is written, so repeated indices are
+        harmless."""
         NC = self.wl.n_conns
         hit = vals & (conns >= 0) & (conns < NC)
-        bmap[torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = True
+        bmap[R.of(conns), torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = True
 
     # ------------------------------------------------------------------
     def _fault_masks(self, now: int):
         """Per-queue fault masks of the windows active at ``now``: (down,
         degraded, gray drop parameter or None, adaptive-routing penalty).
         Computed on the host from the schedule and uploaded only when the
-        active set changes."""
+        active set changes; one ``(NQ,)`` set serves every row."""
         f = self.failures
         act = (now >= f.start) & (now < f.end)
         key = act.tobytes()
@@ -654,12 +782,27 @@ class Simulator:
             self._fault_key = key
         return self._faults
 
+    def _rows(self, B: int) -> _Rows:
+        rows = self._row_consts.get(B)
+        if rows is None:
+            sizes = {self.MAX_EV, self.NH, self.MAX_ARR, self.MAX_FREE}
+            rows = self._row_consts[B] = _Rows.make(B, self.NH, sizes, self.device)
+        return rows
+
     def tick_draws(self, base_key: torch.Tensor, t0: int, n: int) -> TickDraws:
-        """The random inputs of ticks ``[t0, t0 + n)``, drawn in one pass."""
+        """The random inputs of ticks ``[t0, t0 + n)``, drawn in one pass.
+
+        ``base_key (2,)`` gives one run's draws (leading axis T).  ``base_key
+        (B, 2)`` gives B rows', row ``b`` bit for bit what key ``b`` alone
+        draws (every draw is elementwise over the key axes), laid out so that
+        a tick's slice is a view with the row axis first: ``(T, B, ...)``,
+        and ``lb_ack`` ``(T, R, B, ...)`` so that a round is ``(B, ...)``."""
+        if base_key.dim() == 1:
+            return self.tick_draws(base_key[None], t0, n)._rows_out()
         ticks = torch.arange(t0, t0 + n, dtype=torch.int64, device=self.device)
-        keys = rng.fold_in(base_key, ticks)  # (n, 2) tick keys
-        k_ack = rng.fold_in(rng.fold_in(keys, 4)[:, None, :], torch.arange(
-            self.cfg.feedback_rounds, device=self.device)[None, :])
+        keys = rng.fold_in(base_key[None], ticks[:, None])  # (n, B, 2) tick keys
+        k_ack = rng.fold_in(rng.fold_in(keys, 4)[:, None], torch.arange(
+            self.cfg.feedback_rounds, device=self.device)[None, :, None])  # (n, R, B, 2)
         NC = self.wl.n_conns
         return TickDraws(
             u_red=rng.uniform(rng.fold_in(keys, 1), (self.MAX_ARR,)),
@@ -682,34 +825,49 @@ class Simulator:
         emit_events: bool = False,
         conn_axis: str | None = None,
     ) -> tuple[SimState, TickTrace]:
-        """One tick: returns the next state and the tick's trace; ``state``
-        is left unchanged.  ``draws`` is this tick's row of ``tick_draws``
-        (drawn here when omitted)."""
+        """One tick of one run: returns the next state and the tick's trace;
+        ``state`` is left unchanged.  ``draws`` is this tick's row of
+        ``tick_draws(base_key, ...)`` (drawn here when omitted).  The tick is
+        ``step_rows`` on one row, added and dropped as views."""
         if emit_events:
             raise NotImplementedError("tick events (flight recorder) are not ported yet")
         if conn_axis is not None:
             raise NotImplementedError("the conn-axis mesh is not ported yet")
         now = int(tick)
-        if draws is None:
-            draws = self.tick_draws(base_key, now, 1).row(0)
+        rows = (self.tick_draws(base_key[None], now, 1).row(0) if draws is None
+                else draws._rows_in())
+        new_state, trace = self.step_rows(add_rows(state), now, rows)
+        return drop_rows(new_state), drop_rows(trace)
+
+    def step_rows(
+        self, state: SimState, tick: int, draws: TickDraws
+    ) -> tuple[SimState, TickTrace]:
+        """One tick of B runs of this scenario at once: ``state`` has a
+        leading row axis B on every leaf (its load balancer's included),
+        ``draws`` is one tick of ``tick_draws`` with B base keys.  Every
+        kernel is one launch whatever B is; ``now`` and the failure masks are
+        shared.  Returns the next rows' state and their trace ``(B, ...)``."""
+        now = int(tick)
         cfg, topo = self.cfg, self.topo
         NP, NQ, NH, NC = self.NP, self.NQ, self.NH, self.wl.n_conns
         QCAP = cfg.queue_capacity
         st = state
+        B = st.q_len.shape[0]
+        R = self._rows(B)
 
         pkt = st.pkt.clone()  # every scatter below writes this copy in place
         c_rtx = st.c_rtx.clone()
         c_rcv = st.c_rcv.clone()
         c_inflight, c_rtx_count = st.c_inflight, st.c_rtx_count
         c_cwnd, c_alpha, lb_state = st.c_cwnd, st.c_alpha, st.lb_state
-        state_at_entry = st.pkt[PS, :NP]
+        state_at_entry = st.pkt[:, PS, :NP]
 
         # =============== 1. feedback (ACK / NACK) =====================
-        p_state = st.pkt[PS, :NP]
-        due = ((p_state == IN_ACK) | (p_state == IN_NACK)) & (st.pkt[PEVT, :NP] == now)
-        e_idx = _compact(due, self.MAX_EV)
+        p_state = st.pkt[:, PS, :NP]
+        due = ((p_state == IN_ACK) | (p_state == IN_NACK)) & (st.pkt[:, PEVT, :NP] == now)
+        e_idx = _compact(due, R.ranks[self.MAX_EV])
         e_valid = e_idx < NP
-        E = st.pkt[:, e_idx.clamp(max=NP - 1)]  # (PF, MAX_EV) one gather
+        E = R.pkt_get(st.pkt, e_idx.clamp(max=NP - 1))  # (PF, B, MAX_EV) one gather
         e_conn = torch.where(e_valid, E[PCONN], NC)  # NC = sentinel segment
         e_is_nack = e_valid & (E[PS] == IN_NACK)
         e_is_ack = e_valid & ~e_is_nack
@@ -733,71 +891,71 @@ class Simulator:
             torch.where(e_is_ack, e_rtt, 0),
         ]
         if cfg.trimming:
-            already = self._bm_get(c_rcv, e_conn, e_seq)
+            already = self._bm_get(c_rcv, e_conn, e_seq, R)
             need_rtx = e_is_nack & ~already
-            prev_rtx = self._bm_get(c_rtx, e_conn, e_seq)
-            self._bm_or(c_rtx, e_conn, e_seq, need_rtx)
+            prev_rtx = self._bm_get(c_rtx, e_conn, e_seq, R)
+            self._bm_or(c_rtx, e_conn, e_seq, need_rtx, R)
             fields += [need_rtx & ~prev_rtx, e_is_nack]
-        tbl = kernel_ops.seg_sum(ridx, fields, (R_fb + 1) * (NC + 1)).reshape(
-            len(fields), R_fb + 1, NC + 1
+        tbl = kernel_ops.seg_sum(ridx, fields, (R_fb + 1) * (NC + 1)).view(
+            B, len(fields), R_fb + 1, NC + 1
         )
-        fb = tbl.sum(dim=1, dtype=I32)  # rank-independent totals per conn
-        c_inflight = c_inflight - fb[0, :NC]
+        fb = tbl.sum(dim=2, dtype=I32)  # rank-independent totals per conn
+        c_inflight = c_inflight - fb[:, 0, :NC]
         if cfg.trimming:
-            c_rtx_count = c_rtx_count + fb[5, :NC]
-            c_cwnd = torch.clamp(c_cwnd - fb[6, :NC].to(F32), 1.0, float(cfg.max_cwnd_pkts))
+            c_rtx_count = c_rtx_count + fb[:, 5, :NC]
+            c_cwnd = torch.clamp(c_cwnd - fb[:, 6, :NC].to(F32), 1.0, float(cfg.max_cwnd_pkts))
 
         # CC: up to feedback_rounds exact rounds of one ACK per conn.  The LB
         # takes the same rounds at injection (``lb.step``): no stage between
         # reads its state, and REPS then applies them all in one launch
         acks = []
         for r in range(R_fb):
-            conn_mask = tbl[1, r, :NC] > 0
-            conn_ecn = tbl[3, r, :NC] > 0
+            conn_mask = tbl[:, 1, r, :NC] > 0
+            conn_ecn = tbl[:, 3, r, :NC] > 0
             c_cwnd, c_alpha = self._cc_on_ack(c_cwnd, c_alpha, conn_mask, conn_ecn,
-                                              tbl[4, r, :NC])
-            acks.append((conn_mask, tbl[2, r, :NC], conn_ecn, tree_index(draws.lb_ack, r)))
-        unprocessed = (e_is_ack & (e_rank >= R_fb)).sum(dtype=I32)
+                                              tbl[:, 4, r, :NC])
+            acks.append((conn_mask, tbl[:, 2, r, :NC], conn_ecn, tree_map(lambda t: t[r], draws.lb_ack)))
+        unprocessed = (e_is_ack & (e_rank >= R_fb)).sum(dim=-1, dtype=I32)
 
         # =============== 2. RTO ========================================
         # a packet fires exactly at send + rto and injection admits <= 1 per
         # host per tick, so <= NH fire per tick: compact to NH rows
         p_state = torch.where(due, FREE, p_state)
-        p_conn = st.pkt[PCONN, :NP]
-        p_orphan = st.pkt[PORPH, :NP] == 1
+        p_conn = st.pkt[:, PCONN, :NP]
+        p_orphan = st.pkt[:, PORPH, :NP] == 1
         active_data = (p_state == FLYING) | (p_state == QUEUED) | (p_state == LOST_WAIT)
-        conn_done_of_pkt = st.c_done[p_conn.clamp(0, NC - 1)]
+        conn_done_of_pkt = st.c_done[R.of(p_conn), p_conn.clamp(0, NC - 1)]
         rto = (
             active_data
             & ~p_orphan
-            & ((now - st.pkt[PSEND, :NP]) >= cfg.rto_ticks)
+            & ((now - st.pkt[:, PSEND, :NP]) >= cfg.rto_ticks)
             & ~conn_done_of_pkt
         )
-        r_idx = _compact(rto, NH)
-        timeouts_d = rto.sum(dtype=I32)
+        r_idx = _compact(rto, R.ranks[NH])
+        timeouts_d = rto.sum(dim=-1, dtype=I32)
         r_valid = r_idx < NP
-        Rp = st.pkt[:, r_idx.clamp(max=NP - 1)]  # (PF, NH)
+        Rp = R.pkt_get(st.pkt, r_idx.clamp(max=NP - 1))  # (PF, B, NH)
         r_conn = torch.where(r_valid, Rp[PCONN], NC)
         r_seq = torch.where(r_valid, Rp[PSEQ], 0)
-        rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq)
-        prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq)
-        self._bm_or(c_rtx, r_conn, r_seq, rto_need)
+        rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq, R)
+        prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq, R)
+        self._bm_or(c_rtx, r_conn, r_seq, rto_need, R)
         rsum_rto = kernel_ops.seg_sum(r_conn, (rto_need & ~prev_rtx_p, r_valid), NC + 1)
-        c_rtx_count = c_rtx_count + rsum_rto[0, :NC]
-        rto_per_conn = rsum_rto[1, :NC]
+        c_rtx_count = c_rtx_count + rsum_rto[:, 0, :NC]
+        rto_per_conn = rsum_rto[:, 1, :NC]
         c_inflight = c_inflight - rto_per_conn
         c_cwnd = torch.clamp(c_cwnd - rto_per_conn.to(F32), 1.0, float(cfg.max_cwnd_pkts))
         timed_out = rto_per_conn > 0  # the LB's on_timeout mask, taken at injection
         # orphan in-network packets; free LOST_WAIT ones
-        pkt[PORPH, :NP] = (p_orphan | rto).to(I32)
-        pkt[PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
+        pkt[:, PORPH, :NP] = (p_orphan | rto).to(I32)
+        pkt[:, PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
 
         # =============== 3. service / dequeue ===========================
         failed_q, not_degraded, gray_p, q_penalty = self._fault_masks(now)
         serve = st.q_len > 0
         if not_degraded is not None and now % 2 == 1:
             serve = serve & not_degraded  # degraded links serve on even ticks
-        head_pid = st.qbuf[self._qid, st.q_head % QCAP]
+        head_pid = st.qbuf[R.of(st.q_head), R.col(st.q_head), st.q_head % QCAP]
         q_head = torch.where(serve, st.q_head + 1, st.q_head)
         q_len = torch.where(serve, st.q_len - 1, st.q_len)
         q_served = st.q_served + serve.to(I32)
@@ -813,33 +971,32 @@ class Simulator:
         is_final = serve & ~blackhole & (self._qid >= topo.t0_down_base)
         mid = serve & ~blackhole & ~is_final
 
-        D = pkt[:, pid.clamp(max=NP - 1)]  # (PF, NQ) served-packet rows
+        D = R.pkt_get(pkt, pid.clamp(max=NP - 1))  # (PF, B, NQ) served-packet rows
         d_orph = serve & (D[PORPH] == 1)
-        drops_fail_d = (blackhole & ~d_orph).sum(dtype=I32)
+        drops_fail_d = (blackhole & ~d_orph).sum(dim=-1, dtype=I32)
 
-        # deliveries (<= 1 per connection per tick)
+        # deliveries (<= 1 per connection per tick).  Only host downlinks
+        # deliver; every other queue's lane holds the sentinel connection NC
+        # and zero flags, so the sums run over all NQ lanes of each row
         dconn = torch.where(is_final, D[PCONN], NC)
         dseq = torch.where(is_final, D[PSEQ], 0)
-        fin = slice(topo.t0_down_base, NQ)  # only host downlinks deliver
-        was_done = _get(st.c_done, dconn, True)
-        newly = is_final & ~self._bm_get(c_rcv, dconn, dseq)
-        self._bm_or(c_rcv, dconn[fin], dseq[fin], is_final[fin])
-        delivered_d = newly.sum(dtype=I32)
+        was_done = _get(st.c_done, dconn, True, R.of(dconn))
+        newly = is_final & ~self._bm_get(c_rcv, dconn, dseq, R)
+        self._bm_or(c_rcv, dconn, dseq, is_final, R)
+        delivered_d = newly.sum(dim=-1, dtype=I32)
         deliver_ackable = is_final & ~d_orph & ~was_done
         msg_of = _get(self.conn_msg, dconn, BIG)
         # <= 1 delivery per conn per tick: the post-update counters are the
         # pre-update gathers plus this queue's own contribution
-        del_of = _get(st.c_delivered, dconn, 0) + newly.to(I32)
+        del_of = _get(st.c_delivered, dconn, 0, R.of(dconn)) + newly.to(I32)
         now_done = del_of >= msg_of
-        rxp = _get(st.c_rx_pending, dconn, 0) + deliver_ackable.to(I32)
+        rxp = _get(st.c_rx_pending, dconn, 0, R.of(dconn)) + deliver_ackable.to(I32)
         emit = deliver_ackable & ((rxp >= cfg.ack_coalesce) | now_done)
         first_done = is_final & now_done & ~was_done
-        dsum = kernel_ops.seg_sum(
-            dconn[fin], (newly[fin], deliver_ackable[fin], emit[fin], first_done[fin]), NC + 1
-        )
-        c_delivered = st.c_delivered + dsum[0, :NC]
-        c_rx_pending = torch.where(dsum[2, :NC] > 0, 0, st.c_rx_pending + dsum[1, :NC])
-        first_done_c = dsum[3, :NC] > 0
+        dsum = kernel_ops.seg_sum(dconn, (newly, deliver_ackable, emit, first_done), NC + 1)
+        c_delivered = st.c_delivered + dsum[:, 0, :NC]
+        c_rx_pending = torch.where(dsum[:, 2, :NC] > 0, 0, st.c_rx_pending + dsum[:, 1, :NC])
+        first_done_c = dsum[:, 3, :NC] > 0
         c_done = st.c_done | first_done_c
         c_done_tick = torch.where(first_done_c, now, st.c_done_tick)
 
@@ -859,13 +1016,13 @@ class Simulator:
         D[PHOP] = torch.where(mid, D[PHOP] + 1, D[PHOP])
         D[PCURQ] = torch.where(mid, self._qid, D[PCURQ])
         D[PACK] = torch.where(emit, rxp, D[PACK])
-        pkt[:, pid] = D
+        R.pkt_set(pkt, pid, D)
 
         # =============== 4. arrivals / enqueue ==========================
-        arr = (pkt[PS, :NP] == FLYING) & (pkt[PEVT, :NP] == now)
-        a_idx = _compact(arr, self.MAX_ARR)
+        arr = (pkt[:, PS, :NP] == FLYING) & (pkt[:, PEVT, :NP] == now)
+        a_idx = _compact(arr, R.ranks[self.MAX_ARR])
         a_valid = a_idx < NP
-        A = pkt[:, a_idx.clamp(max=NP - 1)]  # (PF, MAX_ARR)
+        A = R.pkt_get(pkt, a_idx.clamp(max=NP - 1))  # (PF, B, MAX_ARR)
         # the routing step in one launch; NQ where ~a_valid.  Adaptive
         # switches see locally failed ports (q_penalty); hashing LBs ignore
         # q_len, which is read after service and before this tick's enqueue
@@ -885,22 +1042,22 @@ class Simulator:
             red_rcp=self._red_rcp, pmax=cfg.pmax, q_head=q_head, qcap=QCAP,
         )
         dropd = a_valid & ~accept
-        ecn_marks_d = mark.sum(dtype=I32)
+        ecn_marks_d = mark.sum(dim=-1, dtype=I32)
         qbuf = st.qbuf.clone()
-        qbuf[torch.where(accept, target, NQ), slot] = a_idx
+        qbuf[R.of(target), torch.where(accept, target, NQ), slot] = a_idx
         # congestion drops: trim -> NACK; else silent (await RTO); orphans free
         a_orph = a_valid & (A[PORPH] == 1)
-        drops_cong_d = (dropd & ~a_orph).sum(dtype=I32)
+        drops_cong_d = (dropd & ~a_orph).sum(dim=-1, dtype=I32)
         dstate = torch.where(a_orph, FREE, IN_NACK if cfg.trimming else LOST_WAIT)
         A[PS] = torch.where(accept, QUEUED, dstate)  # A is a gathered copy
         A[PCURQ] = torch.where(accept, target, A[PCURQ])
         A[PECN] = A[PECN] | mark.to(I32)
         if cfg.trimming:
             A[PEVT] = torch.where(dropd & ~a_orph, now + cfg.nack_delay_ticks, A[PEVT])
-        pkt[:, a_idx] = A
+        R.pkt_set(pkt, a_idx, A)
 
         # =============== 5. injection ===================================
-        started = (now >= self.conn_start) & (self._no_dep | c_done[self._dep_safe])
+        started = (now >= self.conn_start) & (self._no_dep | c_done[:, self._dep_safe])
         has_work = (c_rtx_count > 0) | (st.c_next_new < self.conn_msg)
         can = (
             started
@@ -908,77 +1065,85 @@ class Simulator:
             & has_work
             & (c_inflight < torch.floor(c_cwnd).to(I32))
         )
-        elig = can[self._hc_safe] & self._hc_valid  # (NH, CPH)
-        ordr = (self._cph[None, :] - st.h_rr[:, None]) % self.CPH
+        elig = can[:, self._hc_safe] & self._hc_valid  # (B, NH, CPH)
+        ordr = (self._cph - st.h_rr[:, :, None]) % self.CPH
         score = torch.where(elig, ordr, BIG)
-        pick_local = torch.argmin(score, dim=1).to(I32)
-        any_pick = score.min(dim=1).values < BIG
+        pick_local = torch.argmin(score, dim=-1).to(I32)
+        any_pick = score.min(dim=-1).values < BIG
         # free-slot allocation (ring pop)
-        srank = torch.cumsum(any_pick, 0, dtype=I32) - 1
-        can_alloc = srank < st.fl_count
+        srank = torch.cumsum(any_pick, -1, dtype=I32) - 1
+        can_alloc = srank < st.fl_count[:, None]
         sendh = any_pick & can_alloc
-        alloc_fail_d = (any_pick & ~can_alloc).sum(dtype=I32)
-        n_alloc = sendh.sum(dtype=I32)
-        slot_p = st.fl[(st.fl_head + srank) % NP]
+        alloc_fail_d = (any_pick & ~can_alloc).sum(dim=-1, dtype=I32)
+        n_alloc = sendh.sum(dim=-1, dtype=I32)
+        slot_p = st.fl[R.of(srank), (st.fl_head[:, None] + srank) % NP]
         fl_head = (st.fl_head + n_alloc) % NP
         fl_count = st.fl_count - n_alloc
 
-        pick_conn = torch.where(sendh, self.host_conns[self._hid, pick_local], NC)
+        pick_conn = torch.where(sendh, self.host_conns[R.col(pick_local), pick_local], NC)
         h_rr = torch.where(sendh, (pick_local + 1) % self.CPH, st.h_rr)
         # seq selection: retransmissions first (first set bit of the row)
         pick_cc = pick_conn.clamp(0, NC - 1)
-        use_rtx = c_rtx_count[pick_cc] > 0
-        rtx_seq = torch.argmax(c_rtx[pick_cc].to(torch.uint8), dim=1).to(I32)
-        seq = torch.where(use_rtx, rtx_seq, st.c_next_new[pick_cc])
-        c_rtx[torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
+        hrow = R.of(pick_cc)
+        use_rtx = c_rtx_count[hrow, pick_cc] > 0
+        rtx_seq = torch.argmax(c_rtx[hrow, pick_cc].to(torch.uint8), dim=-1).to(I32)
+        seq = torch.where(use_rtx, rtx_seq, st.c_next_new[hrow, pick_cc])
+        c_rtx[hrow, torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
         # each host picks <= 1 conn and a conn lives on one host, so
         # per-conn injection counts are 0/1
         isum = kernel_ops.seg_sum(pick_conn, (sendh, sendh & use_rtx), NC + 1)
-        send_mask = isum[0, :NC] > 0
-        c_rtx_count = c_rtx_count - isum[1, :NC]
-        c_next_new = st.c_next_new + (isum[0] - isum[1])[:NC]
-        c_inflight = c_inflight + isum[0, :NC]
+        send_mask = isum[:, 0, :NC] > 0
+        c_rtx_count = c_rtx_count - isum[:, 1, :NC]
+        c_next_new = st.c_next_new + (isum[:, 0] - isum[:, 1])[:, :NC]
+        c_inflight = c_inflight + isum[:, 0, :NC]
         injected_d = n_alloc
 
         # the load balancer takes the tick's ACK rounds and timeouts, then
-        # stamps the EV (REPS Algorithms 1 and 2)
-        evs, lb_state = self.lb.step(
-            lb_state, acks, timed_out, send_mask, (draws.lb_timeout, draws.lb), now
+        # stamps the EV (REPS Algorithms 1 and 2).  Its methods work per
+        # connection, so the rows are just more connections: (B, NC, ...)
+        # leaves are handed over as (B * NC, ...) and taken back as they were
+        conns = lambda x: _conn_rows(x, B * NC)
+        evs, lb_flat = self.lb.step(
+            conns(lb_state),
+            [(conns(m), conns(e), conns(c), conns(d)) for m, e, c, d in acks],
+            conns(timed_out), conns(send_mask), (conns(draws.lb_timeout), conns(draws.lb)), now,
         )
+        lb_state = tree_map(lambda new, old: new.reshape(old.shape), lb_flat, lb_state)
+        flying, zero, minus1 = R.inject
         W = torch.stack([
-            torch.full((NH,), FLYING, dtype=I32, device=self.device),  # PS
+            flying,  # PS
             pick_conn,  # PCONN
-            evs[pick_cc],  # PEV
+            evs.view(B, NC)[hrow, pick_cc],  # PEV
             seq,  # PSEQ
-            torch.zeros((NH,), dtype=I32, device=self.device),  # PHOP
-            torch.full((NH,), -1, dtype=I32, device=self.device),  # PCURQ
-            torch.full((NH,), now, dtype=I32, device=self.device),  # PSEND
-            torch.full((NH,), now + cfg.hop_latency_ticks, dtype=I32, device=self.device),
-            torch.zeros((NH,), dtype=I32, device=self.device),  # PECN
-            torch.zeros((NH,), dtype=I32, device=self.device),  # PORPH
-            torch.zeros((NH,), dtype=I32, device=self.device),  # PACK
+            zero,  # PHOP
+            minus1,  # PCURQ
+            torch.full((B, NH), now, dtype=I32, device=self.device),  # PSEND
+            torch.full((B, NH), now + cfg.hop_latency_ticks, dtype=I32, device=self.device),
+            zero,  # PECN
+            zero,  # PORPH
+            zero,  # PACK
         ])
-        pkt[:, torch.where(sendh, slot_p, NP)] = W
+        R.pkt_set(pkt, torch.where(sendh, slot_p, NP), W)
 
         # =============== 6. free-list push ==============================
         # slots popped this tick are FLYING now, not FREE: no conflict.  The
         # push writes the contiguous (mod NP) ring segment after the live
         # entries — the reference's rotate-and-blend writes the same values
-        freed = (pkt[PS, :NP] == FREE) & (state_at_entry != FREE)
-        f_idx = _compact(freed, self.MAX_FREE)
+        freed = (pkt[:, PS, :NP] == FREE) & (state_at_entry != FREE)
+        f_idx = _compact(freed, R.ranks[self.MAX_FREE])
         f_val = f_idx < NP
-        n_freed = f_val.sum(dtype=I32)
-        frank = torch.cumsum(f_val, 0, dtype=I32) - 1
-        fpos = (fl_head + fl_count + frank) % NP
+        n_freed = f_val.sum(dim=-1, dtype=I32)
+        frank = torch.cumsum(f_val, -1, dtype=I32) - 1
+        fpos = ((fl_head + fl_count)[:, None] + frank) % NP
         fl = st.fl.clone()
-        fl[torch.where(f_val, fpos, NP)] = f_idx
+        fl[R.of(f_idx), torch.where(f_val, fpos, NP)] = f_idx
         fl_count = fl_count + n_freed
 
         # =============== 7. fused stats update ==========================
         s_stats = st.s_stats + torch.stack([
             drops_cong_d, drops_fail_d, timeouts_d, delivered_d,
             ecn_marks_d, injected_d, unprocessed, alloc_fail_d,
-        ])
+        ], dim=-1)
 
         new_state = SimState(
             pkt=pkt, qbuf=qbuf, q_head=q_head, q_len=q_len, q_served=q_served,
@@ -989,32 +1154,50 @@ class Simulator:
             fl_count=fl_count, s_stats=s_stats, as_idx=st.as_idx, as_count=st.as_count,
         )
         trace = TickTrace(
-            max_qlen=q_len.max(),
-            sum_qlen=q_len.sum(dtype=I32),
-            drops=s_stats[ST_DROPS_CONG] + s_stats[ST_DROPS_FAIL],
-            timeouts=s_stats[ST_TIMEOUTS],
-            delivered=s_stats[ST_DELIVERED],
-            injected=s_stats[ST_INJECTED],
-            watch_qlen=q_len[self.watch],
-            watch_served=serve[self.watch].to(I32),
+            max_qlen=q_len.amax(dim=-1),
+            sum_qlen=q_len.sum(dim=-1, dtype=I32),
+            drops=s_stats[:, ST_DROPS_CONG] + s_stats[:, ST_DROPS_FAIL],
+            timeouts=s_stats[:, ST_TIMEOUTS],
+            delivered=s_stats[:, ST_DELIVERED],
+            injected=s_stats[:, ST_INJECTED],
+            watch_qlen=q_len[:, self.watch],
+            watch_served=serve[:, self.watch].to(I32),
         )
         return new_state, trace
 
     # ------------------------------------------------------------------
-    def run(self, n_ticks: int, state: SimState | None = None):
-        """Run ``n_ticks`` ticks from ``state`` (a fresh state by default);
-        returns ``(final_state, trace)`` with the ``TickTrace`` fields
-        stacked over ticks.  The random draws are made ``DRAW_CHUNK`` ticks
-        at a time."""
-        if state is None:
-            state = self.init_state()
+    def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor,
+                 first_tick: int = 0):
+        """Run ticks ``first_tick ... first_tick + n_ticks - 1`` of B runs of
+        this scenario in lock-step: ``states`` and the returned state have a
+        leading row axis B, ``base_keys`` is ``(B, 2)``; returns ``(states,
+        trace)`` with the ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.
+        The random draws are made ``DRAW_CHUNK`` ticks at a time, for every
+        row at once."""
         traces = []
-        for t0 in range(0, n_ticks, DRAW_CHUNK):
-            n = min(DRAW_CHUNK, n_ticks - t0)
-            draws = self.tick_draws(self.base_key, t0, n)
+        for t0 in range(first_tick, first_tick + n_ticks, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, first_tick + n_ticks - t0)
+            draws = self.tick_draws(base_keys, t0, n)
             for i in range(n):
-                state, tr = self.step_scenario(state, t0 + i, self.base_key, draws.row(i))
+                states, tr = self.step_rows(states, t0 + i, draws.row(i))
                 traces.append(tr)
         if not traces:
             raise ValueError("run needs n_ticks >= 1")
-        return state, TickTrace(*(torch.stack(f) for f in zip(*traces)))
+        return states, TickTrace(*(torch.stack(f) for f in zip(*traces)))
+
+    def run(self, n_ticks: int, state: SimState | None = None):
+        """Run ``n_ticks`` ticks from ``state`` (a fresh state by default);
+        returns ``(final_state, trace)`` with the ``TickTrace`` fields
+        stacked over ticks: ``run_rows`` on one row, added once at the start
+        and dropped once at the end."""
+        if state is None:
+            state = self.init_state()
+        states, trace = self.run_rows(n_ticks, add_rows(state), self.base_key[None])
+        return drop_rows(states), TickTrace(*(f[:, 0] for f in trace))
+
+
+def _conn_rows(x, n: int):
+    """A rows tree's per-connection leaves ``(B, NC, ...)`` as ``(n = B * NC,
+    ...)`` views; a per-row scalar ``(B,)`` (``SwitchLB``'s branch index) as
+    it is."""
+    return tree_map(lambda t: t.reshape(n, *t.shape[2:]) if t.dim() >= 2 else t, x)

@@ -140,20 +140,21 @@ class Topology:
 
     def route(
         self,
-        a_idx: torch.Tensor,  # int32 (K,): packet slot of each arrival, >= n_pkt: none
+        a_idx: torch.Tensor,  # int32 (B, K) or (K,): packet slot of each arrival, >= n_pkt: none
         n_pkt: int,
-        hop: torch.Tensor,  # int32 (K,) gathered packet rows: hops so far (0: injection)
+        hop: torch.Tensor,  # int32, like a_idx, gathered packet rows: hops so far (0: injection)
         cur_queue: torch.Tensor,  # queue just dequeued from (-1 at injection)
         conn: torch.Tensor,  # connection (the hash's flow id)
         ev: torch.Tensor,  # entropy value
-        conn_src: torch.Tensor,  # int32 (NC,) connection -> source host
+        conn_src: torch.Tensor,  # int32 (NC,) connection -> source host, shared by the rows
         conn_dst: torch.Tensor,  # int32 (NC,) connection -> destination host
-        q_len: torch.Tensor,  # int32 (n_queues,)
-        q_penalty: torch.Tensor | None,  # int32 (n_queues,) added to q_len (adaptive only)
+        q_len: torch.Tensor,  # int32 (B, n_queues) or (n_queues,)
+        q_penalty: torch.Tensor | None,  # int32 (n_queues,) or (B, n_queues): added to q_len
         adaptive: bool,
     ) -> torch.Tensor:
-        """The engine's arrivals: each arrival's next queue, ``n_queues``
-        for the empty slots, in one launch."""
+        """The engine's arrivals, of one run or of every row of a fleet:
+        each arrival's next queue, ``n_queues`` for the empty slots, in one
+        launch."""
         return kernel_ops.next_queue(
             self.geometry, hop, cur_queue, conn, ev, conn_src, conn_dst, q_len, adaptive,
             q_penalty=q_penalty, a_idx=a_idx, n_pkt=n_pkt)

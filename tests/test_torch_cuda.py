@@ -1,7 +1,8 @@
 """The port on a CUDA device: each hand-written kernel against its plain
-version, and short simulations on the card (ECMP-hashing, REPS, zoo and
-adaptive load balancers; 2- and 3-tier) against the same ones on the CPU —
-bit for bit.  Marked ``cuda``; without a GPU every test skips with a
+version (``next_queue`` with a fleet's row axis, the flat hash with per-lane
+port counts), and short simulations and fleets on the card (ECMP-hashing,
+REPS, zoo and adaptive load balancers; 2- and 3-tier) against the same ones
+on the CPU — bit for bit.  Marked ``cuda``; without a GPU every test skips with a
 reason.  This file imports no JAX, so it also runs where only the port is
 installed:
 
@@ -260,6 +261,58 @@ def test_ecmp_hash_kernel_matches_plain_version(dev):
         ops.ecmp_hash(*args, 0)
 
 
+def test_ecmp_hash_kernel_per_lane_nports_matches_plain_version(dev):
+    """One port count per lane (1..16, lanes at 1 included), as a (K,) or
+    (B, K) tensor and broadcast over rows: kernel == plain version."""
+    rs = np.random.RandomState(5)
+    for shape, lanes in [((512,), (512,)), ((3, 384), (3, 384)), ((4, 200), (200,)),
+                         ((77,), (77,))]:
+        flow = rs.randint(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+        ev = rs.randint(0, 65536, size=shape).astype(np.int32)
+        salt = (2**31 - 1 - rs.randint(0, 9000, size=shape)).astype(np.int32)
+        nports = rs.randint(1, 17, size=lanes).astype(np.int32)
+        nports.reshape(-1)[::7] = 1
+        args = [_on(dev, a) for a in (flow, ev, salt, nports)]
+        got = ops.ecmp_hash(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.ecmp_hash_ref(*args)), shape
+    with pytest.raises(ValueError, match="int32"):
+        ops.ecmp_hash(*args[:3], args[3].long())
+
+
+@pytest.mark.parametrize("tiers", [2, 3])
+def test_next_queue_kernel_rows_match_plain_version(dev, tiers):
+    """A fleet's arrivals (B, K) in one launch, both forms, adaptive on and
+    off, penalty shared and per row: kernel == plain version == B one-row
+    kernel calls."""
+    name, kw = ROUTE_FABRICS[tiers][0]
+    topo = Topology.build(getattr(presets, name).replace(**kw))
+    g, B = topo.geometry, 5
+    cases = [route_case(topo, 300 + 10 * tiers + b) for b in range(B)]
+    src, dst = (_on(dev, cases[0][k]) for k in ("conn_src", "conn_dst"))
+    NP = cases[0]["NP"]
+    rows = [c["pkt"][:, c["a_idx"].clip(max=NP - 1)] for c in cases]
+    fields = [_on(dev, np.stack([r[f] for r in rows])) for f in (PHOP, PCURQ, PCONN, PEV)]
+    a_idx = _on(dev, np.stack([c["a_idx"] for c in cases]))
+    q_len = _on(dev, np.stack([c["q_len"] for c in cases]))
+    conn = fields[2].clamp(0, cases[0]["NC"] - 1)
+    flat = [fields[0] == 0, fields[1], fields[2], fields[3], src[conn].contiguous(),
+            dst[conn].contiguous()]
+    for pen in (_on(dev, cases[0]["q_pen"]), _on(dev, np.stack([c["q_pen"] for c in cases])),
+                None):
+        for adaptive in (False, True):
+            engine = (g, *fields, src, dst, q_len, adaptive, pen, a_idx, NP)
+            reference = (g, *flat, q_len, adaptive, pen)
+            for args in (engine, reference):
+                got = ops.next_queue(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref.next_queue_ref(*args)), (name, adaptive)
+                for b in range(B):  # one row's call: (B, ...) inputs sliced, shared kept
+                    one = [x[b].contiguous() if isinstance(x, torch.Tensor) and x.dim() == 2
+                           else x for x in args]
+                    assert torch.equal(got[b], ops.next_queue(*one)), (name, adaptive, b)
+
+
 @pytest.mark.parametrize("tiers", [2, 3])
 def test_next_queue_kernel_matches_plain_version(dev, tiers):
     """Both forms on every routing case, and the engine's shapes, with and
@@ -297,6 +350,35 @@ def test_next_queue_wrapper_raises(dev):
         ops.next_queue(g, q == 0, q, q, q, q, q, q, True)
     with pytest.raises(ValueError, match="agg_uplinks"):
         ops.next_queue(g._replace(agg_uplinks=0), q == 0, q, q, q, q, q, q_len, False)
+
+
+@pytest.mark.parametrize("lbn", ["reps", "mprdma", "mixed"])
+def test_fleet_card_run_equals_cpu_run(dev, lbn):
+    """A small fleet (3 seeds) on the card == on the CPU, every leaf of every
+    row; each kernel's launches per tick are those of one run."""
+    from repro_torch.netsim import FleetRunner
+
+    cfg = FATTREE_32_CI
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+    kw = dict(evs_size=cfg.evs_size)
+    if lbn == "mixed":
+        kw.update(fg="reps", bg="plb", bg_conns=(1, 4, 9, 20))
+    finals = []
+    for d in (dev, "cpu"):
+        fleet = FleetRunner(cfg, workloads.permutation(32, 48, seed=3), make_lb(lbn, **kw),
+                            failures=failures.link_down(ups, 30, 300), seeds=(0, 5, 9),
+                            device=d)
+        ops.reset_launch_counts()
+        states, _ = fleet.run(400)
+        counts = ops.launch_counts()
+        finals.append([sim_state_to_numpy(fleet.state_at(states, i)) for i in range(3)])
+        if d == dev:
+            assert counts["seg_sum"] == 4 * 400 and counts["queue_tick"] == 400, counts
+            assert counts["next_queue"] == 400 and counts["seg_rank"] == 400, counts
+            assert counts["reps_tick"] == (0 if lbn == "mprdma" else 400), counts
+    for a, b in zip(*finals):
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), k
 
 
 @pytest.mark.parametrize("lbn", ["reps", "adaptive_roce"])

@@ -7,8 +7,8 @@ at 65536 EVs; and ``step``, the engine's one call per tick, against those
 calls one by one for every LB, MixedLB and SwitchLB.  Then the unit tests of tests/test_lb_arena.py, mirrored on
 the port: keyed re-path draws, PLB's idle-gap rollover, SwitchLB's
 evs_size check, and the Prime, SeqBalance and flowlet-table behaviours.
-``test_fleet_seeds_decorrelated_under_congestion`` waits for the port's
-fleet slice (ROADMAP queue 1 item 8)."""
+``test_fleet_seeds_decorrelated_under_congestion`` needs a fleet and is
+mirrored with the port's ``FleetRunner`` in tests/test_torch_fleet_arena.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np

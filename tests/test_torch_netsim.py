@@ -121,6 +121,39 @@ def test_ecmp_hash_matches_reference():
         assert ttopo.ecmp_hash_np(f, e, s, 13) == jtopo.ecmp_hash_np(f, e, s, 13)
 
 
+def test_ecmp_hash_per_lane_nports_matches_reference():
+    """``nports`` as one port count per lane (a generated fabric's up-degree
+    per arrival, ``TableTopology``'s ``maximum(deg, 1)``): the port's
+    ``ecmp_hash`` equals the reference's, on the example that the port once
+    refused, on (B, K) lanes with counts 1..16 and with counts broadcast
+    over the rows; the scalar form is unchanged; a count < 1 raises."""
+    f = np.arange(8, dtype=np.int32)
+    args = (f, 7 * f, f % 3, np.arange(1, 9, dtype=np.int32))
+    got = ttopo.ecmp_hash(*(torch.as_tensor(a) for a in args))
+    np.testing.assert_array_equal(got.numpy(), [0, 0, 2, 3, 1, 2, 6, 2])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jtopo.ecmp_hash(*args)))
+    np.testing.assert_array_equal(
+        ttopo.ecmp_hash(*(torch.as_tensor(a) for a in args[:3]), 5).numpy(),
+        [0, 4, 0, 4, 1, 4, 3, 3])
+    rs = np.random.RandomState(16)
+    flow = rs.randint(-2**31, 2**31 - 1, size=(3, 700), dtype=np.int64).astype(np.int32)
+    ev = rs.randint(0, 65536, size=(3, 700)).astype(np.int32)
+    salt = (2**31 - 1 - rs.randint(0, 9000, size=(3, 700))).astype(np.int32)
+    for nports in (rs.randint(1, 17, size=(3, 700)), rs.randint(1, 17, size=700),
+                   np.ones((3, 700)), np.full(700, 2**20)):
+        nports = nports.astype(np.int32)
+        got = ttopo.ecmp_hash(*(torch.as_tensor(a) for a in (flow, ev, salt, nports)))
+        assert got.shape == (3, 700) and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jtopo.ecmp_hash(flow, ev, salt, nports)))
+        assert (got.numpy() < nports).all()
+    with pytest.raises(ValueError, match="every lane"):
+        ttopo.ecmp_hash(*(torch.as_tensor(a) for a in args[:3]),
+                        torch.as_tensor(np.arange(8, dtype=np.int32)))
+    with pytest.raises(TypeError, match="integer"):
+        ttopo.ecmp_hash(*(torch.as_tensor(a) for a in args[:3]), torch.ones(8))
+
+
 def test_workload_builders_match_reference():
     pairs = [
         ("permutation", (128, 4096), dict(seed=3)),

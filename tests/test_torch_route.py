@@ -114,6 +114,48 @@ def test_reference_form_matches_jax_next_queue(tiers, adaptive):
     assert (args[1] == -1).any()
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("tiers", [2, 3])
+def test_rows_equal_one_row_calls(tiers, adaptive):
+    """A fleet's arrivals ``(B, K)`` in one call: every row of the engine
+    form (shared connection tables; ``q_len`` per row; penalty shared and
+    per row) equals the one-row call on that row and the JAX engine's
+    routing of it, and so does every row of the reference form."""
+    name, kw = ROUTE_FABRICS[tiers][-1]
+    jt, tt = _topologies(name, kw)
+    g, B = tt.geometry, 4
+    cases = [route_case(jt, 40 * tiers + b) for b in range(B)]
+    src, dst = cases[0]["conn_src"], cases[0]["conn_dst"]  # one workload for the fleet
+    for c in cases:
+        c.update(conn_src=src, conn_dst=dst)
+    NP = cases[0]["NP"]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    rows = [c["pkt"][:, c["a_idx"].clip(max=NP - 1)] for c in cases]
+    fields = [t(np.stack([r[f] for r in rows])) for f in (PHOP, PCURQ, PCONN, PEV)]
+    a_idx = t(np.stack([c["a_idx"] for c in cases]))
+    q_len = t(np.stack([c["q_len"] for c in cases]))
+    for pen_rows in (False, True):
+        pens = [c["q_pen"] if pen_rows else cases[0]["q_pen"] for c in cases]
+        q_pen = t(np.stack(pens)) if pen_rows else t(pens[0])
+        got = ops.next_queue(g, *fields, t(src), t(dst), q_len, adaptive, q_penalty=q_pen,
+                             a_idx=a_idx, n_pkt=NP)
+        assert got.shape == (B, a_idx.shape[1]) and got.dtype == torch.int32
+        conn = fields[2].clamp(0, len(src) - 1)
+        flat = (fields[0] == 0, fields[1], fields[2], fields[3], t(src)[conn], t(dst)[conn])
+        got_ref = ops.next_queue(g, *flat, q_len, adaptive, q_penalty=q_pen)
+        for b in range(B):
+            one = ops.next_queue(g, *(x[b] for x in fields), t(src), t(dst), q_len[b],
+                                 adaptive, q_penalty=t(pens[b]), a_idx=a_idx[b], n_pkt=NP)
+            np.testing.assert_array_equal(got[b].numpy(), one.numpy())
+            c = dict(cases[b], q_pen=pens[b])
+            np.testing.assert_array_equal(got[b].numpy(), _jax_engine_route(jt, c, adaptive))
+            one_ref = ops.next_queue(g, *(x[b] for x in flat), q_len[b], adaptive,
+                                     q_penalty=t(pens[b]))
+            np.testing.assert_array_equal(got_ref[b].numpy(), one_ref.numpy())
+        ok = a_idx < NP
+        np.testing.assert_array_equal(got_ref.numpy()[ok.numpy()], got.numpy()[ok.numpy()])
+
+
 def test_geometry_matches_topology_and_bad_layouts_raise():
     for tiers in (2, 3):
         for name, kw in ROUTE_FABRICS[tiers]:

@@ -4,6 +4,7 @@
     python3 tools/tick_ops.py                                   # this tree, on the card
     python3 tools/tick_ops.py --device cpu                      # the same, on the CPU
     python3 tools/tick_ops.py --root build/parent --root .      # the launches that changed
+    python3 tools/tick_ops.py --rows 1 --rows 64                # one run against a 64-row fleet
 
 The cell is ``chip_smoke.py``'s fig06 REPS cell (FATTREE_128, 128-connection
 permutation, ToR-0 uplink failures), stepped ``--warm`` ticks, then timed
@@ -19,10 +20,13 @@ over ``--ticks`` more.
   tick's launch count as far as the CPU can show it: a view (``aten::slice``,
   ``aten::select``, ...) is counted here and launches nothing on the card.
 
-With several ``--root`` trees each runs in its own process, in the order
+With ``--rows B`` the cell is stepped as a fleet of B seeds
+(``FleetRunner``, one tick over a row axis; trees that have it), ticks
+through ``Simulator.step_rows``.  With several ``--root`` trees or
+``--rows`` values each (tree, rows) runs in its own process, in the order
 given (a tree may be named twice, e.g. parent, change, change, parent); the
 script prints each run's wall time and total per tick and, name by name,
-how every later tree's launches differ from the first's.  Every tree builds its own kernels under its own
+how every later run's launches differ from the first's.  Every tree builds its own kernels under its own
 ``build/``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -40,10 +44,11 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 
 
-def profile_tree(root: Path, device: str, warm: int, ticks: int) -> dict:
+def profile_tree(root: Path, device: str, warm: int, ticks: int, rows: int = 0) -> dict:
     """Time, then profile, ``ticks`` ticks each of the fig06 REPS cell of the
-    tree at ``root``; returns the wall time per tick, ``{name: [calls per
-    tick, device us per tick]}`` and the total."""
+    tree at ``root`` (``rows`` > 0: as a fleet of that many seeds); returns
+    the wall time per tick, ``{name: [calls per tick, device us per
+    tick]}`` and the total."""
     sys.path.insert(0, str(REPO))
     import chip_smoke  # the cell; it imports the port only when called
 
@@ -64,13 +69,21 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int) -> dict:
         raise SystemExit("tick_ops: no CUDA device (pass --device cpu to count on the CPU)")
     dev = torch.device(device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sim = chip_smoke.fig06_cell("reps", dev)
-    state, _ = sim.run(warm)
-    draws = sim.tick_draws(sim.base_key, warm, 2 * ticks)
+    if rows:
+        fleet = chip_smoke.fig06_fleet(range(rows), dev)
+        sim, keys = fleet.sim, fleet.base_keys()
+        state, _ = fleet.run(warm)
+        draws = sim.tick_draws(keys, warm, 2 * ticks)
+        step = lambda st, t, d: sim.step_rows(st, t, d)
+    else:
+        sim = chip_smoke.fig06_cell("reps", dev)
+        state, _ = sim.run(warm)
+        draws = sim.tick_draws(sim.base_key, warm, 2 * ticks)
+        step = sim.tick_fn
     sync()
     t0 = time.perf_counter()
     for i in range(ticks):
-        state, _ = sim.tick_fn(state, warm + i, draws.row(i))
+        state, _ = step(state, warm + i, draws.row(i))
     sync()
     wall_us = (time.perf_counter() - t0) / ticks * 1e6
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
@@ -79,7 +92,7 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int) -> dict:
             # on the CPU a range marks the tick's top level; on the card it
             # would be one more device event, so none is recorded there
             with record_function("tick") if device == "cpu" else contextlib.nullcontext():
-                state, _ = sim.tick_fn(state, warm + i, draws.row(i))
+                state, _ = step(state, warm + i, draws.row(i))
         sync()
     per = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
@@ -94,8 +107,9 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int) -> dict:
         per[e.name][0] += 1
         per[e.name][1] += us
     table = {k: [n / ticks, us / ticks] for k, (n, us) in sorted(per.items())}
-    return dict(root=str(root), device=device, warm=warm, ticks=ticks, wall_us=wall_us,
-                per_tick=table, total=sum(v[0] for v in table.values()))
+    return dict(root=str(root) + (f" (fleet, B={rows})" if rows else ""), device=device,
+                warm=warm, ticks=ticks, wall_us=wall_us, per_tick=table,
+                total=sum(v[0] for v in table.values()))
 
 
 def main() -> int:
@@ -105,17 +119,22 @@ def main() -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--warm", type=int, default=300)
     ap.add_argument("--ticks", type=int, default=100)
+    ap.add_argument("--rows", action="append", type=int,
+                    help="step the cell as a fleet of this many seeds (repeatable; default: "
+                         "one run through tick_fn)")
     ap.add_argument("--out", type=Path, help="write every tree's full table here as JSON")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [r.resolve() for r in (args.root or [REPO])]
     if args.one:
-        print(json.dumps(profile_tree(roots[0], args.device, args.warm, args.ticks)))
+        print(json.dumps(profile_tree(roots[0], args.device, args.warm, args.ticks,
+                                      (args.rows or [0])[0])))
         return 0
     results = []
-    for root in roots:
+    for root, rows in [(r, b) for r in roots for b in (args.rows or [0])]:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--one", "--root", str(root),
-               "--device", args.device, "--warm", str(args.warm), "--ticks", str(args.ticks)]
+               "--device", args.device, "--warm", str(args.warm), "--ticks", str(args.ticks),
+               "--rows", str(rows)]
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stdout + out.stderr)
