@@ -66,7 +66,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      leaf and trace field; a small fleet (FATTREE_32_CI, B = 3) equals its
      CPU run; each kernel's launches per tick are exact and the same at
      B = 1, 4, 16, 64; row-ticks/s against B from interleaved rounds
-     (median, min, max per B); a profiled window of 100 ticks at B = 64.
+     (median, min, max per B; the fleet of seeds 0..B-1 is the first B rows
+     of one warmed B = 64 fleet), each set against B = 1 and against the
+     main path's one run; a profiled window of 100 ticks at B = 64.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's and the fleet's
@@ -469,9 +471,10 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         torch.cuda.synchronize()
         err = max(err, equal_all([got], [want], f"ecmp_hash shape={shape} nports={nports}"))
     # one port count per lane (1..16, a seventh of the lanes at 1), as the
-    # reference's TableTopology hashes: shaped like flow, and one (K,) row
-    # of counts broadcast over (B, K)
-    for shape, lanes in [((K,), (K,)), ((3, K), (3, K)), ((4, 300), (300,)), ((77,), (77,))]:
+    # reference's TableTopology hashes: shaped like flow, one (K,) row of
+    # counts broadcast over (B, K), and one count per row (B, 1)
+    for shape, lanes in [((K,), (K,)), ((3, K), (3, K)), ((4, 300), (300,)), ((77,), (77,)),
+                         ((5, 300), (5, 1))]:
         args = hash_case(shape, True)
         counts = rs.randint(1, 17, size=lanes)
         counts.reshape(-1)[::7] = 1
@@ -483,8 +486,8 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     flow, ev, salt = hash_case((K,))
     lanes = i32(rs.randint(1, 17, size=K))
     lane_b, lane_why = bound_ms(nbytes(flow, ev, salt, lanes, flow), 15 * K)
-    log("kernel ecmp_hash: per-lane nports (1..16, lanes at 1; shaped like flow and broadcast "
-        f"over rows) bit-exact; at K={K}: device "
+    log("kernel ecmp_hash: per-lane nports (1..16, lanes at 1; shaped like flow, broadcast "
+        f"over rows and per row) bit-exact; at K={K}: device "
         f"{time_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, lanes)):.5f} ms, eager "
         f"{eager_ms(lambda: eh_mod.ecmp_hash_cuda(flow, ev, salt, lanes)):.5f} ms, plain "
         f"{time_ms(lambda: ref.ecmp_hash_ref(flow, ev, salt, lanes)):.5f} ms, bound "
@@ -740,7 +743,7 @@ def check_invariants(sim, state) -> None:
     assert int(state.c_inflight.min()) >= 0
 
 
-def main_path(dev, ticks: int) -> dict:
+def main_path(dev, ticks: int) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.kernels import ops
@@ -752,6 +755,7 @@ def main_path(dev, ticks: int) -> dict:
                 "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 1,
                          "next_queue": 1, "ecmp_hash": 0}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
+    rates = {}
     for lb in ("ops", "reps"):
         sim = fig06_cell(lb, dev)
         state = sim.init_state()
@@ -773,7 +777,8 @@ def main_path(dev, ticks: int) -> dict:
                 raise AssertionError(
                     f"fig06/{lb}: {k} launched {counts[k]} times, expected {n} x {ticks}")
             totals[k] += counts[k]
-    return totals
+        rates[lb] = ticks / secs
+    return totals, rates
 
 
 def profile_window(dev, warm: int, ticks: int) -> None:
@@ -971,23 +976,30 @@ def fleet_counts(counts: dict, ticks: int, what: str) -> None:
 
 
 def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds: int,
-                warm: int) -> dict:
+                warm: int, one_run_rate: float) -> dict:
     """The fig06/reps cell as a fleet of seeds (``FleetRunner``): (a) B = 4
     rows equal four serial card runs on every SimState leaf and trace field;
     (b) a small fleet (FATTREE_32_CI, B = 3) is the same on the card and on
     the CPU; (c) each kernel's launches per tick are exact and the same at
     every B; (d) row-ticks/s against B in (1, 4, 16, 64), ``rounds`` rounds
     with the B values interleaved, ``bench_ticks`` ticks each from a state
-    warmed for ``warm`` ticks; (e) a profiled window of 100 ticks at B = 64.
-    Returns the launches of the fleet runs per kernel."""
+    warmed for ``warm`` ticks, each also set against ``one_run_rate`` (the
+    main path's fig06/reps ticks/s over its whole run); (e) a profiled
+    window of 100 ticks at B = 64.  Returns the launches of the fleet runs
+    per kernel."""
     import torch
 
     from repro_torch.configs import FATTREE_32_CI
     from repro_torch.core import make_lb
     from repro_torch.kernels import ops
     from repro_torch.netsim import FleetRunner, Topology, failures, sim_state_to_numpy, workloads
+    from repro_torch.netsim.engine import tree_map
 
     totals = {k: 0 for k in ops.KERNEL_MODULES}
+    t_start = time.perf_counter()
+
+    def step_done(what):  # where the phase's seconds go
+        log(f"fleet phase: {what} done at {time.perf_counter() - t_start:.1f} s")
 
     def counted(what, ticks, fn):
         torch.cuda.synchronize()
@@ -1021,6 +1033,7 @@ def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds
         f"card run of its seed after {rows_ticks} ticks (completed per row "
         f"{[x.completed for x in sums]}, timeouts {[x.timeouts for x in sums]})")
     del fleet, states, traces
+    step_done("(a) rows == serial")
 
     # (b) card == CPU, a small fleet
     cfg = FATTREE_32_CI
@@ -1036,19 +1049,29 @@ def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds
         same_leaves(a, b, f"small fleet row {i}")
     log(f"card vs CPU: fleet FATTREE_32_CI/reps B=3: all {len(finals[0][0])} SimState leaves "
         f"of every row bit-equal after {check_ticks} ticks")
+    step_done("(b) card == CPU")
 
-    # (c) + (d) launches per tick and row-ticks/s against B, interleaved
+    # (c) + (d) launches per tick and row-ticks/s against B, interleaved.
+    # One B = 64 fleet of seeds 0..63 is warmed; the fleet of seeds 0..B-1
+    # is its first B rows (rows equal serial runs, as (a) holds)
     Bs = (1, 4, 16, 64)
-    fleets, warmed = {}, {}
-    for B in Bs:
-        fleets[B] = fig06_fleet(range(B), dev)
-        warmed[B], _ = fleets[B].run(warm)
+    big = fig06_fleet(range(max(Bs)), dev)
+    sim, keys = big.sim, big.base_keys()
+    (warmed, _), _, _ = counted(f"fleet B={max(Bs)} warm-up", warm, lambda: big.run(warm))
+    starts = {B: tree_map(lambda t: t[:B], warmed) for B in Bs}
+    rows_draws = {B: sim.tick_draws(keys[:B], warm, bench_ticks) for B in Bs}
+    step_done(f"B = {max(Bs)} warm-up")
+
+    def bench(B):
+        st, d = starts[B], rows_draws[B]
+        for i in range(bench_ticks):  # ticks warm .. warm + bench_ticks - 1
+            st, _ = sim.step_rows(st, warm + i, d.row(i))
+        return st
+
     rate = {B: [] for B in Bs}
     for r in range(rounds):
         for B in (Bs if r % 2 == 0 else Bs[::-1]):
-            f = fleets[B]
-            _, secs, counts = counted(f"fleet B={B}", bench_ticks, lambda: f.sim.run_rows(
-                bench_ticks, warmed[B], f.base_keys(), first_tick=warm))
+            _, secs, counts = counted(f"fleet B={B}", bench_ticks, lambda: bench(B))
             rate[B].append(B * bench_ticks / secs)
             log(f"fleet bench round {r} B={B}: {bench_ticks} ticks (from tick {warm}) in "
                 f"{secs:.3f} s = {bench_ticks / secs:.2f} ticks/s = {B * bench_ticks / secs:.1f} "
@@ -1059,16 +1082,18 @@ def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds
         med = statistics.median(rate[B])
         log(f"fleet row-ticks/s B={B}: median {med:.1f} (min {min(rate[B]):.1f}, max "
             f"{max(rate[B]):.1f}, {len(rate[B])} rounds), {1e3 * B / med:.3f} ms per tick, "
-            f"{med / base:.2f}x B=1")
+            f"{med / base:.2f}x B=1, {med / one_run_rate:.2f}x the main path's one run "
+            f"({one_run_rate:.1f} ticks/s)")
+
+    step_done("(c) + (d) rounds")
 
     # (e) where a B = 64 tick's time goes
-    B, f = 64, fleets[64]
-    st = warmed[B]
-    draws = f.sim.tick_draws(f.base_keys(), warm, 100)
+    B, st = max(Bs), warmed
+    draws = sim.tick_draws(keys, warm, 100)
 
     def step(i):
         nonlocal st
-        st, _ = f.sim.step_rows(st, warm + i, draws.row(i))
+        st, _ = sim.step_rows(st, warm + i, draws.row(i))
 
     profile_ticks(f"fleet B={B}, ticks {warm}-{warm + 100}", step, 100)
     return totals
@@ -1135,10 +1160,10 @@ def zoo_card_vs_cpu(dev, ticks: int) -> None:
 # ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ticks", type=int, default=2500, help="main-path ticks per cell")
-    ap.add_argument("--arena-ticks", type=int, default=1100, help="arena ticks per cell")
+    ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
+    ap.add_argument("--arena-ticks", type=int, default=2000, help="arena ticks per cell")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
-    ap.add_argument("--zoo-check-ticks", type=int, default=700,
+    ap.add_argument("--zoo-check-ticks", type=int, default=900,
                     help="card-vs-CPU horizon of each zoo load balancer")
     ap.add_argument("--fig18-ticks", type=int, default=2000, help="fig18/3tier/reps ticks")
     ap.add_argument("--fig18-check-ticks", type=int, default=600,
@@ -1201,7 +1226,7 @@ def main() -> int:
             log(f"kernel {r['name']}: the engine's former call form ({r['old_form']}): "
                 f"device {r['ms_old']:.5f} ms, eager from Python {r['eager_old_ms']:.5f} ms")
 
-    totals = main_path(dev, args.ticks)
+    totals, rates = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)
     phase_done("main path and profile")
     for k, n in three_tier_cell(dev, args.fig18_ticks, args.fig18_check_ticks).items():
@@ -1214,7 +1239,7 @@ def main() -> int:
     zoo_card_vs_cpu(dev, args.zoo_check_ticks)
     phase_done("card vs CPU")
     for k, n in fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks, args.fleet_bench_ticks,
-                            args.fleet_rounds, warm=300).items():
+                            args.fleet_rounds, warm=300, one_run_rate=rates["reps"]).items():
         totals[k] += n
     phase_done("fleet")
 

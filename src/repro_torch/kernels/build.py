@@ -110,7 +110,7 @@ _SIGNATURES = {
     "repro_seg_rank": [_P, _P, _P, _I, _I, _I, _P],
     "repro_reps_tick": [_P] * 9 + [_I] + [_P] * 3 + [_I, _I, _I, _L] + [_P] * 9 + [_P],
     "repro_queue_tick": [_P] * 5 + [_I] * 7 + [_F, _F, _I] + [_P] * 7,
-    "repro_ecmp_hash": [_P, _P, _P, _P, _P, _L, _I, _P],
+    "repro_ecmp_hash": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _P],
     "repro_next_queue": [_P] * 8 + [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 

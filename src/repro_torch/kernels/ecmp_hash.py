@@ -42,7 +42,8 @@ def ecmp_hash_cuda(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
     """``(K,)`` or ``(B, K)`` int32 ``flow`` / ``ev`` / ``salt`` of one shape
     on one CUDA device -> int32 ports in ``[0, nports)``, the same shape.
     ``nports``: an int, or an int32 tensor on that device that broadcasts
-    against ``flow`` (every lane >= 1, unchecked: see ``check_nports``)."""
+    against ``flow`` (every lane >= 1, unchecked: see ``check_nports``),
+    read in place through its broadcast strides."""
     global launches
     nports = check_nports(nports)
     if not isinstance(flow, torch.Tensor) or flow.dim() not in (1, 2) or flow.device.type != "cuda":
@@ -50,16 +51,20 @@ def ecmp_hash_cuda(flow: torch.Tensor, ev: torch.Tensor, salt: torch.Tensor,
     dev = flow.device
     for t, name in ((flow, "flow"), (ev, "ev"), (salt, "salt")):
         check("ecmp_hash", t, name, torch.int32, flow.shape, dev)
-    lanes = None
+    lanes, strides = None, (0, 0)
     if isinstance(nports, torch.Tensor):
         if nports.dtype is not torch.int32 or nports.device != dev:
             raise ValueError(f"ecmp_hash: per-lane nports must be int32 on {dev}, got "
                              f"{nports.dtype} on {nports.device}")
-        lanes = torch.broadcast_to(nports, flow.shape).contiguous()
+        # a broadcast view: the kernel reads each lane through its strides
+        # (0 along a broadcast axis), so no count is copied
+        lanes = torch.broadcast_to(nports, flow.shape)
+        strides = (0,) * (2 - flow.dim()) + lanes.stride()
     out = torch.empty_like(flow)
     rc = build.library().repro_ecmp_hash(
         flow.data_ptr(), ev.data_ptr(), salt.data_ptr(), ptr(lanes), out.data_ptr(),
-        flow.numel(), 1 if lanes is not None else nports, stream_ptr(dev),
+        flow.numel(), 1 if lanes is not None else nports, flow.shape[-1], *strides,
+        stream_ptr(dev),
     )
     build.check(rc, "ecmp_hash")
     launches += 1

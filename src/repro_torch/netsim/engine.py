@@ -510,7 +510,8 @@ class _Rows:
     the full index shape, contiguous: the index kernel then converts only
     the tick's index (as a one-run index would), and on a CUDA device, where
     advanced indexing makes every index tensor contiguous unless their
-    strides all match, nothing else is copied."""
+    strides all match, nothing else is copied.  The packet table's fields
+    are a slice beside the two indices, so they need no index at all."""
 
     B: int
     device: torch.device
@@ -550,14 +551,12 @@ class _Rows:
     def pkt_get(self, pkt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Every field of slots ``idx (B, K)`` of each row's packet table
         ``pkt (B, PF, NP + 1)``: ``(PF, B, K)``, one gather."""
-        shape = (PF, self.B, idx.shape[-1])
-        return pkt[self._iota(shape, 1), self._iota(shape, 0), idx[None]]
+        return pkt.transpose(0, 1)[:, self.of(idx), idx]
 
     def pkt_set(self, pkt: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
         """``pkt_get``'s scatter, in place: slots unique within a row stay
         unique across rows, and only the sentinel column ``NP`` repeats."""
-        shape = (PF, self.B, idx.shape[-1])
-        pkt[self._iota(shape, 1), self._iota(shape, 0), idx[None]] = rows
+        pkt.transpose(0, 1)[:, self.of(idx), idx] = rows
 
 
 class Simulator:
@@ -1166,17 +1165,15 @@ class Simulator:
         return new_state, trace
 
     # ------------------------------------------------------------------
-    def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor,
-                 first_tick: int = 0):
-        """Run ticks ``first_tick ... first_tick + n_ticks - 1`` of B runs of
-        this scenario in lock-step: ``states`` and the returned state have a
-        leading row axis B, ``base_keys`` is ``(B, 2)``; returns ``(states,
-        trace)`` with the ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.
-        The random draws are made ``DRAW_CHUNK`` ticks at a time, for every
-        row at once."""
+    def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor):
+        """Run ticks ``0 ... n_ticks - 1`` of B runs of this scenario in
+        lock-step: ``states`` and the returned state have a leading row axis
+        B, ``base_keys`` is ``(B, 2)``; returns ``(states, trace)`` with the
+        ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.  The random draws
+        are made ``DRAW_CHUNK`` ticks at a time, for every row at once."""
         traces = []
-        for t0 in range(first_tick, first_tick + n_ticks, DRAW_CHUNK):
-            n = min(DRAW_CHUNK, first_tick + n_ticks - t0)
+        for t0 in range(0, n_ticks, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, n_ticks - t0)
             draws = self.tick_draws(base_keys, t0, n)
             for i in range(n):
                 states, tr = self.step_rows(states, t0 + i, draws.row(i))

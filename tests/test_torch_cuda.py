@@ -263,10 +263,11 @@ def test_ecmp_hash_kernel_matches_plain_version(dev):
 
 def test_ecmp_hash_kernel_per_lane_nports_matches_plain_version(dev):
     """One port count per lane (1..16, lanes at 1 included), as a (K,) or
-    (B, K) tensor and broadcast over rows: kernel == plain version."""
+    (B, K) tensor, broadcast over rows and one per row: kernel == plain
+    version."""
     rs = np.random.RandomState(5)
     for shape, lanes in [((512,), (512,)), ((3, 384), (3, 384)), ((4, 200), (200,)),
-                         ((77,), (77,))]:
+                         ((77,), (77,)), ((5, 200), (5, 1))]:
         flow = rs.randint(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
         ev = rs.randint(0, 65536, size=shape).astype(np.int32)
         salt = (2**31 - 1 - rs.randint(0, 9000, size=shape)).astype(np.int32)
