@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      current queue, tied queue lengths, with and without adaptive routing
      and penalty, and with a fleet's row axis (B = 1, 4, 64 rows in one
      launch, against the plain version and B one-row launches; penalty
-     shared and per row); then each is timed with
+     shared and per row; connection tables shared and one per row); then
+     each is timed with
      CUDA events (median of repeated batches) at the engine's call
      (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
      call's five fields; ``queue_tick``: K = 512, Q = 384, engine form;
@@ -68,11 +69,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      B = 1, 4, 16, 64; row-ticks/s against B from interleaved rounds
      (median, min, max per B; the fleet of seeds 0..B-1 is the first B rows
      of one warmed B = 64 fleet), each set against B = 1 and against the
-     main path's one run; a profiled window of 100 ticks at B = 64.
+     main path's one run; a profiled window of 100 ticks at B = 64;
+  9. telemetry — the summary path (``FleetRunner.run_summary``, the default
+     ``TelemetrySpec``): four FATTREE_128 REPS rows with their own
+     scenarios (fig08's 12.5, 25 and 50 % uplinks down, and fig06) equal
+     their serial card runs on every leaf and carry slot after 1100 ticks;
+     three FATTREE_32_CI rows with their own scenarios and cohort channels,
+     card == CPU; the telemetry's device launches per tick by name at B = 1
+     and 64 (the same; no device-to-host copy or synchronize inside a
+     tick); row-ticks/s of ``run_summary``'s tick against ``run``'s at B = 1
+     and 64 from interleaved rounds on the fleet phase's warmed rows.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` counts the main path's, fig18's, the arena's and the fleet's
-runs; the flat ``ecmp_hash`` is launched there no more); the last line
+(``launches`` counts the main path's, fig18's, the arena's, the fleet's
+and the telemetry phase's runs; the flat ``ecmp_hash`` is launched there no
+more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -553,10 +564,12 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         """The engine's form, and the reference form on the same arrivals
         (one run's ``(K,)`` or a fleet's ``(B, K)``)."""
         hop, cur, conn, ev = c["rows"]
-        cc = conn.clamp(0, c["conn_src"].numel() - 1)
+        cc = conn.clamp(0, c["conn_src"].shape[-1] - 1)
+        # the hosts of each arrival: from one shared table, or from its row's
+        host = lambda t: torch.gather(t, -1, cc.long()) if t.dim() == 2 else t[cc]
         engine = (g, hop, cur, conn, ev, c["conn_src"], c["conn_dst"], c["q_len"], adaptive,
                   c["q_pen"], c["a_idx"], c["NP"])
-        reference = (g, hop == 0, cur, conn, ev, c["conn_src"][cc], c["conn_dst"][cc],
+        reference = (g, hop == 0, cur, conn, ev, host(c["conn_src"]), host(c["conn_dst"]),
                      c["q_len"], adaptive, c["q_pen"])
         return engine, reference
 
@@ -585,24 +598,31 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
 
     def fleet_route(topo, B):
         """B rows of the engine's arrivals on one fabric: each row its own
-        packet table, slots and queue lengths; one workload's connection
-        tables; the penalty shared (one failure schedule) or per row."""
+        packet table, slots and queue lengths; the connection tables of one
+        workload (shared) or one per row; the penalty shared (one failure
+        schedule) or per row."""
         K = topo.n_queues + topo.cfg.n_hosts
         cs = [route_case(topo, K, 32768, 128, True) for _ in range(B)]
         stack = lambda f: torch.stack([f(c) for c in cs])
         return dict(rows=tuple(stack(lambda c, j=j: c["rows"][j]) for j in range(4)),
                     a_idx=stack(lambda c: c["a_idx"]), q_len=stack(lambda c: c["q_len"]),
                     NP=32768, conn_src=cs[0]["conn_src"], conn_dst=cs[0]["conn_dst"],
+                    src_rows=stack(lambda c: c["conn_src"]),
+                    dst_rows=stack(lambda c: c["conn_dst"]),
                     pen_shared=cs[0]["q_pen"], pen_rows=stack(lambda c: c["q_pen"]))
 
     topo = Topology.build(presets.FATTREE_128)
-    n_rows_cases = 0
+    n_rows_cases = n_table_cases = 0
     for B in (1, 4, 64):
         c = fleet_route(topo, B)
-        for pen in ("pen_shared", "pen_rows", None):
+        for pen, tables in [(p, "shared") for p in ("pen_shared", "pen_rows", None)] + [
+                (p, "rows") for p in ("pen_shared", "pen_rows")]:
+            cc = dict(c, q_pen=c[pen] if pen else None)
+            if tables == "rows":  # one connection table pair per row
+                cc.update(conn_src=c["src_rows"], conn_dst=c["dst_rows"])
             for adaptive in (False, True):
                 for form, args in zip(("engine", "reference"), route_forms(
-                        topo.geometry, dict(c, q_pen=c[pen] if pen else None), adaptive)):
+                        topo.geometry, cc, adaptive)):
                     args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
                                  for a in args)
                     got = nq_mod.next_queue_cuda(*args)
@@ -612,13 +632,18 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
                         a[b].contiguous() if isinstance(a, torch.Tensor) and a.dim() == 2 else a
                         for a in args)) for b in range(B)])
                     torch.cuda.synchronize()
-                    what = f"next_queue rows B={B} {form} form adaptive={adaptive} penalty={pen}"
+                    what = (f"next_queue rows B={B} {form} form adaptive={adaptive} penalty={pen} "
+                            f"connection tables {tables}")
                     err = max(err, equal_all([got], [want], what))
                     err = max(err, equal_all([got], [one], what + " vs one-row launches"))
-                    n_rows_cases += 1
+                    n_rows_cases += tables == "shared"
+                    n_table_cases += tables == "rows"
     log(f"kernel next_queue with rows: {n_rows_cases} cases bit-exact against the plain version "
         f"and against B one-row launches (FATTREE_128, B in (1, 4, 64) x penalty shared / per "
         f"row / none x adaptive x both forms)")
+    log(f"kernel next_queue with per-row connection tables: {n_table_cases} cases bit-exact "
+        f"against the plain version and against B one-row launches (FATTREE_128, B in (1, 4, 64) "
+        f"x penalty shared / per row x adaptive x both forms)")
 
     def timed(name, adaptive):  # the engine's call on one fabric: K = MAX_ARR, NP = 32768
         topo = Topology.build(getattr(presets, name))
@@ -676,6 +701,16 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         f"{eager_ms(lambda: nq_mod.next_queue_cuda(*args64)):.5f} ms, plain "
         f"{time_ms(lambda: ref.next_queue_ref(*args64)):.5f} ms, bound {b64:.3e} ms ({why64}); "
         f"B=1: device {ms:.5f} ms")
+    # the same call with one connection table pair per row: (64, 128) src / dst
+    tab64 = route_forms(g, dict(c64, q_pen=c64["pen_shared"], conn_src=c64["src_rows"],
+                                conn_dst=c64["dst_rows"]), False)[0]
+    bt, bt_why = bound_ms(8 * c64["a_idx"].numel() + 24 * valid64, 40 * valid64)
+    log(f"kernel next_queue at B=64 rows with per-row connection tables (64x128 src and dst, "
+        f"K=64x{K}, {valid64} arrivals, engine form, ECMP): device "
+        f"{time_ms(lambda: nq_mod.next_queue_cuda(*tab64)):.5f} ms, eager "
+        f"{eager_ms(lambda: nq_mod.next_queue_cuda(*tab64)):.5f} ms, plain "
+        f"{time_ms(lambda: ref.next_queue_ref(*tab64)):.5f} ms, bound {bt:.3e} ms ({bt_why}); "
+        f"shared tables: device {time_ms(lambda: nq_mod.next_queue_cuda(*args64)):.5f} ms")
     rows.append(dict(
         name="next_queue", route="cuda", source="src/repro_torch/csrc/next_queue.cu",
         replaces="src/repro/kernels/ecmp_hash.py:40",
@@ -986,7 +1021,7 @@ def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds
     warmed for ``warm`` ticks, each also set against ``one_run_rate`` (the
     main path's fig06/reps ticks/s over its whole run); (e) a profiled
     window of 100 ticks at B = 64.  Returns the launches of the fleet runs
-    per kernel."""
+    per kernel, and the warmed B = 64 fleet ``(fleet, states, warm)``."""
     import torch
 
     from repro_torch.configs import FATTREE_32_CI
@@ -1096,6 +1131,269 @@ def fleet_phase(dev, rows_ticks: int, check_ticks: int, bench_ticks: int, rounds
         st, _ = sim.step_rows(st, warm + i, draws.row(i))
 
     profile_ticks(f"fleet B={B}, ticks {warm}-{warm + 100}", step, 100)
+    return totals, (big, warmed, warm)
+
+
+TEL_PER_TICK = dict(FLEET_PER_TICK, seg_sum=6)  # + one seg_sum per histogram of the default spec
+
+
+def fig08_fig06_rows():
+    """Phase (a)'s four rows at FATTREE_128 with REPS (freezing timeout
+    800): fig08's REPS column at 12.5, 25 and 50 % of the ToR uplinks down
+    from tick 150 on (``random_down_uplinks(cfg, frac, 150, FOREVER,
+    seed=11)`` on ``permutation(128, 2048, seed=5)``), then the fig06 cell
+    (two transient ToR-0 uplink windows on ``permutation(128, 4096,
+    seed=3)``), at one set of pinned shapes (``msg_slots`` 4096,
+    ``failure_slots`` the largest schedule's); each row's ``(args, kw)`` as
+    ``Simulator`` takes them."""
+    from repro_torch.core import make_lb
+    from repro_torch.netsim import failures, workloads
+
+    (cfg, wl6, _), kw6 = fig06_scenario("reps")
+    wl8 = workloads.permutation(cfg.n_hosts, 2048, seed=5)
+    fs8 = [failures.random_down_uplinks(cfg, f, 150, failures.FOREVER, seed=11)
+           for f in (0.125, 0.25, 0.5)]
+    pinned = cfg.replace(msg_slots=4096,
+                         failure_slots=max(len(f) for f in fs8 + [kw6["failures"]]))
+    lb = lambda: make_lb("reps", evs_size=cfg.evs_size, freezing_timeout=800)
+    rows = [((pinned, wl8, lb()), dict(failures=f, watch_queues=kw6["watch_queues"]))
+            for f in fs8]
+    rows.append(((pinned, wl6, lb()), kw6))
+    return rows
+
+
+def small_rows():
+    """Phase (b)'s three FATTREE_32_CI rows, REPS: a shifted permutation
+    with two uplinks down; a tornado with staggered starts under a degraded
+    and a down window; a shifted permutation whose second half waits on the
+    first under gray loss (p = 0.3) and a down window; each its own watch
+    list."""
+    import numpy as np
+
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.core import make_lb
+    from repro_torch.netsim import FailureSchedule, Topology, Workload, failures
+
+    cfg = FATTREE_32_CI.replace(msg_slots=64, conns_per_host=2, failure_slots=6)
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)]
+    rs = np.random.RandomState(0)
+    i32 = lambda a: np.asarray(a, np.int32)
+    hosts = np.arange(32)
+    none = np.full(32, -1)
+    wls = [Workload(i32(hosts), i32((hosts + 3) % 32), i32(rs.randint(8, 49, 32)),
+                    i32(0 * hosts), i32(none)),
+           Workload(i32(hosts), i32((hosts + 16) % 32), i32(np.full(32, 64)),
+                    i32(rs.randint(0, 60, 32)), i32(none)),
+           Workload(i32(hosts), i32((hosts + 5) % 32), i32(rs.randint(4, 33, 32)),
+                    i32(0 * hosts), i32(np.where(hosts >= 16, hosts - 16, -1)))]
+    fss = [failures.link_down(ups[:2], 20, failures.FOREVER),
+           FailureSchedule.concat(failures.link_degraded([ups[2]], 20, 300),
+                                  failures.link_down([ups[5]], 100, 250)),
+           FailureSchedule.concat(failures.gray_loss([ups[1]], 10, 350, 0.3),
+                                  failures.link_down([ups[3]], 150, failures.FOREVER))]
+    watch = [ups[:4], ups[4:8], [ups[0], ups[3], ups[6], 7]]
+    lb = lambda: make_lb("reps", evs_size=cfg.evs_size, freezing_timeout=250)
+    return [((cfg, w, lb()), dict(failures=f, watch_queues=np.asarray(q)))
+            for w, f, q in zip(wls, fss, watch)]
+
+
+def row_fleet(rows, seeds, dev):
+    """A fleet over ``rows`` (each ``(args, kw)`` as ``Simulator`` takes
+    them), one seed each, and the rows' stacked scenarios."""
+    from repro_torch.netsim import FleetRunner, Simulator, stack_scenarios
+
+    args, kw = rows[0]
+    fleet = FleetRunner(*args, **kw, seeds=seeds, device=dev)
+    scn = stack_scenarios([Simulator(*a, **k, device=dev).scn for a, k in rows])
+    return fleet, scn
+
+
+def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds: int,
+                    warmed) -> dict:
+    """The summary path (``FleetRunner.run_summary``, default telemetry) on
+    the card: (a) four heterogeneous rows at full width (fig08's REPS
+    column and fig06) equal their serial card runs on every SimState leaf
+    and telemetry slot; (b) a FATTREE_32_CI fleet of three rows, each its
+    own scenario, with cohort channels: card == CPU, carry and leaves; (c)
+    launches per tick by name with the default spec against without it, at
+    B = 1 and 64 on fig06/reps (the telemetry's the same at both), and no
+    device-to-host copy or synchronize per tick; (d) row-ticks/s of
+    ``run_summary``'s tick against ``run``'s at B = 1 and 64, interleaved
+    rounds from the fleet phase's warmed B = 64 rows.  Returns the launches
+    per kernel."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import FleetRunner, TelemetrySpec, sim_state_to_numpy
+    from repro_torch.netsim.engine import tree_map
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    t_start = time.perf_counter()
+
+    def step_done(what):
+        log(f"telemetry phase: {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    def counted(what, n, fn, per_tick=TEL_PER_TICK):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, m in per_tick.items():
+            if counts[k] != m * n:
+                raise AssertionError(f"{what}: {k} launched {counts[k]} times, expected {m} x {n}")
+        for k, m in counts.items():
+            totals[k] += m
+        return out, secs, counts
+
+    # (a) four heterogeneous rows at full width == their serial card runs
+    rows = fig08_fig06_rows()
+    seeds = (0, 1, 2, 3)
+    names = ("fig08/fail12pct", "fig08/fail25pct", "fig08/fail50pct", "fig06")
+    fleet, scn = row_fleet(rows, seeds, dev)
+    (states, tel), secs, counts = counted("telemetry rows B=4", ticks,
+                                          lambda: fleet.run_summary(ticks, scn=scn))
+    log(f"telemetry {', '.join(names)} rows, REPS, B=4: run_summary {ticks} ticks in {secs:.3f} s "
+        f"= {4 * ticks / secs:.1f} row-ticks/s; launches={counts}")
+    sums = tel.summaries()
+    for i, ((args, kw), s) in enumerate(zip(rows, seeds)):
+        one = FleetRunner(*args, **kw, seeds=(s,), device=dev)
+        (st, tl), _, _ = counted(f"serial row {i}", ticks, lambda: one.run_summary(ticks))
+        leaves = sim_state_to_numpy(one.state_at(st, 0))
+        same_leaves(sim_state_to_numpy(fleet.state_at(states, i)), leaves,
+                    f"telemetry row {i} vs serial")
+        if tl.tel[0].tobytes() != tel.tel[i].tobytes():
+            bad = (tl.tel[0] != tel.tel[i]).nonzero()[0][:5].tolist()
+            raise AssertionError(f"telemetry row {i}: carry differs from its serial run at {bad}")
+        rec, sm = tel.result(i)["recovery"], sums[i]
+        log(f"telemetry row {i} ({names[i]}, seed {s}) == serial: all {len(leaves)} SimState "
+            f"leaves and all {tel.prog.size} carry slots bit-equal after {ticks} ticks; "
+            f"completed={sm.completed}/{sm.n_conns} drops_fail={sm.drops_fail} "
+            f"timeouts={sm.timeouts} first_drop={rec['first_drop_tick']} "
+            f"recovery_ticks={rec['recovery_ticks']}")
+    del fleet, states, scn
+    step_done("(a) rows == serial")
+
+    # (b) card == CPU: three FATTREE_32_CI rows, their own scenarios, cohorts
+    rows = small_rows()
+    nc = rows[0][0][1].n_conns
+    spec = TelemetrySpec.default().with_cohorts({"even": range(0, nc, 2),
+                                                 "odd": range(1, nc, 2)})
+    out = []
+    for d in (dev, "cpu"):
+        small, scn = row_fleet(rows, (0, 5, 9), d)
+        t0 = time.perf_counter()
+        out.append(small.run_summary(check_ticks, spec, scn=scn))
+        log(f"card vs CPU: telemetry FATTREE_32_CI rows B=3 on {d}: {check_ticks} ticks in "
+            f"{time.perf_counter() - t0:.3f} s")
+    (st_g, tl_g), (st_c, tl_c) = out
+    if tl_g.tel.tobytes() != tl_c.tel.tobytes():
+        raise AssertionError("card vs CPU: the telemetry carries differ at "
+                             f"{(tl_g.tel != tl_c.tel).nonzero()}")
+    for i in range(3):
+        same_leaves(sim_state_to_numpy(small.state_at(st_g, i)),
+                    sim_state_to_numpy(small.state_at(st_c, i)), f"telemetry small row {i}")
+    log(f"card vs CPU: telemetry FATTREE_32_CI B=3 (own scenarios, cohorts): all "
+        f"{tl_g.prog.size} carry slots and all SimState leaves of every row bit-equal after "
+        f"{check_ticks} ticks (drops_fail per row {[s.drops_fail for s in tl_g.summaries()]}, "
+        f"completed {[s.completed for s in tl_g.summaries()]})")
+    step_done("(b) card == CPU")
+
+    # (c) + (d) on the fleet phase's warmed fig06/reps rows
+    big, warmed_states, warm = warmed
+    sim, keys = big.sim, big.base_keys()
+    Bs = (1, 64)
+    starts = {B: tree_map(lambda t, B=B: t[:B], warmed_states) for B in Bs}
+    draws = {B: sim.tick_draws(keys[:B], warm, bench_ticks) for B in Bs}
+    prog = big.program(TelemetrySpec.default(), warm + bench_ticks)
+
+    def bench(B, summary, n=bench_ticks, carry=None):
+        """``n`` ticks from the warmed rows: ``run``'s tick, or with
+        ``summary`` ``run_summary``'s, folded into ``carry`` (made outside
+        the timed and profiled windows: its upload synchronizes)."""
+        st, d = starts[B], draws[B]
+        if summary:
+            for i in range(n):
+                st, probe = sim.step_probe_rows(st, warm + i, d.row(i))
+                prog.update(carry, probe)
+        else:
+            for i in range(n):
+                st, _ = sim.step_rows(st, warm + i, d.row(i))
+        return st
+
+    prof_ticks = 50
+    launches = {}
+    for B in Bs:
+        for summary in (False, True):
+            bench(B, summary, 3, prog.init_rows(B))  # the path's first calls, outside
+            carry = prog.init_rows(B)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                bench(B, summary, prof_ticks, carry)
+                torch.cuda.synchronize()
+            per = collections.Counter()
+            d2h = syncs = ends = 0
+            for e in prof.events():
+                d2h += "DtoH" in e.name or "DeviceToHost" in e.name
+                if "Synchronize" in e.name:
+                    # the window's closing synchronize and the profiler's own
+                    # are top-level device synchronizes; a tick's would be a
+                    # stream synchronize inside an op (a blocking copy)
+                    top = e.cpu_parent is None and e.name == "cudaDeviceSynchronize"
+                    ends += top
+                    syncs += not top
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    per[e.name] += 1
+            if d2h or syncs:
+                raise AssertionError(f"B={B} summary={summary}: {d2h} device-to-host copies and "
+                                     f"{syncs} synchronizes inside ops in {prof_ticks} ticks")
+            launches[B, summary] = per  # device launches in the window, by name
+            log(f"launches B={B} {'run_summary' if summary else 'run'}: "
+                f"{sum(per.values()) / prof_ticks:.2f} device launches per tick; in "
+                f"{prof_ticks} ticks {d2h} device-to-host copies, {syncs} synchronizes inside "
+                f"ops ({ends} top-level device synchronizes: the window's end, the profiler's)")
+    extra = {}
+    for B in Bs:
+        off, on = launches[B, False], launches[B, True]
+        extra[B] = on - off  # the telemetry's launches in the window, by name
+        extra[B].subtract(off - on)
+        log(f"telemetry launches per tick at B={B}: {extra[B].total() / prof_ticks:+.2f} "
+            f"({on.total() / prof_ticks:.2f} with TelemetrySpec.default() against "
+            f"{off.total() / prof_ticks:.2f} without)")
+        for k, v in sorted(extra[B].items(), key=lambda kv: -abs(kv[1])):
+            if v:
+                log(f"telemetry launches B={B}: {v / prof_ticks:+.2f} per tick  {k[:100]}")
+    n1, n64 = (extra[B].total() / prof_ticks for B in Bs)
+    if n1 != n64:
+        raise AssertionError(f"telemetry adds {n1} launches per tick at B=1 but {n64} at B=64")
+    if n1 > 60:
+        raise AssertionError(f"telemetry adds {n1} launches per tick, more than 60")
+    step_done("(c) launches")
+
+    rate = {(B, m): [] for B in Bs for m in (False, True)}
+    order = [(B, m) for B in Bs for m in (False, True)]
+    for r in range(rounds):
+        for B, m in (order if r % 2 == 0 else order[::-1]):
+            carry = prog.init_rows(B)
+            _, secs, _ = counted(f"telemetry bench B={B} summary={m}", bench_ticks,
+                                 lambda: bench(B, m, carry=carry),
+                                 TEL_PER_TICK if m else FLEET_PER_TICK)
+            rate[B, m].append(B * bench_ticks / secs)
+            log(f"telemetry bench round {r} B={B} {'run_summary' if m else 'run'}: "
+                f"{bench_ticks} ticks (from tick {warm}) in {secs:.3f} s = "
+                f"{B * bench_ticks / secs:.1f} row-ticks/s")
+    for B in Bs:
+        run, summ = (statistics.median(rate[B, m]) for m in (False, True))
+        log(f"telemetry row-ticks/s B={B}: run_summary median {summ:.1f} (min "
+            f"{min(rate[B, True]):.1f}, max {max(rate[B, True]):.1f}) against run median "
+            f"{run:.1f} (min {min(rate[B, False]):.1f}, max {max(rate[B, False]):.1f}), "
+            f"{rounds} rounds: {summ / run:.3f}x")
+    step_done("(d) rounds")
     return totals
 
 
@@ -1175,6 +1473,13 @@ def main() -> int:
     ap.add_argument("--fleet-bench-ticks", type=int, default=400,
                     help="timed ticks per fleet per round")
     ap.add_argument("--fleet-rounds", type=int, default=3, help="interleaved rounds over B")
+    ap.add_argument("--tel-ticks", type=int, default=1100,
+                    help="ticks of the four full-width telemetry rows held against serial runs")
+    ap.add_argument("--tel-check-ticks", type=int, default=900,
+                    help="card-vs-CPU horizon of the small telemetry fleet")
+    ap.add_argument("--tel-bench-ticks", type=int, default=150,
+                    help="timed ticks per (B, path) per telemetry round")
+    ap.add_argument("--tel-rounds", type=int, default=3, help="interleaved telemetry rounds")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1238,10 +1543,17 @@ def main() -> int:
     card_vs_cpu(dev, args.check_ticks)
     zoo_card_vs_cpu(dev, args.zoo_check_ticks)
     phase_done("card vs CPU")
-    for k, n in fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks, args.fleet_bench_ticks,
-                            args.fleet_rounds, warm=300, one_run_rate=rates["reps"]).items():
+    fleet_totals, warmed = fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks,
+                                       args.fleet_bench_ticks, args.fleet_rounds, warm=300,
+                                       one_run_rate=rates["reps"])
+    for k, n in fleet_totals.items():
         totals[k] += n
     phase_done("fleet")
+    for k, n in telemetry_phase(dev, args.tel_ticks, args.tel_check_ticks, args.tel_bench_ticks,
+                                args.tel_rounds, warmed).items():
+        totals[k] += n
+    del warmed
+    phase_done("telemetry")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -27,7 +27,9 @@
 // row i / K); q_len is (B, n_queues), each row read at row * n_queues;
 // q_penalty is one (n_queues,) row shared by every run (pen_row_stride 0: one
 // failure schedule) or (B, n_queues); the engine form's connection tables
-// are shared (one workload).  B = 1 is the one-run call.
+// are one (n_conns,) pair shared by every run (conn_row_stride 0: one
+// workload) or one pair per row (conn_row_stride n_conns: rows with their own
+// workloads), read at row * conn_row_stride + c.  B = 1 is the one-run call.
 //
 // What bounds it: at the engine's K = 512 arrivals it reads ~20 bytes and
 // writes 4 per arrival (plus q_len under adaptive), ~12 KB per row, a few ns
@@ -71,6 +73,7 @@ struct Arrivals {
   const int32_t* dst;
   const int32_t* a_idx;  // engine form: packet slots; null: reference form
   int n_pkt, n_conns;
+  int conn_row_stride;   // engine form: 0 (one table for all rows) or n_conns
 };
 
 __device__ __forceinline__ int floor_mod(int x, int m) {  // m >= 1
@@ -130,7 +133,8 @@ __global__ void __launch_bounds__(kThreads)
       out[i] = f.n_queues;
       return;
     }
-    const int c = min(max(flow, 0), a.n_conns - 1);
+    const int64_t c = static_cast<int64_t>(row) * a.conn_row_stride +
+                      min(max(flow, 0), a.n_conns - 1);
     src = a.src[c];
     dst = a.dst[c];
   } else {
@@ -188,17 +192,19 @@ __global__ void __launch_bounds__(kThreads)
 // fabric: host array of kFabricInts ints (RouteGeometry's order; the wrapper
 // checks the divisors >= 1).  k = B * row_len arrivals of B rows: at_injection
 // k bool flags, or k int32 hop counts in the engine form; cur, flow, ev: k
-// int32; src, dst: k int32 hosts, or (n_conns,) int32 connection tables
-// shared by the rows in the engine form (n_conns >= 1); a_idx: k int32 packet
-// slots (engine form) or null.  q_len: (B, n_queues) int32, read only under
+// int32; src, dst: k int32 hosts, or in the engine form int32 connection
+// tables of n_conns >= 1 entries per row, conn_row_stride apart (0: one pair
+// shared by the rows, n_conns: one per row); a_idx: k int32 packet slots
+// (engine form) or null.  q_len: (B, n_queues) int32, read only under
 // adaptive; q_penalty: null, or int32 rows pen_row_stride apart (0: one
 // (n_queues,) row for all, n_queues: one per row).  out: k int32.  Returns
 // cudaGetLastError().
 extern "C" int repro_next_queue(const int* fabric, const void* at_injection, const void* cur,
                                 const void* flow, const void* ev, const void* src,
                                 const void* dst, const void* a_idx, int n_pkt, int n_conns,
-                                const void* q_len, const void* q_penalty, int pen_row_stride,
-                                int adaptive, int k, int row_len, void* out, void* stream) {
+                                int conn_row_stride, const void* q_len, const void* q_penalty,
+                                int pen_row_stride, int adaptive, int k, int row_len, void* out,
+                                void* stream) {
   Fabric f;
   std::memcpy(&f, fabric, sizeof f);
   const Arrivals a{at_injection,
@@ -209,7 +215,8 @@ extern "C" int repro_next_queue(const int* fabric, const void* at_injection, con
                    static_cast<const int32_t*>(dst),
                    static_cast<const int32_t*>(a_idx),
                    n_pkt,
-                   n_conns};
+                   n_conns,
+                   conn_row_stride};
   if (k > 0 && row_len > 0) {
     next_queue_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(

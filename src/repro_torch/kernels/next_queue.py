@@ -67,9 +67,9 @@ def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src,
                     adaptive: bool, q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
     """``(K,)`` CUDA tensors -> int32 ``(K,)`` next queues, or with a leading
     row axis ``(B, K)`` -> ``(B, K)`` in the same one launch (``q_len`` then
-    ``(B, NQ)``, ``q_penalty`` ``(NQ,)`` shared or ``(B, NQ)``); the
-    arguments as ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is
-    given)."""
+    ``(B, NQ)``, ``q_penalty`` ``(NQ,)`` shared or ``(B, NQ)``, the engine
+    form's connection tables ``(NC,)`` shared or ``(B, NC)``); the arguments
+    as ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is given)."""
     global launches
     fabric = _fabric(g)
     if not isinstance(cur_queue, torch.Tensor) or cur_queue.dim() not in (1, 2) \
@@ -82,14 +82,18 @@ def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src,
         check("next_queue", t, name, i32, shape, dev)
     check("next_queue", at_injection, "at_injection (hop counts)" if engine else "at_injection",
           i32 if engine else torch.bool, shape, dev)
-    n_conns = 0
+    n_conns = conn_stride = 0
     if engine:
         check("next_queue", a_idx, "a_idx", i32, shape, dev)
-        n_conns = src.shape[0] if isinstance(src, torch.Tensor) and src.dim() == 1 else 0
+        per_row = bool(rows) and isinstance(src, torch.Tensor) and src.dim() == 2
+        n_conns = src.shape[-1] if isinstance(src, torch.Tensor) and src.dim() >= 1 else 0
         if n_conns < 1:
-            raise ValueError("next_queue: the engine form needs (NC,) connection tables, NC >= 1")
+            raise ValueError("next_queue: the engine form needs (NC,) or (B, NC) connection "
+                             "tables, NC >= 1")
+        conn_stride = n_conns if per_row else 0
     for t, name in ((src, "src"), (dst, "dst")):
-        check("next_queue", t, name, i32, (n_conns,) if engine else shape, dev)
+        want = ((*rows, n_conns) if conn_stride else (n_conns,)) if engine else shape
+        check("next_queue", t, name, i32, want, dev)
     nq = g.n_queues
     check("next_queue", q_len, "q_len", i32, (*rows, nq), dev)
     pen_stride = 0
@@ -101,8 +105,8 @@ def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src,
     rc = build.library().repro_next_queue(
         fabric, at_injection.data_ptr(), cur_queue.data_ptr(), flow_id.data_ptr(),
         ev.data_ptr(), src.data_ptr(), dst.data_ptr(), ptr(a_idx), int(n_pkt), n_conns,
-        q_len.data_ptr(), ptr(q_penalty), pen_stride, int(bool(adaptive)), out.numel(),
-        shape[-1], out.data_ptr(), stream_ptr(dev),
+        conn_stride, q_len.data_ptr(), ptr(q_penalty), pen_stride, int(bool(adaptive)),
+        out.numel(), shape[-1], out.data_ptr(), stream_ptr(dev),
     )
     build.check(rc, "next_queue")
     launches += 1

@@ -70,10 +70,10 @@ def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, 
     ``n_queues``.
 
     Rows: the arrivals may carry a leading row axis ``(B, K)`` (a fleet of
-    runs of one scenario); ``q_len`` is then ``(B, n_queues)``, ``q_penalty``
-    ``(n_queues,)`` shared or ``(B, n_queues)``, and the engine form's
-    connection tables stay ``(NC,)``, shared.  Row ``b`` is the one-row call
-    on row ``b``'s inputs.
+    runs); ``q_len`` is then ``(B, n_queues)``, ``q_penalty`` ``(n_queues,)``
+    shared or ``(B, n_queues)``, and the engine form's connection tables
+    ``(NC,)`` shared (one workload) or ``(B, NC)`` (one per row).  Row ``b``
+    is the one-row call on row ``b``'s inputs.
 
     Each choice hop (the ToR uplink; on 3 tiers also the agg uplink) takes
     the ECMP hash of (flow, EV, salt) with salt ``src_tor`` (agg uplink:
@@ -88,8 +88,12 @@ def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, 
         ev = torch.where(valid, ev, 0)
         at_injection = torch.where(valid, at_injection, 1) == 0
         cur_queue = torch.where(valid, cur_queue, 0)
-        cc = flow_id.clamp(0, src.shape[0] - 1)
-        src, dst = src[cc], dst[cc]
+        cc = flow_id.clamp(0, src.shape[-1] - 1)
+        if src.dim() == 2:  # one table per row
+            cc = cc.long()
+            src, dst = torch.gather(src, -1, cc), torch.gather(dst, -1, cc)
+        else:
+            src, dst = src[cc], dst[cc]
     if adaptive and q_penalty is not None:
         q_len = q_len + q_penalty
     dev = cur_queue.device

@@ -56,17 +56,22 @@ gets there with PyTorch:
     CUDA device the hand-written kernel runs, on the CPU its plain version
     in ``kernels/ref.py``.  Nothing else chooses between the two.
   * Rows.  There is one tick body, ``Simulator.step_rows``, over state with a
-    leading row axis B: B runs of one scenario (one workload, one failure
-    schedule, one load balancer; a seed each) step in lock-step, and every
-    kernel is one launch per tick whatever B is.  Per-row gathers and
-    scatters are one advanced index with a precomputed row index beside the
-    tick's own, reductions run over the last axis, and the load balancer
-    sees the rows as more connections.  ``Simulator.run``, ``step_scenario``
-    and ``tick_fn`` are its B = 1 case (the row axis added and dropped as
-    views); ``repro_torch.netsim.fleet.FleetRunner`` is its B > 1 case:
+    leading row axis B: B runs (a seed each, one load balancer) step in
+    lock-step, and every kernel is one launch per tick whatever B is.  By
+    default the rows share the simulator's scenario (one workload, one
+    failure schedule, one watch list); given a ``ScenarioArrays`` with a
+    leading row axis (``scn``), each row has its own, at the simulator's
+    shapes.  Per-row gathers and scatters are one advanced index with a
+    precomputed row index beside the tick's own, reductions run over the
+    last axis, and the load balancer sees the rows as more connections.
+    ``Simulator.run``, ``step_scenario`` and ``tick_fn`` are its B = 1 case
+    (the row axis added and dropped as views);
+    ``repro_torch.netsim.fleet.FleetRunner`` is its B > 1 case:
 
         fleet = FleetRunner(cfg, wl, make_lb("reps"), seeds=range(64))  # on the card
         states, traces = fleet.run(4000)       # leaves (64, ...), traces (4000, 64, ...)
+        scn = stack_scenarios([Simulator(cfg, w, lb, failures=f).scn for w, f in rows])
+        states, tel = fleet.run_summary(4000, scn=scn)   # one scenario per row
 
 Not ported yet: conn-scale mode (``conn_sharding`` / the active set), the
 conn-axis mesh and the flight recorder's events (``emit_events``); each
@@ -285,6 +290,35 @@ class FailureSchedule:
         return merged
 
 
+class ScenarioArrays(NamedTuple):
+    """A scenario's arrays: what rows of one simulator's shapes may vary
+    (workload, failure schedule, watch list), as the reference's
+    ``ScenarioArrays``.  ``Simulator.scn`` holds the simulator's own; a
+    ``ScenarioArrays`` whose leaves have a leading row axis B
+    (``stack_scenarios``) gives each row of ``step_rows`` its own."""
+
+    conn_src: torch.Tensor  # (NC,) int32
+    conn_dst: torch.Tensor  # (NC,) int32
+    conn_msg: torch.Tensor  # (NC,) int32
+    conn_start: torch.Tensor  # (NC,) int32
+    conn_dep: torch.Tensor  # (NC,) int32
+    host_conns: torch.Tensor  # (NH, CPH) int32, -1 padded
+    watch: torch.Tensor  # (W,) int32 queue ids traced per tick
+    f_queue: torch.Tensor  # (F,) int32
+    f_start: torch.Tensor  # (F,) int32
+    f_end: torch.Tensor  # (F,) int32
+    f_kind: torch.Tensor  # (F,) int32
+    f_param: torch.Tensor  # (F,) int32
+
+
+def stack_scenarios(scns) -> ScenarioArrays:
+    """Rows' scenarios (each a ``Simulator(...).scn`` at one set of pinned
+    shapes: ``SimConfig.msg_slots``, ``conns_per_host`` and
+    ``failure_slots``, one watch-list length) as one ``ScenarioArrays`` with
+    a leading row axis."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *scns)
+
+
 @dataclasses.dataclass(frozen=True)
 class SimState:
     """Per-run dynamic state; field order and dtypes are the reference's.
@@ -373,6 +407,23 @@ class TickTrace(NamedTuple):
     injected: torch.Tensor
     watch_qlen: torch.Tensor  # (W,)
     watch_served: torch.Tensor  # (W,) int32 0/1
+
+
+class Probe(NamedTuple):
+    """What a tick's telemetry reduces over (``repro_torch.netsim.telemetry``),
+    derived from the rows' state before and after the tick
+    (``Simulator.probe``); fields as the reference's ``Probe``, with a
+    leading row axis B, except ``now``, the tick, a host int shared by the
+    rows.  A quiescent tick gives an all-zero probe."""
+
+    now: int  # the tick just executed
+    q_len: torch.Tensor  # (B, NQ) int32 occupancy after the tick
+    served: torch.Tensor  # (B, NQ) int32 0/1: dequeued this tick
+    watch_qlen: torch.Tensor  # (B, W) int32 occupancy of watched queues
+    watch_served: torch.Tensor  # (B, W) int32 0/1 for watched queues
+    stats_delta: torch.Tensor  # (B, N_STATS) int32 counter increments this tick
+    done_now: torch.Tensor  # (B, NC) bool: conns that completed this tick
+    fct: torch.Tensor  # (B, NC) int32: done tick - start where done_now, else 0
 
 
 class TickDraws(NamedTuple):
@@ -559,6 +610,34 @@ class _Rows:
         pkt.transpose(0, 1)[:, self.of(idx), idx] = rows
 
 
+@dataclasses.dataclass
+class _Tables:
+    """A scenario's arrays as the tick reads them, made once per scenario on
+    the simulator's device: the simulator's own, shared by every row
+    (``rows`` 0), or a ``ScenarioArrays`` of ``rows`` rows, each row's own.
+    Shared indices are int32 ``(NC,)`` / ``(NH, CPH)`` beside the row axis;
+    per-row ones int64 ``(B, ...)`` for ``torch.gather``, made once here so
+    that no tick converts or copies them.  The failure schedule stays on
+    the host (``f``, numpy ``(F,)`` or ``(B, F)``): the tick's fault masks
+    are recomputed there and uploaded only when the active set changes."""
+
+    rows: int
+    src: torch.Tensor  # (NC,) or (B, NC) int32
+    dst: torch.Tensor
+    msg: torch.Tensor
+    start: torch.Tensor
+    no_dep: torch.Tensor  # bool
+    dep: torch.Tensor  # the prerequisite, clamped: int32 (NC,) or int64 (B, NC)
+    hc: torch.Tensor  # (NH, CPH) or (B, NH, CPH) int32, -1 padded
+    hc_safe: torch.Tensor  # clamped: int32 (NH, CPH) or int64 (B, NH * CPH)
+    hc_valid: torch.Tensor  # bool, like hc
+    watch: torch.Tensor  # int32 (W,) or int64 (B, W)
+    f: tuple  # (queue, start, end, kind, param) numpy int32 (F,) or (B, F)
+    has_gray: bool  # some row has a gray-loss window
+    fault_key: bytes | None = None
+    faults: tuple | None = None
+
+
 class Simulator:
     """Builds and runs one simulation scenario on one device.
 
@@ -645,20 +724,33 @@ class Simulator:
         if watch_queues is None:
             watch_queues = self.topo.t0_up_queues(0)[: cfg.n_watch_queues]
         self.watch = t(watch_queues)
-        self._has_gray = bool(np.any(
-            (self.failures.kind == K_GRAY) & (self.failures.end > self.failures.start)
-        ))
-        self._fault_key = None
-        self._faults = None
+        fs = self.failures
+        self.scn = ScenarioArrays(
+            conn_src=self.conn_src, conn_dst=self.conn_dst, conn_msg=self.conn_msg,
+            conn_start=self.conn_start, conn_dep=self.conn_dep, host_conns=self.host_conns,
+            watch=self.watch, f_queue=t(fs.queue), f_start=t(fs.start), f_end=t(fs.end),
+            f_kind=t(fs.kind), f_param=t(fs.param),
+        )
+        f_host = tuple(np.asarray(getattr(fs, k), np.int32)
+                       for k in ("queue", "start", "end", "kind", "param"))
+        self._own = _Tables(
+            rows=0, src=self.conn_src, dst=self.conn_dst, msg=self.conn_msg,
+            start=self.conn_start, no_dep=self.conn_dep < 0,
+            dep=self.conn_dep.clamp(0, max(NC - 1, 0)), hc=self.host_conns,
+            hc_safe=self.host_conns.clamp(0, max(NC - 1, 0)), hc_valid=self.host_conns >= 0,
+            watch=self.watch, f=f_host, has_gray=_has_gray(f_host),
+        )
+        self._scn_cache: tuple | None = None  # (the ScenarioArrays last given, its _Tables)
 
         # constants reused every tick
         self._qid = torch.arange(self.NQ, dtype=I32, device=dev)
         self._cph = torch.arange(self.CPH, dtype=I32, device=dev)
         self._ones_nc = torch.ones((NC,), dtype=F32, device=dev)
-        self._hc_safe = self.host_conns.clamp(0, max(NC - 1, 0))
-        self._hc_valid = self.host_conns >= 0
-        self._dep_safe = self.conn_dep.clamp(0, max(NC - 1, 0))
-        self._no_dep = self.conn_dep < 0
+        # scatter values on the device: a Python scalar would be copied from
+        # the host, and that copy synchronizes the stream
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self._false = torch.zeros((), dtype=torch.bool, device=dev)
+        self._zero = torch.zeros((), dtype=I32, device=dev)
         self._red_rcp = _f32(np.float32(1.0) / np.float32(cfg.kmax - cfg.kmin))
 
         self._row_consts: dict[int, _Rows] = {}  # B -> the tick's row indices
@@ -747,39 +839,100 @@ class Simulator:
         harmless."""
         NC = self.wl.n_conns
         hit = vals & (conns >= 0) & (conns < NC)
-        bmap[R.of(conns), torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = True
+        bmap[R.of(conns), torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = self._true
 
     # ------------------------------------------------------------------
-    def _fault_masks(self, now: int):
-        """Per-queue fault masks of the windows active at ``now``: (down,
-        degraded, gray drop parameter or None, adaptive-routing penalty).
-        Computed on the host from the schedule and uploaded only when the
-        active set changes; one ``(NQ,)`` set serves every row."""
-        f = self.failures
-        act = (now >= f.start) & (now < f.end)
-        key = act.tobytes()
-        if key != self._fault_key:
-            NQ = self.NQ
+    def _tables(self, scn: ScenarioArrays | None) -> _Tables:
+        """The tick's view of ``scn``: the simulator's own scenario for
+        ``None`` (or ``self.scn``), else ``scn``'s rows (a ``ScenarioArrays``
+        with a leading row axis, or one scenario, taken as one row), checked
+        against this simulator's shapes and prepared once per ``scn``
+        object."""
+        if scn is None or scn is self.scn:
+            return self._own
+        cached = self._scn_cache
+        if cached is not None and cached[0] is scn:
+            return cached[1]
+        tables = self._make_tables(scn)
+        self._scn_cache = (scn, tables)
+        return tables
 
-            def mask(kind):
-                m = np.zeros(NQ, bool)
-                q = f.queue[act & (f.kind == kind)]
-                m[q[(q >= 0) & (q < NQ)]] = True
+    def _make_tables(self, scn: ScenarioArrays) -> _Tables:
+        if not isinstance(scn, ScenarioArrays):
+            raise TypeError(f"scn must be a ScenarioArrays, got {type(scn).__name__}")
+        if scn.conn_src.dim() == 1:
+            scn = add_rows(scn)
+        B = scn.conn_src.shape[0]
+        NC, NH, CPH = self.wl.n_conns, self.NH, self.CPH
+        W, F = self.watch.shape[0], len(self.failures)
+        want = dict(conn_src=(NC,), conn_dst=(NC,), conn_msg=(NC,), conn_start=(NC,),
+                    conn_dep=(NC,), host_conns=(NH, CPH), watch=(W,), f_queue=(F,),
+                    f_start=(F,), f_end=(F,), f_kind=(F,), f_param=(F,))
+        for name, shape in want.items():
+            x = getattr(scn, name)
+            on_dev = x.device.type == self.device.type and self.device.index in (
+                None, x.device.index)  # "cuda" without an index: any card
+            if x.shape != (B, *shape) or x.dtype != I32 or not on_dev:
+                raise ValueError(
+                    f"scn.{name}: this simulator's rows take int32 {(B, *shape)} on "
+                    f"{self.device} (NC={NC}, NH={NH}, CPH={CPH}, W={W}, F={F}), got "
+                    f"{x.dtype} {tuple(x.shape)} on {x.device}; build every row's Simulator at "
+                    "the same pinned msg_slots, conns_per_host and failure_slots and one "
+                    "watch-list length")
+        # one host copy per scenario, never per tick: the message sizes and
+        # the failure schedule (the tick's fault masks are made on the host)
+        f = tuple(getattr(scn, k).cpu().numpy() for k in
+                  ("f_queue", "f_start", "f_end", "f_kind", "f_param"))
+        msg_max = int(scn.conn_msg.max()) if NC else 0
+        if msg_max > self.MSG:
+            raise ValueError(f"scn: a row's message of {msg_max} packets exceeds this "
+                             f"simulator's bitmap width MSG={self.MSG} (pin msg_slots)")
+        for b in range(B):
+            FailureSchedule(*(a[b] for a in f)).validate(self.NQ)
+        clamp = lambda x: x.clamp(0, max(NC - 1, 0)).long()
+        return _Tables(
+            rows=B, src=scn.conn_src.contiguous(), dst=scn.conn_dst.contiguous(),
+            msg=scn.conn_msg, start=scn.conn_start, no_dep=scn.conn_dep < 0,
+            dep=clamp(scn.conn_dep), hc=scn.host_conns,
+            hc_safe=clamp(scn.host_conns.reshape(B, NH * CPH)), hc_valid=scn.host_conns >= 0,
+            watch=scn.watch.long(), f=f, has_gray=_has_gray(f),
+        )
+
+    def _fault_masks(self, now: int, tab: _Tables):
+        """Per-queue fault masks of the windows active at ``now``: (down,
+        degraded, gray drop parameter or None, adaptive-routing penalty),
+        ``(NQ,)`` for a shared scenario and ``(B, NQ)`` for rows of their
+        own.  Computed on the host from the schedule and uploaded only when
+        the active set changes."""
+        queue, start, end, kind, param = tab.f
+        act = (now >= start) & (now < end)
+        key = act.tobytes()
+        if key != tab.fault_key:
+            NQ = self.NQ
+            q2, k2, p2, a2 = (np.atleast_2d(x) for x in (queue, kind, param, act))
+            row = np.broadcast_to(np.arange(q2.shape[0])[:, None], q2.shape)
+            ok = a2 & (q2 >= 0) & (q2 < NQ)
+
+            def mask(code):
+                m = np.zeros((q2.shape[0], NQ), bool)
+                sel = ok & (k2 == code)
+                m[row[sel], q2[sel]] = True
                 return m
 
             down, degraded = mask(K_DOWN), mask(K_DEGRADED)
-            gray = np.zeros(NQ, np.int32)
-            g = act & (f.kind == K_GRAY) & (f.queue >= 0) & (f.queue < NQ)
-            np.maximum.at(gray, f.queue[g], f.param[g])
-            t = lambda a: torch.as_tensor(a, device=self.device)
-            self._faults = (
+            gray = np.zeros((q2.shape[0], NQ), np.int32)
+            g = ok & (k2 == K_GRAY)
+            np.maximum.at(gray, (row[g], q2[g]), p2[g])
+            shape = (tab.rows, NQ) if tab.rows else (NQ,)
+            t = lambda a: torch.as_tensor(a.reshape(shape), device=self.device)
+            tab.faults = (
                 t(down) if down.any() else None,
                 t(~degraded) if degraded.any() else None,
-                t(gray) if self._has_gray else None,
+                t(gray) if tab.has_gray else None,
                 t(down.astype(np.int32) * (4 * self.cfg.queue_capacity)),
             )
-            self._fault_key = key
-        return self._faults
+            tab.fault_key = key
+        return tab.faults
 
     def _rows(self, B: int) -> _Rows:
         rows = self._row_consts.get(B)
@@ -788,16 +941,19 @@ class Simulator:
             rows = self._row_consts[B] = _Rows.make(B, self.NH, sizes, self.device)
         return rows
 
-    def tick_draws(self, base_key: torch.Tensor, t0: int, n: int) -> TickDraws:
+    def tick_draws(self, base_key: torch.Tensor, t0: int, n: int,
+                   scn: ScenarioArrays | None = None) -> TickDraws:
         """The random inputs of ticks ``[t0, t0 + n)``, drawn in one pass.
 
         ``base_key (2,)`` gives one run's draws (leading axis T).  ``base_key
         (B, 2)`` gives B rows', row ``b`` bit for bit what key ``b`` alone
         draws (every draw is elementwise over the key axes), laid out so that
         a tick's slice is a view with the row axis first: ``(T, B, ...)``,
-        and ``lb_ack`` ``(T, R, B, ...)`` so that a round is ``(B, ...)``."""
+        and ``lb_ack`` ``(T, R, B, ...)`` so that a round is ``(B, ...)``.
+        The gray-loss draw is made when the scenario (``scn``, the rows'
+        own, as ``step_rows`` will be given it) has a gray-loss window."""
         if base_key.dim() == 1:
-            return self.tick_draws(base_key[None], t0, n)._rows_out()
+            return self.tick_draws(base_key[None], t0, n, scn)._rows_out()
         ticks = torch.arange(t0, t0 + n, dtype=torch.int64, device=self.device)
         keys = rng.fold_in(base_key[None], ticks[:, None])  # (n, B, 2) tick keys
         k_ack = rng.fold_in(rng.fold_in(keys, 4)[:, None], torch.arange(
@@ -805,7 +961,8 @@ class Simulator:
         NC = self.wl.n_conns
         return TickDraws(
             u_red=rng.uniform(rng.fold_in(keys, 1), (self.MAX_ARR,)),
-            u_gray=rng.uniform(rng.fold_in(keys, 3), (self.NQ,)) if self._has_gray else None,
+            u_gray=(rng.uniform(rng.fold_in(keys, 3), (self.NQ,)) if self._tables(scn).has_gray
+                    else None),
             lb=self.lb.draw(rng.fold_in(keys, 2), NC),
             lb_ack=self.lb.draw_ack(k_ack, NC),
             lb_timeout=self.lb.draw_timeout(rng.fold_in(keys, 5), NC),
@@ -823,29 +980,35 @@ class Simulator:
         draws: TickDraws | None = None,
         emit_events: bool = False,
         conn_axis: str | None = None,
+        scn: ScenarioArrays | None = None,
     ) -> tuple[SimState, TickTrace]:
         """One tick of one run: returns the next state and the tick's trace;
         ``state`` is left unchanged.  ``draws`` is this tick's row of
-        ``tick_draws(base_key, ...)`` (drawn here when omitted).  The tick is
-        ``step_rows`` on one row, added and dropped as views."""
+        ``tick_draws(base_key, ...)`` (drawn here when omitted); ``scn`` one
+        scenario at this simulator's shapes (its own by default).  The tick
+        is ``step_rows`` on one row, added and dropped as views."""
         if emit_events:
             raise NotImplementedError("tick events (flight recorder) are not ported yet")
         if conn_axis is not None:
             raise NotImplementedError("the conn-axis mesh is not ported yet")
         now = int(tick)
-        rows = (self.tick_draws(base_key[None], now, 1).row(0) if draws is None
+        rows = (self.tick_draws(base_key[None], now, 1, scn).row(0) if draws is None
                 else draws._rows_in())
-        new_state, trace = self.step_rows(add_rows(state), now, rows)
+        new_state, trace = self.step_rows(add_rows(state), now, rows, scn)
         return drop_rows(new_state), drop_rows(trace)
 
     def step_rows(
-        self, state: SimState, tick: int, draws: TickDraws
-    ) -> tuple[SimState, TickTrace]:
-        """One tick of B runs of this scenario at once: ``state`` has a
-        leading row axis B on every leaf (its load balancer's included),
-        ``draws`` is one tick of ``tick_draws`` with B base keys.  Every
-        kernel is one launch whatever B is; ``now`` and the failure masks are
-        shared.  Returns the next rows' state and their trace ``(B, ...)``."""
+        self, state: SimState, tick: int, draws: TickDraws,
+        scn: ScenarioArrays | None = None, trace: bool = True,
+    ) -> tuple[SimState, TickTrace | None]:
+        """One tick of B runs at once: ``state`` has a leading row axis B on
+        every leaf (its load balancer's included), ``draws`` is one tick of
+        ``tick_draws`` with B base keys.  ``scn`` None: every row runs this
+        simulator's scenario; else a ``ScenarioArrays`` with a leading row
+        axis B, one scenario per row (``stack_scenarios``).  Every kernel is
+        one launch whatever B is; ``now`` is shared.  Returns the next rows'
+        state and their trace ``(B, ...)`` (None when ``trace`` is False).
+        ``state`` is left unchanged."""
         now = int(tick)
         cfg, topo = self.cfg, self.topo
         NP, NQ, NH, NC = self.NP, self.NQ, self.NH, self.wl.n_conns
@@ -853,6 +1016,11 @@ class Simulator:
         st = state
         B = st.q_len.shape[0]
         R = self._rows(B)
+        T = self._tables(scn)
+        if T.rows and T.rows != B:
+            raise ValueError(f"scn has {T.rows} rows, the state {B}")
+        if T.has_gray and draws.u_gray is None:
+            raise ValueError("the scenario has gray-loss windows: draw with tick_draws(..., scn)")
 
         pkt = st.pkt.clone()  # every scatter below writes this copy in place
         c_rtx = st.c_rtx.clone()
@@ -950,7 +1118,7 @@ class Simulator:
         pkt[:, PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
 
         # =============== 3. service / dequeue ===========================
-        failed_q, not_degraded, gray_p, q_penalty = self._fault_masks(now)
+        failed_q, not_degraded, gray_p, q_penalty = self._fault_masks(now, T)
         serve = st.q_len > 0
         if not_degraded is not None and now % 2 == 1:
             serve = serve & not_degraded  # degraded links serve on even ticks
@@ -984,7 +1152,7 @@ class Simulator:
         self._bm_or(c_rcv, dconn, dseq, is_final, R)
         delivered_d = newly.sum(dim=-1, dtype=I32)
         deliver_ackable = is_final & ~d_orph & ~was_done
-        msg_of = _get(self.conn_msg, dconn, BIG)
+        msg_of = _get(T.msg, dconn, BIG, R.of(dconn) if T.rows else None)
         # <= 1 delivery per conn per tick: the post-update counters are the
         # pre-update gathers plus this queue's own contribution
         del_of = _get(st.c_delivered, dconn, 0, R.of(dconn)) + newly.to(I32)
@@ -1026,7 +1194,7 @@ class Simulator:
         # switches see locally failed ports (q_penalty); hashing LBs ignore
         # q_len, which is read after service and before this tick's enqueue
         target = topo.route(
-            a_idx, NP, A[PHOP], A[PCURQ], A[PCONN], A[PEV], self.conn_src, self.conn_dst,
+            a_idx, NP, A[PHOP], A[PCURQ], A[PCONN], A[PEV], T.src, T.dst,
             q_len, q_penalty, adaptive=self.lb.switch_adaptive,
         )
         u_red = draws.u_red
@@ -1056,15 +1224,17 @@ class Simulator:
         R.pkt_set(pkt, a_idx, A)
 
         # =============== 5. injection ===================================
-        started = (now >= self.conn_start) & (self._no_dep | c_done[:, self._dep_safe])
-        has_work = (c_rtx_count > 0) | (st.c_next_new < self.conn_msg)
+        dep_done = torch.gather(c_done, 1, T.dep) if T.rows else c_done[:, T.dep]
+        started = (now >= T.start) & (T.no_dep | dep_done)
+        has_work = (c_rtx_count > 0) | (st.c_next_new < T.msg)
         can = (
             started
             & ~c_done
             & has_work
             & (c_inflight < torch.floor(c_cwnd).to(I32))
         )
-        elig = can[:, self._hc_safe] & self._hc_valid  # (B, NH, CPH)
+        elig = (torch.gather(can, 1, T.hc_safe).view(B, NH, self.CPH) if T.rows
+                else can[:, T.hc_safe]) & T.hc_valid  # (B, NH, CPH)
         ordr = (self._cph - st.h_rr[:, :, None]) % self.CPH
         score = torch.where(elig, ordr, BIG)
         pick_local = torch.argmin(score, dim=-1).to(I32)
@@ -1079,7 +1249,9 @@ class Simulator:
         fl_head = (st.fl_head + n_alloc) % NP
         fl_count = st.fl_count - n_alloc
 
-        pick_conn = torch.where(sendh, self.host_conns[R.col(pick_local), pick_local], NC)
+        hc_of = (T.hc[R.of(pick_local), R.col(pick_local), pick_local] if T.rows
+                 else T.hc[R.col(pick_local), pick_local])
+        pick_conn = torch.where(sendh, hc_of, NC)
         h_rr = torch.where(sendh, (pick_local + 1) % self.CPH, st.h_rr)
         # seq selection: retransmissions first (first set bit of the row)
         pick_cc = pick_conn.clamp(0, NC - 1)
@@ -1087,7 +1259,7 @@ class Simulator:
         use_rtx = c_rtx_count[hrow, pick_cc] > 0
         rtx_seq = torch.argmax(c_rtx[hrow, pick_cc].to(torch.uint8), dim=-1).to(I32)
         seq = torch.where(use_rtx, rtx_seq, st.c_next_new[hrow, pick_cc])
-        c_rtx[hrow, torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = False
+        c_rtx[hrow, torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = self._false
         # each host picks <= 1 conn and a conn lives on one host, so
         # per-conn injection counts are 0/1
         isum = kernel_ops.seg_sum(pick_conn, (sendh, sendh & use_rtx), NC + 1)
@@ -1152,31 +1324,78 @@ class Simulator:
             c_alpha=c_alpha, h_rr=h_rr, lb_state=lb_state, fl=fl, fl_head=fl_head,
             fl_count=fl_count, s_stats=s_stats, as_idx=st.as_idx, as_count=st.as_count,
         )
-        trace = TickTrace(
+        if not trace:
+            return new_state, None
+        watched = functools.partial(_watched, T)
+        return new_state, TickTrace(
             max_qlen=q_len.amax(dim=-1),
             sum_qlen=q_len.sum(dim=-1, dtype=I32),
             drops=s_stats[:, ST_DROPS_CONG] + s_stats[:, ST_DROPS_FAIL],
             timeouts=s_stats[:, ST_TIMEOUTS],
             delivered=s_stats[:, ST_DELIVERED],
             injected=s_stats[:, ST_INJECTED],
-            watch_qlen=q_len[:, self.watch],
-            watch_served=serve[:, self.watch].to(I32),
+            watch_qlen=watched(q_len),
+            watch_served=watched(serve).to(I32),
         )
-        return new_state, trace
 
     # ------------------------------------------------------------------
-    def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor):
-        """Run ticks ``0 ... n_ticks - 1`` of B runs of this scenario in
-        lock-step: ``states`` and the returned state have a leading row axis
-        B, ``base_keys`` is ``(B, 2)``; returns ``(states, trace)`` with the
-        ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.  The random draws
-        are made ``DRAW_CHUNK`` ticks at a time, for every row at once."""
+    def probe(self, prev: SimState, new: SimState, tick: int,
+              scn: ScenarioArrays | None = None) -> Probe:
+        """The tick's ``Probe`` of B rows, from their state before (``prev``)
+        and after (``new``) it, as the reference's ``probe`` of each row;
+        ``scn`` as ``step_rows`` was given it.  Deltas telescope: summing
+        ``stats_delta`` over ticks gives the final ``s_stats``."""
+        now = int(tick)
+        T = self._tables(scn)
+        watched = functools.partial(_watched, T)
+        done_now = new.c_done > prev.c_done  # c_done only turns on: new & ~prev
+        served = new.q_served - prev.q_served
+        return Probe(
+            now=now,
+            q_len=new.q_len,
+            served=served,
+            watch_qlen=watched(new.q_len),
+            watch_served=watched(served),
+            stats_delta=new.s_stats - prev.s_stats,
+            done_now=done_now,
+            fct=torch.where(done_now, now - T.start, self._zero),
+        )
+
+    def step_probe_rows(self, states: SimState, tick: int, draws: TickDraws,
+                        scn: ScenarioArrays | None = None) -> tuple[SimState, Probe]:
+        """``step_rows`` that returns the tick's ``Probe`` instead of its
+        trace (what ``FleetRunner.run_summary`` steps); ``states`` is left
+        unchanged."""
+        new, _ = self.step_rows(states, tick, draws, scn, trace=False)
+        return new, self.probe(states, new, tick, scn)
+
+    def step_probe(self, state: SimState, tick: int, base_key: torch.Tensor,
+                   scn: ScenarioArrays | None = None,
+                   draws: TickDraws | None = None) -> tuple[SimState, Probe]:
+        """One tick of one run that emits a ``Probe`` instead of a trace:
+        ``step_probe_rows`` on one row, as ``step_scenario`` is
+        ``step_rows``'s (the probe's tensors without the row axis)."""
+        now = int(tick)
+        rows = (self.tick_draws(base_key[None], now, 1, scn).row(0) if draws is None
+                else draws._rows_in())
+        new, probe = self.step_probe_rows(add_rows(state), now, rows, scn)
+        return drop_rows(new), Probe(now, *drop_rows(tuple(probe[1:])))
+
+    # ------------------------------------------------------------------
+    def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor,
+                 scn: ScenarioArrays | None = None):
+        """Run ticks ``0 ... n_ticks - 1`` of B runs in lock-step: ``states``
+        and the returned state have a leading row axis B, ``base_keys`` is
+        ``(B, 2)``, ``scn`` as ``step_rows`` takes it; returns ``(states,
+        trace)`` with the ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.
+        The random draws are made ``DRAW_CHUNK`` ticks at a time, for every
+        row at once."""
         traces = []
         for t0 in range(0, n_ticks, DRAW_CHUNK):
             n = min(DRAW_CHUNK, n_ticks - t0)
-            draws = self.tick_draws(base_keys, t0, n)
+            draws = self.tick_draws(base_keys, t0, n, scn)
             for i in range(n):
-                states, tr = self.step_rows(states, t0 + i, draws.row(i))
+                states, tr = self.step_rows(states, t0 + i, draws.row(i), scn)
                 traces.append(tr)
         if not traces:
             raise ValueError("run needs n_ticks >= 1")
@@ -1191,6 +1410,19 @@ class Simulator:
             state = self.init_state()
         states, trace = self.run_rows(n_ticks, add_rows(state), self.base_key[None])
         return drop_rows(states), TickTrace(*(f[:, 0] for f in trace))
+
+
+def _watched(T: _Tables, x: torch.Tensor) -> torch.Tensor:
+    """The watched queues' columns of a ``(B, NQ)`` tensor, each row's own
+    watch list when the rows have their own scenarios."""
+    return x.gather(1, T.watch) if T.rows else x[:, T.watch]
+
+
+def _has_gray(f: tuple) -> bool:
+    """Whether a host failure schedule ``(queue, start, end, kind, param)``
+    has a live gray-loss window in some row."""
+    _, start, end, kind, _ = f
+    return bool(np.any((kind == K_GRAY) & (end > start)))
 
 
 def _conn_rows(x, n: int):

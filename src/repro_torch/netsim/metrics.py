@@ -1,8 +1,8 @@
 """Result summarization (counterpart of ``repro.netsim.metrics``).
 
 ``summarize`` builds a ``RunSummary`` from a run's final ``SimState`` on the
-host, field for field as the reference does.  The sketch path
-(``summarize_sketch``) waits for the telemetry slice.
+host, field for field as the reference does; ``summarize_sketch`` builds one
+from a run's finalized telemetry channels (``repro_torch.netsim.telemetry``).
 """
 from __future__ import annotations
 
@@ -70,4 +70,43 @@ def summarize(sim, state, name: str | None = None, lb_name: str | None = None,
         ecn_marks=int(stats[E.ST_ECN]),
         unprocessed_events=int(stats[E.ST_UNPROC]),
         alloc_fails=int(stats[E.ST_ALLOC_FAIL]),
+    )
+
+
+def summarize_sketch(tel: dict, name: str, lb_name: str, n_conns: int) -> RunSummary:
+    """Build a ``RunSummary`` from finalized telemetry channels
+    (``TelemetryProgram.finalize_row``), as the reference does.  Needs the
+    ``counters``, ``scalars`` and ``fct_hist`` channels (all in
+    ``TelemetrySpec.default()``); every field but ``p99_fct_ticks`` equals
+    ``summarize`` on the run's final state, and p99 is the sketch
+    percentile (bin resolution)."""
+    from repro_torch.netsim.telemetry import SUMMARY_CHANNEL_KEYS, sketch_percentile
+
+    missing = SUMMARY_CHANNEL_KEYS - set(tel)
+    if missing:
+        raise ValueError(
+            f"summarize_sketch needs channels {sorted(missing)}; "
+            "include them in the TelemetrySpec (TelemetrySpec.default() does)"
+        )
+    c, s, h = tel["counters"], tel["scalars"], tel["fct_hist"]
+    completed = s["fct_count"]
+    runtime = s["done_tick_max"]
+    return RunSummary(
+        name=name,
+        lb=lb_name,
+        n_conns=n_conns,
+        completed=completed,
+        runtime_ticks=runtime,
+        runtime_us=runtime * TICK_NS / 1000.0,
+        mean_fct_ticks=s["mean_fct_ticks"],
+        p99_fct_ticks=(sketch_percentile(h["counts"], h["edges"], 99, zeros=h["zeros"])
+                       if completed else float("nan")),
+        drops_cong=c["drops_cong"],
+        drops_fail=c["drops_fail"],
+        timeouts=c["timeouts"],
+        delivered=c["delivered"],
+        injected=c["injected"],
+        ecn_marks=c["ecn_marks"],
+        unprocessed_events=c["unprocessed"],
+        alloc_fails=c["alloc_fails"],
     )

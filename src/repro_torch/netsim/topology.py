@@ -146,8 +146,8 @@ class Topology:
         cur_queue: torch.Tensor,  # queue just dequeued from (-1 at injection)
         conn: torch.Tensor,  # connection (the hash's flow id)
         ev: torch.Tensor,  # entropy value
-        conn_src: torch.Tensor,  # int32 (NC,) connection -> source host, shared by the rows
-        conn_dst: torch.Tensor,  # int32 (NC,) connection -> destination host
+        conn_src: torch.Tensor,  # int32 (NC,) connection -> source host, or (B, NC) per row
+        conn_dst: torch.Tensor,  # int32, like conn_src: connection -> destination host
         q_len: torch.Tensor,  # int32 (B, n_queues) or (n_queues,)
         q_penalty: torch.Tensor | None,  # int32 (n_queues,) or (B, n_queues): added to q_len
         adaptive: bool,

@@ -1,10 +1,11 @@
 """The port on a CUDA device: each hand-written kernel against its plain
-version (``next_queue`` with a fleet's row axis, the flat hash with per-lane
-port counts), and short simulations and fleets on the card (ECMP-hashing,
-REPS, zoo and adaptive load balancers; 2- and 3-tier) against the same ones
-on the CPU — bit for bit.  Marked ``cuda``; without a GPU every test skips with a
-reason.  This file imports no JAX, so it also runs where only the port is
-installed:
+version (``next_queue`` with a fleet's row axis and per-row connection
+tables, the flat hash with per-lane port counts), and short simulations and
+fleets on the card (ECMP-hashing, REPS, zoo and adaptive load balancers; 2-
+and 3-tier; a fleet of rows with their own scenarios through
+``run_summary``) against the same ones on the CPU — bit for bit.  Marked
+``cuda``; without a GPU every test skips with a reason.  This file imports
+no JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -315,6 +316,32 @@ def test_next_queue_kernel_rows_match_plain_version(dev, tiers):
 
 
 @pytest.mark.parametrize("tiers", [2, 3])
+def test_next_queue_kernel_per_row_tables_match_plain_version(dev, tiers):
+    """The engine form with one connection table pair per row ``(B, NC)``,
+    adaptive on and off, penalty shared and per row: kernel == plain version
+    == B one-row kernel calls, each with its row's tables."""
+    name, kw = ROUTE_FABRICS[tiers][0]
+    topo = Topology.build(getattr(presets, name).replace(**kw))
+    g, B = topo.geometry, 4
+    cases = [route_case(topo, 500 + 10 * tiers + b) for b in range(B)]
+    NP = cases[0]["NP"]
+    rows = [c["pkt"][:, c["a_idx"].clip(max=NP - 1)] for c in cases]
+    fields = [_on(dev, np.stack([r[f] for r in rows])) for f in (PHOP, PCURQ, PCONN, PEV)]
+    stack = lambda k: _on(dev, np.stack([c[k] for c in cases]))
+    a_idx, q_len, src, dst = (stack(k) for k in ("a_idx", "q_len", "conn_src", "conn_dst"))
+    for pen in (_on(dev, cases[0]["q_pen"]), stack("q_pen")):
+        for adaptive in (False, True):
+            args = (g, *fields, src, dst, q_len, adaptive, pen, a_idx, NP)
+            got = ops.next_queue(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.next_queue_ref(*args)), (name, adaptive)
+            for b in range(B):
+                one = [x[b].contiguous() if isinstance(x, torch.Tensor) and x.dim() == 2 else x
+                       for x in args]
+                assert torch.equal(got[b], ops.next_queue(*one)), (name, adaptive, b)
+
+
+@pytest.mark.parametrize("tiers", [2, 3])
 def test_next_queue_kernel_matches_plain_version(dev, tiers):
     """Both forms on every routing case, and the engine's shapes, with and
     without adaptive routing and the penalty: kernel == plain version."""
@@ -430,3 +457,45 @@ def test_card_run_equals_cpu_run(dev, lbn):
             assert counts["reps_tick"] == (470 if lbn in ("reps", "mixed") else 0)
     for k in finals[0]:
         assert finals[0][k].tobytes() == finals[1][k].tobytes(), k
+
+
+def test_fleet_run_summary_with_own_scenarios_card_equals_cpu(dev):
+    """Three FATTREE_32_CI rows, each its own workload, failure schedule
+    (down, degraded, gray loss) and watch list, through ``run_summary`` with
+    the default spec and two cohorts: the card's carry and every leaf equal
+    the CPU's; seg_sum launches 4 + 4 times per tick (one per histogram)."""
+    from repro_torch.netsim import (
+        FailureSchedule, FleetRunner, TelemetrySpec, Workload, stack_scenarios,
+    )
+
+    cfg = FATTREE_32_CI.replace(msg_slots=64, conns_per_host=2, failure_slots=4)
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)]
+    rs = np.random.RandomState(1)
+    hosts = np.arange(32, dtype=np.int32)
+    none = np.full(32, -1, np.int32)
+    wls = [Workload(hosts, (hosts + k) % 32, rs.randint(8, 49, 32).astype(np.int32),
+                    rs.randint(0, 40 * k, 32).astype(np.int32), none) for k in (3, 11, 16)]
+    fss = [failures.link_down(ups[:2], 40, failures.FOREVER),
+           FailureSchedule.concat(failures.link_degraded([ups[2]], 10, 300),
+                                  failures.link_down([ups[4]], 80, 200)),
+           failures.gray_loss([ups[1], ups[6]], 5, 350, 0.25)]
+    watch = [ups[:4], ups[4:8], [ups[0], ups[3], 5, 9]]
+    spec = TelemetrySpec.default().with_cohorts({"a": range(0, 32, 3), "b": range(1, 32, 3)})
+    out = []
+    for d in (dev, "cpu"):
+        sims = [Simulator(cfg, w, make_lb("reps", evs_size=cfg.evs_size), failures=f,
+                          watch_queues=q, device=d) for w, f, q in zip(wls, fss, watch)]
+        fleet = FleetRunner(cfg, wls[0], sims[0].lb, failures=fss[0], watch_queues=watch[0],
+                            seeds=(0, 5, 9), device=d)
+        ops.reset_launch_counts()
+        states, tel = fleet.run_summary(400, spec, scn=stack_scenarios([s.scn for s in sims]))
+        counts = ops.launch_counts()
+        if d == dev:
+            assert counts["seg_sum"] == 8 * 400 and counts["next_queue"] == 400, counts
+        out.append((tel.tel, [sim_state_to_numpy(fleet.state_at(states, i)) for i in range(3)]))
+    (tel_g, rows_g), (tel_c, rows_c) = out
+    assert tel_g.tobytes() == tel_c.tobytes()
+    for a, b in zip(rows_g, rows_c):
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    assert all(r["s_stats"][1] > 0 for r in rows_c)  # every row's failures drop packets

@@ -4,7 +4,8 @@ against the JAX fleet's row on every ``SimState`` leaf and on the
 ``delivered`` / ``watch_qlen`` traces (tolerance 0), on the CPU (every
 kernel site runs its plain version).  Then the port's own: a one-row fleet
 is the ``Simulator``, ``run(n, states)`` numbers its ticks from 0 as the
-reference does, and the telemetry path raises until it is ported."""
+reference does, and the arguments the port refuses raise.  The telemetry
+path is held in tests/test_torch_telemetry.py."""
 import dataclasses
 
 import jax
@@ -24,7 +25,6 @@ from repro_torch.core import make_lb as t_make_lb
 from repro_torch.netsim import FleetRunner as TFleet
 from repro_torch.netsim import Simulator, Topology as TTopology, failures as tfail, interop
 from repro_torch.netsim import workloads as twl
-from repro_torch.netsim.fleet import FleetTelemetry
 from test_torch_netsim import assert_states_equal, jax_state_to_numpy
 
 torch.set_num_threads(1)  # the suite's parallel workers share the host's cores
@@ -134,12 +134,6 @@ def test_one_row_fleet_is_the_simulator():
 
 
 def test_fleet_telemetry_and_backends_raise():
-    fleet = TFleet(T_CFG, twl.permutation(32, 8, seed=0), t_make_lb("ops", evs_size=256),
-                   seeds=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        fleet.run_summary(10)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        FleetTelemetry(fleet, None, None, 10)
     with pytest.raises(ValueError, match="device picks"):
         TFleet(T_CFG, twl.permutation(32, 8, seed=0), t_make_lb("ops", evs_size=256),
                kernels_backend="pallas", device="cpu")

@@ -5,6 +5,7 @@
     python3 tools/tick_ops.py --device cpu                      # the same, on the CPU
     python3 tools/tick_ops.py --root build/parent --root .      # the launches that changed
     python3 tools/tick_ops.py --rows 1 --rows 64                # one run against a 64-row fleet
+    python3 tools/tick_ops.py --rows 1 --rows 64 --summary      # each without and with telemetry
 
 The cell is ``chip_smoke.py``'s fig06 REPS cell (FATTREE_128, 128-connection
 permutation, ToR-0 uplink failures), stepped ``--warm`` ticks, then timed
@@ -22,7 +23,10 @@ over ``--ticks`` more.
 
 With ``--rows B`` the cell is stepped as a fleet of B seeds
 (``FleetRunner``, one tick over a row axis; trees that have it), ticks
-through ``Simulator.step_rows``.  With several ``--root`` trees or
+through ``Simulator.step_rows``.  ``--summary`` adds, after each (tree,
+rows) run, the same run with ``FleetRunner.run_summary``'s tick
+(``step_probe_rows`` and ``TelemetrySpec.default()``'s update; trees that
+have it, and as a fleet of 1 where ``--rows`` is not given).  With several ``--root`` trees or
 ``--rows`` values each (tree, rows) runs in its own process, in the order
 given (a tree may be named twice, e.g. parent, change, change, parent); the
 script prints each run's wall time and total per tick and, name by name,
@@ -44,11 +48,13 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 
 
-def profile_tree(root: Path, device: str, warm: int, ticks: int, rows: int = 0) -> dict:
+def profile_tree(root: Path, device: str, warm: int, ticks: int, rows: int = 0,
+                 summary: bool = False) -> dict:
     """Time, then profile, ``ticks`` ticks each of the fig06 REPS cell of the
-    tree at ``root`` (``rows`` > 0: as a fleet of that many seeds); returns
-    the wall time per tick, ``{name: [calls per tick, device us per
-    tick]}`` and the total."""
+    tree at ``root`` (``rows`` > 0: as a fleet of that many seeds;
+    ``summary``: with the default telemetry folded in); returns the wall
+    time per tick, ``{name: [calls per tick, device us per tick]}`` and the
+    total."""
     sys.path.insert(0, str(REPO))
     import chip_smoke  # the cell; it imports the port only when called
 
@@ -69,7 +75,21 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int, rows: int = 0) 
         raise SystemExit("tick_ops: no CUDA device (pass --device cpu to count on the CPU)")
     dev = torch.device(device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    if rows:
+    if summary:
+        from repro_torch.netsim import TelemetrySpec
+
+        fleet = chip_smoke.fig06_fleet(range(rows or 1), dev)
+        sim, keys = fleet.sim, fleet.base_keys()
+        state, _ = fleet.run(warm)
+        draws = sim.tick_draws(keys, warm, 2 * ticks)
+        prog = fleet.program(TelemetrySpec.default(), warm + 2 * ticks)
+        tel = prog.init_rows(fleet.n_runs)
+
+        def step(st, t, d):
+            new, probe = sim.step_probe_rows(st, t, d)
+            prog.update(tel, probe)
+            return new, None
+    elif rows:
         fleet = chip_smoke.fig06_fleet(range(rows), dev)
         sim, keys = fleet.sim, fleet.base_keys()
         state, _ = fleet.run(warm)
@@ -107,7 +127,9 @@ def profile_tree(root: Path, device: str, warm: int, ticks: int, rows: int = 0) 
         per[e.name][0] += 1
         per[e.name][1] += us
     table = {k: [n / ticks, us / ticks] for k, (n, us) in sorted(per.items())}
-    return dict(root=str(root) + (f" (fleet, B={rows})" if rows else ""), device=device,
+    tag = (f" (fleet, B={rows or 1})" if rows or summary else "") + (" + telemetry" if summary
+                                                                       else "")
+    return dict(root=str(root) + tag, device=device,
                 warm=warm, ticks=ticks, wall_us=wall_us, per_tick=table,
                 total=sum(v[0] for v in table.values()))
 
@@ -122,19 +144,23 @@ def main() -> int:
     ap.add_argument("--rows", action="append", type=int,
                     help="step the cell as a fleet of this many seeds (repeatable; default: "
                          "one run through tick_fn)")
+    ap.add_argument("--summary", action="store_true",
+                    help="after each run, the same run with the default telemetry folded in")
     ap.add_argument("--out", type=Path, help="write every tree's full table here as JSON")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [r.resolve() for r in (args.root or [REPO])]
     if args.one:
         print(json.dumps(profile_tree(roots[0], args.device, args.warm, args.ticks,
-                                      (args.rows or [0])[0])))
+                                      (args.rows or [0])[0], args.summary)))
         return 0
     results = []
-    for root, rows in [(r, b) for r in roots for b in (args.rows or [0])]:
+    modes = (False, True) if args.summary else (False,)
+    for root, rows, summary in [(r, b, m) for r in roots for b in (args.rows or [0])
+                                for m in modes]:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--one", "--root", str(root),
                "--device", args.device, "--warm", str(args.warm), "--ticks", str(args.ticks),
-               "--rows", str(rows)]
+               "--rows", str(rows)] + (["--summary"] if summary else [])
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stdout + out.stderr)
