@@ -77,8 +77,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      three FATTREE_32_CI rows with their own scenarios and cohort channels,
      card == CPU; the telemetry's device launches per tick by name at B = 1
      and 64 (the same; no device-to-host copy or synchronize inside a
-     tick); row-ticks/s of ``run_summary``'s tick against ``run``'s at B = 1
-     and 64 from interleaved rounds on the fleet phase's warmed rows.
+     tick); row-ticks/s of ``FleetRunner.run_summary`` against ``run``'s
+     body (``Simulator.run_rows``) at B = 1 and 64, each resumed at the
+     fleet phase's warmed rows, from interleaved rounds.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's
@@ -260,6 +261,36 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         want = ref.seg_sum_ref(seg, fields, S)
         torch.cuda.synchronize()
         err = max(err, equal_all([got], [want], f"seg_sum fields={kinds} B={B} K={K} S={S}"))
+    # the telemetry's histograms (the default spec's real edges): bin ids of
+    # every (B, K) lane from torch.searchsorted, as Histogram.update makes
+    # them (all in range, no sentinel), one bool field, at the main path's
+    # K = NQ (qlen, 32 bins) and K = NC (FCT, 64 bins) and its B
+    from types import SimpleNamespace
+
+    from repro_torch.netsim.telemetry import Histogram, TelemetrySpec
+
+    like = SimpleNamespace(cfg=SimpleNamespace(queue_capacity=shapes["QCAP"]), NQ=shapes["NQ"],
+                           device=dev, wl=SimpleNamespace(n_conns=NC))
+    hists = {c.source: (c, c.build(like, shapes["TEL_TICKS"]))
+             for c in TelemetrySpec.default().channels if isinstance(c, Histogram)}
+    n_hist = 0
+    for B, source in [(1, "qlen"), (4, "qlen"), (64, "qlen"), (1, "fct"), (4, "fct"),
+                      (64, "fct")]:
+        chan, built = hists[source]
+        K = shapes["NQ"] if source == "qlen" else NC
+        hi = shapes["QCAP"] if source == "qlen" else shapes["TEL_TICKS"]
+        vals = i32(np.minimum(rs.geometric(4 / hi, size=(B, K)) - 1, hi + 1))  # every bin
+        mask = vals > 0 if source == "qlen" else torch.as_tensor(rs.rand(B, K) < 0.3,
+                                                                  device=dev)
+        idx = torch.searchsorted(built["inner"], vals.float(), right=True, out_int32=True)
+        got = ss_mod.seg_sum_cuda(idx, (mask,), chan.n_bins)
+        want = ref.seg_sum_ref(idx, (mask,), chan.n_bins)
+        torch.cuda.synchronize()
+        err = max(err, equal_all([got], [want], f"seg_sum {source} histogram B={B} K={K} "
+                                                f"S={chan.n_bins}"))
+        n_hist += 1
+    log(f"kernel seg_sum: {n_hist} histogram cases (qlen K={shapes['NQ']} S=32, fct K={NC} "
+        f"S=64; B = 1, 4, 64) bit-exact")
     seg, fields = field_case(1, *main_fb)
     S = main_fb[2]
     vals = torch.stack([f.to(torch.int32) for f in fields])  # the library call's input
@@ -615,16 +646,23 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     n_rows_cases = n_table_cases = 0
     for B in (1, 4, 64):
         c = fleet_route(topo, B)
+        # the engine's shared scenario: one row's tables and penalty expanded
+        # to (B, ...) views, row stride 0
+        c["pen_expanded"] = c["pen_rows"][0].expand(B, -1)
         for pen, tables in [(p, "shared") for p in ("pen_shared", "pen_rows", None)] + [
-                (p, "rows") for p in ("pen_shared", "pen_rows")]:
+                (p, "rows") for p in ("pen_shared", "pen_rows")] + [
+                ("pen_expanded", "expanded")]:
             cc = dict(c, q_pen=c[pen] if pen else None)
             if tables == "rows":  # one connection table pair per row
                 cc.update(conn_src=c["src_rows"], conn_dst=c["dst_rows"])
+            if tables == "expanded":
+                cc.update(conn_src=c["src_rows"][0].expand(B, -1),
+                          conn_dst=c["dst_rows"][0].expand(B, -1))
             for adaptive in (False, True):
                 for form, args in zip(("engine", "reference"), route_forms(
                         topo.geometry, cc, adaptive)):
-                    args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
-                                 for a in args)
+                    args = tuple(a.contiguous() if isinstance(a, torch.Tensor) and (
+                        a.dim() < 2 or a.stride(0)) else a for a in args)  # keep stride 0
                     got = nq_mod.next_queue_cuda(*args)
                     want = ref.next_queue_ref(*args)
                     # row by row: (B, ...) inputs sliced, the shared ones as they are
@@ -637,13 +675,14 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
                     err = max(err, equal_all([got], [want], what))
                     err = max(err, equal_all([got], [one], what + " vs one-row launches"))
                     n_rows_cases += tables == "shared"
-                    n_table_cases += tables == "rows"
+                    n_table_cases += tables != "shared"
     log(f"kernel next_queue with rows: {n_rows_cases} cases bit-exact against the plain version "
         f"and against B one-row launches (FATTREE_128, B in (1, 4, 64) x penalty shared / per "
         f"row / none x adaptive x both forms)")
     log(f"kernel next_queue with per-row connection tables: {n_table_cases} cases bit-exact "
         f"against the plain version and against B one-row launches (FATTREE_128, B in (1, 4, 64) "
-        f"x penalty shared / per row x adaptive x both forms)")
+        f"x (penalty shared / per row, or tables and penalty one row expanded, row stride 0) x "
+        f"adaptive x both forms)")
 
     def timed(name, adaptive):  # the engine's call on one fabric: K = MAX_ARR, NP = 32768
         topo = Topology.build(getattr(presets, name))
@@ -833,6 +872,12 @@ def profile_window(dev, warm: int, ticks: int) -> None:
     profile_ticks(f"REPS, ticks {warm}-{warm + ticks}", step, ticks)
 
 
+# (a substring of the device names of each port kernel's launches, the kernel)
+KERNEL_KEYS = (("seg_sum", "seg_sum"), ("seg_rank_", "seg_rank"),
+               ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick"),
+               ("ecmp_hash_kernel", "ecmp_hash"), ("next_queue_kernel", "next_queue"))
+
+
 def profile_ticks(label: str, step, ticks: int) -> None:
     """``step(i)`` for ``i < ticks`` under ``torch.profiler``: wall time per
     tick, the device's busy share, device launches per tick, and the port's
@@ -858,9 +903,7 @@ def profile_ticks(label: str, step, ticks: int) -> None:
     for e in dev_events:
         by_name[e.name].append(e.time_range.elapsed_us())
     ours = {}
-    for key, tag in (("seg_sum", "seg_sum"), ("seg_rank_", "seg_rank"),
-                     ("reps_tick_kernel", "reps_tick"), ("queue_tick_kernel", "queue_tick"),
-                     ("ecmp_hash_kernel", "ecmp_hash"), ("next_queue_kernel", "next_queue")):
+    for key, tag in KERNEL_KEYS:
         durs = [d for n, ds in by_name.items() if key in n for d in ds]
         if durs:
             ours[tag] = (len(durs) / ticks, statistics.median(durs), sum(durs) / ticks)
@@ -1208,6 +1251,37 @@ def row_fleet(rows, seeds, dev):
     return fleet, scn
 
 
+TICK_RANGE = "chip_smoke_tick"  # the profiler range around each tick of a window
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def launches_per_tick(prof) -> list:
+    """The device work each tick of a profiled window launched, by name: the
+    host's launch calls inside each ``TICK_RANGE`` range, named by the
+    device event of the same correlation id (the call's own name where the
+    trace lost it).  Counted per tick, so that events the trace drops in
+    one tick (it drops a few dozen in some windows) change that tick only."""
+    import bisect
+    import collections
+
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the ranges on the host's timeline (the trace repeats each on the device's)
+    ticks = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == TICK_RANGE and e.device_type == cpu)
+    on_device = {e.id: e.name for e in events if e.device_type == cuda and e.name != TICK_RANGE}
+    starts = [lo for lo, _ in ticks]
+    rows = [collections.Counter() for _ in ticks]
+    for e in events:
+        if e.device_type == cpu and e.name.startswith(LAUNCH_CALLS):
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= ticks[i][1]:
+                rows[i][on_device.get(e.id, e.name)] += 1
+    return rows
+
+
 def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds: int,
                     warmed) -> dict:
     """The summary path (``FleetRunner.run_summary``, default telemetry) on
@@ -1218,13 +1292,13 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
     launches per tick by name with the default spec against without it, at
     B = 1 and 64 on fig06/reps (the telemetry's the same at both), and no
     device-to-host copy or synchronize per tick; (d) row-ticks/s of
-    ``run_summary``'s tick against ``run``'s at B = 1 and 64, interleaved
-    rounds from the fleet phase's warmed B = 64 rows.  Returns the launches
-    per kernel."""
+    ``run_summary`` against ``run_rows`` (``run``'s body) at B = 1 and 64,
+    both resumed at the fleet phase's warmed rows, interleaved rounds.
+    Returns the launches per kernel."""
     import collections
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.kernels import ops
     from repro_torch.netsim import FleetRunner, TelemetrySpec, sim_state_to_numpy
@@ -1312,22 +1386,24 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
     draws = {B: sim.tick_draws(keys[:B], warm, bench_ticks) for B in Bs}
     prog = big.program(TelemetrySpec.default(), warm + bench_ticks)
 
-    def bench(B, summary, n=bench_ticks, carry=None):
-        """``n`` ticks from the warmed rows: ``run``'s tick, or with
-        ``summary`` ``run_summary``'s, folded into ``carry`` (made outside
-        the timed and profiled windows: its upload synchronizes)."""
+    def bench(B, summary, n, carry=None):
+        """``n`` ticks from the warmed rows, the profiled window's tick
+        bodies: ``run``'s tick, or with ``summary`` ``run_summary``'s
+        (``step_probe_rows``, then the update folded into ``carry``, made
+        outside the window: its upload synchronizes), without the draws
+        (made beforehand) and the carry's one copy to the host."""
         st, d = starts[B], draws[B]
-        if summary:
-            for i in range(n):
-                st, probe = sim.step_probe_rows(st, warm + i, d.row(i))
-                prog.update(carry, probe)
-        else:
-            for i in range(n):
-                st, _ = sim.step_rows(st, warm + i, d.row(i))
+        for i in range(n):
+            with record_function(TICK_RANGE):
+                if summary:
+                    st, probe = sim.step_probe_rows(st, warm + i, d.row(i))
+                    prog.update(carry, probe)
+                else:
+                    st, _ = sim.step_rows(st, warm + i, d.row(i))
         return st
 
     prof_ticks = 50
-    launches = {}
+    typical = {}  # (B, summary) -> (total, by name) of the typical tick
     for B in Bs:
         for summary in (False, True):
             bench(B, summary, 3, prog.init_rows(B))  # the path's first calls, outside
@@ -1347,50 +1423,75 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
                     top = e.cpu_parent is None and e.name == "cudaDeviceSynchronize"
                     ends += top
                     syncs += not top
-                if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.name != TICK_RANGE:
                     per[e.name] += 1
             if d2h or syncs:
                 raise AssertionError(f"B={B} summary={summary}: {d2h} device-to-host copies and "
                                      f"{syncs} synchronizes inside ops in {prof_ticks} ticks")
-            launches[B, summary] = per  # device launches in the window, by name
+            rows = launches_per_tick(prof)
+            total, held = collections.Counter(r.total() for r in rows).most_common(1)[0]
+            if len(rows) != prof_ticks or not total or 2 * held <= prof_ticks:
+                raise AssertionError(f"B={B} summary={summary}: {len(rows)} tick ranges, the "
+                                     f"most common launch count {total} in {held} of them")
+            names = {k for r in rows for k in r}
+            typical[B, summary] = total, collections.Counter(
+                {k: statistics.median(r[k] for r in rows) for k in names})
+            ours = sum(v for k, v in typical[B, summary][1].items()
+                       for key, _ in KERNEL_KEYS if key in k)
             log(f"launches B={B} {'run_summary' if summary else 'run'}: "
-                f"{sum(per.values()) / prof_ticks:.2f} device launches per tick; in "
-                f"{prof_ticks} ticks {d2h} device-to-host copies, {syncs} synchronizes inside "
+                f"{total} launches in {held} of {prof_ticks} ticks (the device trace holds "
+                f"{sum(per.values()) / prof_ticks:.2f} per tick; the typical tick's port "
+                f"kernels {ours:g}); {d2h} device-to-host copies, {syncs} synchronizes inside "
                 f"ops ({ends} top-level device synchronizes: the window's end, the profiler's)")
     extra = {}
     for B in Bs:
-        off, on = launches[B, False], launches[B, True]
-        extra[B] = on - off  # the telemetry's launches in the window, by name
-        extra[B].subtract(off - on)
-        log(f"telemetry launches per tick at B={B}: {extra[B].total() / prof_ticks:+.2f} "
-            f"({on.total() / prof_ticks:.2f} with TelemetrySpec.default() against "
-            f"{off.total() / prof_ticks:.2f} without)")
-        for k, v in sorted(extra[B].items(), key=lambda kv: -abs(kv[1])):
+        (n_off, off), (n_on, on) = typical[B, False], typical[B, True]
+        extra[B] = n_on - n_off
+        log(f"telemetry launches per tick at B={B}: {extra[B]:+d} ({n_on} with "
+            f"TelemetrySpec.default() against {n_off} without)")
+        diff = on.copy()
+        diff.subtract(off)  # the telemetry's launches in a typical tick, by name
+        for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1])):
             if v:
-                log(f"telemetry launches B={B}: {v / prof_ticks:+.2f} per tick  {k[:100]}")
-    n1, n64 = (extra[B].total() / prof_ticks for B in Bs)
+                log(f"telemetry launches B={B}: {v:+g} per tick  {k[:100]}")
+    n1, n64 = (extra[B] for B in Bs)
     if n1 != n64:
         raise AssertionError(f"telemetry adds {n1} launches per tick at B=1 but {n64} at B=64")
     if n1 > 60:
         raise AssertionError(f"telemetry adds {n1} launches per tick, more than 60")
     step_done("(c) launches")
 
+    # (d) the entry points themselves, draws and the carry's copies included:
+    # FleetRunner.run_summary resumed at the warmed rows, against run's body
+    # (run_rows, which FleetRunner.run calls, numbering its ticks from warm)
+    fleets = {B: big if B == big.n_runs else fig06_fleet(big.seeds[:B], dev) for B in Bs}
+    spec, horizon = TelemetrySpec.default(), warm + bench_ticks
+    for f in fleets.values():
+        f.program(spec, horizon)  # laid out once per fleet, outside the rounds
+
+    def entry(B, summary, carry):
+        f = fleets[B]
+        if summary:
+            return f.run_summary(bench_ticks, spec, states=starts[B], tel=carry, t0=warm,
+                                 horizon=horizon)
+        return f.sim.run_rows(bench_ticks, starts[B], f.base_keys(), t0=warm)
+
     rate = {(B, m): [] for B in Bs for m in (False, True)}
     order = [(B, m) for B in Bs for m in (False, True)]
     for r in range(rounds):
         for B, m in (order if r % 2 == 0 else order[::-1]):
-            carry = prog.init_rows(B)
+            carry = fleets[B].program(spec, horizon).init_rows(B)
             _, secs, _ = counted(f"telemetry bench B={B} summary={m}", bench_ticks,
-                                 lambda: bench(B, m, carry=carry),
+                                 lambda: entry(B, m, carry),
                                  TEL_PER_TICK if m else FLEET_PER_TICK)
             rate[B, m].append(B * bench_ticks / secs)
-            log(f"telemetry bench round {r} B={B} {'run_summary' if m else 'run'}: "
+            log(f"telemetry bench round {r} B={B} {'run_summary' if m else 'run_rows'}: "
                 f"{bench_ticks} ticks (from tick {warm}) in {secs:.3f} s = "
                 f"{B * bench_ticks / secs:.1f} row-ticks/s")
     for B in Bs:
         run, summ = (statistics.median(rate[B, m]) for m in (False, True))
         log(f"telemetry row-ticks/s B={B}: run_summary median {summ:.1f} (min "
-            f"{min(rate[B, True]):.1f}, max {max(rate[B, True]):.1f}) against run median "
+            f"{min(rate[B, True]):.1f}, max {max(rate[B, True]):.1f}) against run_rows median "
             f"{run:.1f} (min {min(rate[B, False]):.1f}, max {max(rate[B, False]):.1f}), "
             f"{rounds} rounds: {summ / run:.3f}x")
     step_done("(d) rounds")
@@ -1510,7 +1611,8 @@ def main() -> int:
     shapes = dict(NC=sim.wl.n_conns, NH=sim.NH, NQ=sim.NQ, R=cfg.feedback_rounds,
                   NHD=sim.NQ - sim.topo.t0_down_base,
                   MAX_EV=sim.MAX_EV, MAX_ARR=sim.MAX_ARR, QCAP=cfg.queue_capacity,
-                  KMIN=cfg.kmin, KMAX=cfg.kmax, PMAX=cfg.pmax, U=cfg.uplinks_per_tor)
+                  KMIN=cfg.kmin, KMAX=cfg.kmax, PMAX=cfg.pmax, U=cfg.uplinks_per_tor,
+                  TEL_TICKS=args.tel_ticks)
     log(f"main-path shapes: {shapes} NP={sim.NP}")
     t_phase = time.perf_counter()
 

@@ -63,13 +63,32 @@ def _fabric(g: RouteGeometry) -> ctypes.Array:
     return (ctypes.c_int * len(g))(*check_geometry(g))
 
 
+def _row_stride(t, name: str, shape: tuple, device) -> int:
+    """The kernel's row stride of a per-row table: 0 for a shared ``(N,)``
+    table or ``(B, N)`` rows expanded from one, ``N`` for contiguous rows.
+    Raises unless ``t`` is int32 on ``device`` of ``(N,)`` or ``shape``."""
+    if isinstance(t, torch.Tensor) and t.dim() == 1:
+        check("next_queue", t, name, torch.int32, shape[-1:], device)
+        return 0
+    if not isinstance(t, torch.Tensor) or t.dtype is not torch.int32 or t.device != device \
+            or t.shape != shape or len(shape) != 2 or t.stride(1) != 1 \
+            or t.stride(0) not in (0, shape[1]):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}, strides {t.stride()}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"next_queue: {name} must be an int32 tensor on {device} of shape "
+                         f"{tuple(shape[-1:])}, or {tuple(shape)} with row stride 0 or "
+                         f"{shape[-1]} and unit column stride; got {got}")
+    return t.stride(0)
+
+
 def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, dst, q_len,
                     adaptive: bool, q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
     """``(K,)`` CUDA tensors -> int32 ``(K,)`` next queues, or with a leading
     row axis ``(B, K)`` -> ``(B, K)`` in the same one launch (``q_len`` then
-    ``(B, NQ)``, ``q_penalty`` ``(NQ,)`` shared or ``(B, NQ)``, the engine
-    form's connection tables ``(NC,)`` shared or ``(B, NC)``); the arguments
-    as ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is given)."""
+    ``(B, NQ)``; ``q_penalty`` and the engine form's connection tables
+    ``(NQ,)`` / ``(NC,)`` shared, or ``(B, ...)`` with row stride NQ / NC,
+    one per row, or 0, one row's expanded); the arguments as
+    ``ref.next_queue_ref`` (the engine's form when ``a_idx`` is given)."""
     global launches
     fabric = _fabric(g)
     if not isinstance(cur_queue, torch.Tensor) or cur_queue.dim() not in (1, 2) \
@@ -85,22 +104,19 @@ def next_queue_cuda(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src,
     n_conns = conn_stride = 0
     if engine:
         check("next_queue", a_idx, "a_idx", i32, shape, dev)
-        per_row = bool(rows) and isinstance(src, torch.Tensor) and src.dim() == 2
         n_conns = src.shape[-1] if isinstance(src, torch.Tensor) and src.dim() >= 1 else 0
         if n_conns < 1:
             raise ValueError("next_queue: the engine form needs (NC,) or (B, NC) connection "
                              "tables, NC >= 1")
-        conn_stride = n_conns if per_row else 0
-    for t, name in ((src, "src"), (dst, "dst")):
-        want = ((*rows, n_conns) if conn_stride else (n_conns,)) if engine else shape
-        check("next_queue", t, name, i32, want, dev)
+        conn_stride = _row_stride(src, "src", (*rows, n_conns), dev)
+        if _row_stride(dst, "dst", (*rows, n_conns), dev) != conn_stride:
+            raise ValueError("next_queue: src and dst must have the same row stride")
+    else:
+        for t, name in ((src, "src"), (dst, "dst")):
+            check("next_queue", t, name, i32, shape, dev)
     nq = g.n_queues
     check("next_queue", q_len, "q_len", i32, (*rows, nq), dev)
-    pen_stride = 0
-    if q_penalty is not None:
-        per_row = bool(rows) and q_penalty.dim() == 2
-        check("next_queue", q_penalty, "q_penalty", i32, (*rows, nq) if per_row else (nq,), dev)
-        pen_stride = nq if per_row else 0
+    pen_stride = 0 if q_penalty is None else _row_stride(q_penalty, "q_penalty", (*rows, nq), dev)
     out = torch.empty(shape, dtype=i32, device=dev)
     rc = build.library().repro_next_queue(
         fabric, at_injection.data_ptr(), cur_queue.data_ptr(), flow_id.data_ptr(),

@@ -112,6 +112,7 @@ N_STATS = 8
 I32 = torch.int32
 F32 = torch.float32
 DRAW_CHUNK = 256  # ticks whose random inputs ``run`` draws in one pass
+SCN_TABLES = 16  # rows' scenarios whose prepared tables a simulator keeps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,14 +542,13 @@ def _compact(mask: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(cs, ranks, out_int32=True)
 
 
-def _get(vec: torch.Tensor, idx: torch.Tensor, fill, rows=None) -> torch.Tensor:
-    """``vec.at[idx].get(mode="fill", fill_value=fill)`` on the last axis:
-    ``vec (N,)`` shared by every row, or ``vec (B, N)`` read in each row of
-    ``idx (B, K)`` (``rows``: the row of each element, ``_Rows.of``)."""
+def _get(vec: torch.Tensor, idx: torch.Tensor, fill, rows: torch.Tensor) -> torch.Tensor:
+    """``vec.at[idx].get(mode="fill", fill_value=fill)`` in each row: ``vec
+    (B, N)`` read at ``idx (B, K)`` (``rows``: the row of each element,
+    ``_Rows.of``)."""
     n = vec.shape[-1]
     ok = (idx >= 0) & (idx < n)
-    safe = idx.clamp(0, n - 1)
-    return torch.where(ok, vec[safe] if rows is None else vec[rows, safe], fill)
+    return torch.where(ok, vec[rows, idx.clamp(0, n - 1)], fill)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -568,16 +568,18 @@ class _Rows:
     device: torch.device
     ranks: dict  # size -> (B, size) int32 1..size, the compaction targets
     inject: tuple  # (FLYING, 0, -1) rows (B, NH) of the injected packets' fixed fields
+    own: "_Tables"  # the simulator's own scenario, every row the same (views)
     _index: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def make(B: int, NH: int, sizes, device) -> "_Rows":
+    def make(B: int, NH: int, sizes, device, own: "_Tables") -> "_Rows":
         full = lambda v: torch.full((B, NH), v, dtype=I32, device=device)
         return _Rows(
             B=B, device=device,
             ranks={n: torch.arange(1, n + 1, dtype=I32, device=device).repeat(B, 1)
                    for n in sizes},
             inject=(full(FLYING), full(0), full(-1)),
+            own=own.expand(B),
         )
 
     def _iota(self, shape: tuple, axis: int) -> torch.Tensor:
@@ -612,30 +614,55 @@ class _Rows:
 
 @dataclasses.dataclass
 class _Tables:
-    """A scenario's arrays as the tick reads them, made once per scenario on
-    the simulator's device: the simulator's own, shared by every row
-    (``rows`` 0), or a ``ScenarioArrays`` of ``rows`` rows, each row's own.
-    Shared indices are int32 ``(NC,)`` / ``(NH, CPH)`` beside the row axis;
-    per-row ones int64 ``(B, ...)`` for ``torch.gather``, made once here so
-    that no tick converts or copies them.  The failure schedule stays on
-    the host (``f``, numpy ``(F,)`` or ``(B, F)``): the tick's fault masks
-    are recomputed there and uploaded only when the active set changes."""
+    """A scenario's arrays as the tick reads them, every leaf with a leading
+    row axis B: a ``ScenarioArrays`` of B rows, each row's own, or the
+    simulator's own scenario as ``(B, ...)`` views of its one row (stride 0
+    on the row axis, nothing copied).  Made once per scenario on the
+    simulator's device, with the clamped indices int64 for ``torch.gather``
+    so that no tick converts or copies them.  The failure schedule stays on
+    the host (``f``, numpy ``(n, F)``, n = 1 for the shared scenario, else
+    B): the tick's fault masks are recomputed there and uploaded only when
+    the active set changes."""
 
-    rows: int
-    src: torch.Tensor  # (NC,) or (B, NC) int32
+    B: int
+    src: torch.Tensor  # (B, NC) int32
     dst: torch.Tensor
     msg: torch.Tensor
     start: torch.Tensor
-    no_dep: torch.Tensor  # bool
-    dep: torch.Tensor  # the prerequisite, clamped: int32 (NC,) or int64 (B, NC)
-    hc: torch.Tensor  # (NH, CPH) or (B, NH, CPH) int32, -1 padded
-    hc_safe: torch.Tensor  # clamped: int32 (NH, CPH) or int64 (B, NH * CPH)
-    hc_valid: torch.Tensor  # bool, like hc
-    watch: torch.Tensor  # int32 (W,) or int64 (B, W)
-    f: tuple  # (queue, start, end, kind, param) numpy int32 (F,) or (B, F)
+    no_dep: torch.Tensor  # (B, NC) bool
+    dep: torch.Tensor  # (B, NC) int64: the prerequisite, clamped
+    hc: torch.Tensor  # (B, NH, CPH) int32, -1 padded
+    hc_safe: torch.Tensor  # (B, NH * CPH) int64, clamped
+    hc_valid: torch.Tensor  # (B, NH, CPH) bool
+    watch: torch.Tensor  # (B, W) int64
+    f: tuple  # (queue, start, end, kind, param) numpy int32 (n, F)
     has_gray: bool  # some row has a gray-loss window
     fault_key: bytes | None = None
     faults: tuple | None = None
+
+    @staticmethod
+    def make(scn: "ScenarioArrays", f: tuple) -> "_Tables":
+        """``scn``'s leaves with a leading row axis, ``f`` its host schedule."""
+        B, NC = scn.conn_src.shape
+        NH, CPH = scn.host_conns.shape[1:]
+        clamp = lambda x: x.clamp(0, max(NC - 1, 0)).long()
+        return _Tables(
+            B=B, src=scn.conn_src, dst=scn.conn_dst, msg=scn.conn_msg,
+            start=scn.conn_start, no_dep=scn.conn_dep < 0, dep=clamp(scn.conn_dep),
+            hc=scn.host_conns, hc_safe=clamp(scn.host_conns.reshape(B, NH * CPH)),
+            hc_valid=scn.host_conns >= 0, watch=scn.watch.long(), f=f,
+            has_gray=_has_gray(f),
+        )
+
+    def expand(self, B: int) -> "_Tables":
+        """A one-row table's leaves as ``(B, ...)`` views, with a fault-mask
+        cache of its own."""
+        ex = lambda t: t.expand(B, *t.shape[1:])
+        return dataclasses.replace(
+            self, B=B, fault_key=None, faults=None,
+            **{k: ex(getattr(self, k)) for k in (
+                "src", "dst", "msg", "start", "no_dep", "dep", "hc", "hc_safe",
+                "hc_valid", "watch")})
 
 
 class Simulator:
@@ -731,16 +758,13 @@ class Simulator:
             watch=self.watch, f_queue=t(fs.queue), f_start=t(fs.start), f_end=t(fs.end),
             f_kind=t(fs.kind), f_param=t(fs.param),
         )
-        f_host = tuple(np.asarray(getattr(fs, k), np.int32)
+        f_host = tuple(np.asarray(getattr(fs, k), np.int32)[None]
                        for k in ("queue", "start", "end", "kind", "param"))
-        self._own = _Tables(
-            rows=0, src=self.conn_src, dst=self.conn_dst, msg=self.conn_msg,
-            start=self.conn_start, no_dep=self.conn_dep < 0,
-            dep=self.conn_dep.clamp(0, max(NC - 1, 0)), hc=self.host_conns,
-            hc_safe=self.host_conns.clamp(0, max(NC - 1, 0)), hc_valid=self.host_conns >= 0,
-            watch=self.watch, f=f_host, has_gray=_has_gray(f_host),
-        )
-        self._scn_cache: tuple | None = None  # (the ScenarioArrays last given, its _Tables)
+        self._own = _Tables.make(add_rows(self.scn), f_host)  # one row; _Rows expands it
+        # id(scn) -> (scn, its _Tables): rows' scenarios given to the tick,
+        # the newest SCN_TABLES of them, so that a caller alternating a few
+        # prepares each once
+        self._scn_tables: dict[int, tuple] = {}
 
         # constants reused every tick
         self._qid = torch.arange(self.NQ, dtype=I32, device=dev)
@@ -842,20 +866,23 @@ class Simulator:
         bmap[R.of(conns), torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = self._true
 
     # ------------------------------------------------------------------
-    def _tables(self, scn: ScenarioArrays | None) -> _Tables:
-        """The tick's view of ``scn``: the simulator's own scenario for
-        ``None`` (or ``self.scn``), else ``scn``'s rows (a ``ScenarioArrays``
-        with a leading row axis, or one scenario, taken as one row), checked
-        against this simulator's shapes and prepared once per ``scn``
-        object."""
+    def _tables(self, scn: ScenarioArrays | None, B: int) -> _Tables:
+        """The tick's view of ``scn`` for ``B`` rows: the simulator's own
+        scenario for ``None`` (or ``self.scn``), else ``scn``'s rows (a
+        ``ScenarioArrays`` with a leading row axis, or one scenario, taken as
+        one row), checked against this simulator's shapes and prepared once
+        per ``scn`` object while it is among the newest ``SCN_TABLES``."""
         if scn is None or scn is self.scn:
-            return self._own
-        cached = self._scn_cache
-        if cached is not None and cached[0] is scn:
-            return cached[1]
-        tables = self._make_tables(scn)
-        self._scn_cache = (scn, tables)
-        return tables
+            return self._rows(B).own
+        hit = self._scn_tables.pop(id(scn), None)
+        if hit is None or hit[0] is not scn:
+            hit = (scn, self._make_tables(scn))
+            if len(self._scn_tables) >= SCN_TABLES:
+                del self._scn_tables[next(iter(self._scn_tables))]  # the least recent
+        self._scn_tables[id(scn)] = hit  # the most recent last
+        if hit[1].B != B:
+            raise ValueError(f"scn has {hit[1].B} rows, the state {B}")
+        return hit[1]
 
     def _make_tables(self, scn: ScenarioArrays) -> _Tables:
         if not isinstance(scn, ScenarioArrays):
@@ -889,42 +916,33 @@ class Simulator:
                              f"simulator's bitmap width MSG={self.MSG} (pin msg_slots)")
         for b in range(B):
             FailureSchedule(*(a[b] for a in f)).validate(self.NQ)
-        clamp = lambda x: x.clamp(0, max(NC - 1, 0)).long()
-        return _Tables(
-            rows=B, src=scn.conn_src.contiguous(), dst=scn.conn_dst.contiguous(),
-            msg=scn.conn_msg, start=scn.conn_start, no_dep=scn.conn_dep < 0,
-            dep=clamp(scn.conn_dep), hc=scn.host_conns,
-            hc_safe=clamp(scn.host_conns.reshape(B, NH * CPH)), hc_valid=scn.host_conns >= 0,
-            watch=scn.watch.long(), f=f, has_gray=_has_gray(f),
-        )
+        return _Tables.make(tree_map(torch.Tensor.contiguous, scn), f)
 
     def _fault_masks(self, now: int, tab: _Tables):
         """Per-queue fault masks of the windows active at ``now``: (down,
         degraded, gray drop parameter or None, adaptive-routing penalty),
-        ``(NQ,)`` for a shared scenario and ``(B, NQ)`` for rows of their
-        own.  Computed on the host from the schedule and uploaded only when
-        the active set changes."""
+        each ``(B, NQ)`` (views of one row for a shared scenario).  Computed
+        on the host from the schedule and uploaded only when the active set
+        changes."""
         queue, start, end, kind, param = tab.f
         act = (now >= start) & (now < end)
         key = act.tobytes()
         if key != tab.fault_key:
             NQ = self.NQ
-            q2, k2, p2, a2 = (np.atleast_2d(x) for x in (queue, kind, param, act))
-            row = np.broadcast_to(np.arange(q2.shape[0])[:, None], q2.shape)
-            ok = a2 & (q2 >= 0) & (q2 < NQ)
+            row = np.broadcast_to(np.arange(queue.shape[0])[:, None], queue.shape)
+            ok = act & (queue >= 0) & (queue < NQ)
 
             def mask(code):
-                m = np.zeros((q2.shape[0], NQ), bool)
-                sel = ok & (k2 == code)
-                m[row[sel], q2[sel]] = True
+                m = np.zeros((queue.shape[0], NQ), bool)
+                sel = ok & (kind == code)
+                m[row[sel], queue[sel]] = True
                 return m
 
             down, degraded = mask(K_DOWN), mask(K_DEGRADED)
-            gray = np.zeros((q2.shape[0], NQ), np.int32)
-            g = ok & (k2 == K_GRAY)
-            np.maximum.at(gray, (row[g], q2[g]), p2[g])
-            shape = (tab.rows, NQ) if tab.rows else (NQ,)
-            t = lambda a: torch.as_tensor(a.reshape(shape), device=self.device)
+            gray = np.zeros((queue.shape[0], NQ), np.int32)
+            g = ok & (kind == K_GRAY)
+            np.maximum.at(gray, (row[g], queue[g]), param[g])
+            t = lambda a: torch.as_tensor(a, device=self.device).expand(tab.B, NQ)
             tab.faults = (
                 t(down) if down.any() else None,
                 t(~degraded) if degraded.any() else None,
@@ -938,7 +956,7 @@ class Simulator:
         rows = self._row_consts.get(B)
         if rows is None:
             sizes = {self.MAX_EV, self.NH, self.MAX_ARR, self.MAX_FREE}
-            rows = self._row_consts[B] = _Rows.make(B, self.NH, sizes, self.device)
+            rows = self._row_consts[B] = _Rows.make(B, self.NH, sizes, self.device, self._own)
         return rows
 
     def tick_draws(self, base_key: torch.Tensor, t0: int, n: int,
@@ -961,7 +979,8 @@ class Simulator:
         NC = self.wl.n_conns
         return TickDraws(
             u_red=rng.uniform(rng.fold_in(keys, 1), (self.MAX_ARR,)),
-            u_gray=(rng.uniform(rng.fold_in(keys, 3), (self.NQ,)) if self._tables(scn).has_gray
+            u_gray=(rng.uniform(rng.fold_in(keys, 3), (self.NQ,))
+                    if self._tables(scn, base_key.shape[0]).has_gray
                     else None),
             lb=self.lb.draw(rng.fold_in(keys, 2), NC),
             lb_ack=self.lb.draw_ack(k_ack, NC),
@@ -1016,9 +1035,7 @@ class Simulator:
         st = state
         B = st.q_len.shape[0]
         R = self._rows(B)
-        T = self._tables(scn)
-        if T.rows and T.rows != B:
-            raise ValueError(f"scn has {T.rows} rows, the state {B}")
+        T = self._tables(scn, B)
         if T.has_gray and draws.u_gray is None:
             raise ValueError("the scenario has gray-loss windows: draw with tick_draws(..., scn)")
 
@@ -1152,7 +1169,7 @@ class Simulator:
         self._bm_or(c_rcv, dconn, dseq, is_final, R)
         delivered_d = newly.sum(dim=-1, dtype=I32)
         deliver_ackable = is_final & ~d_orph & ~was_done
-        msg_of = _get(T.msg, dconn, BIG, R.of(dconn) if T.rows else None)
+        msg_of = _get(T.msg, dconn, BIG, R.of(dconn))
         # <= 1 delivery per conn per tick: the post-update counters are the
         # pre-update gathers plus this queue's own contribution
         del_of = _get(st.c_delivered, dconn, 0, R.of(dconn)) + newly.to(I32)
@@ -1224,7 +1241,7 @@ class Simulator:
         R.pkt_set(pkt, a_idx, A)
 
         # =============== 5. injection ===================================
-        dep_done = torch.gather(c_done, 1, T.dep) if T.rows else c_done[:, T.dep]
+        dep_done = torch.gather(c_done, 1, T.dep)
         started = (now >= T.start) & (T.no_dep | dep_done)
         has_work = (c_rtx_count > 0) | (st.c_next_new < T.msg)
         can = (
@@ -1233,8 +1250,7 @@ class Simulator:
             & has_work
             & (c_inflight < torch.floor(c_cwnd).to(I32))
         )
-        elig = (torch.gather(can, 1, T.hc_safe).view(B, NH, self.CPH) if T.rows
-                else can[:, T.hc_safe]) & T.hc_valid  # (B, NH, CPH)
+        elig = torch.gather(can, 1, T.hc_safe).view(B, NH, self.CPH) & T.hc_valid
         ordr = (self._cph - st.h_rr[:, :, None]) % self.CPH
         score = torch.where(elig, ordr, BIG)
         pick_local = torch.argmin(score, dim=-1).to(I32)
@@ -1249,8 +1265,7 @@ class Simulator:
         fl_head = (st.fl_head + n_alloc) % NP
         fl_count = st.fl_count - n_alloc
 
-        hc_of = (T.hc[R.of(pick_local), R.col(pick_local), pick_local] if T.rows
-                 else T.hc[R.col(pick_local), pick_local])
+        hc_of = T.hc[R.of(pick_local), R.col(pick_local), pick_local]
         pick_conn = torch.where(sendh, hc_of, NC)
         h_rr = torch.where(sendh, (pick_local + 1) % self.CPH, st.h_rr)
         # seq selection: retransmissions first (first set bit of the row)
@@ -1326,7 +1341,7 @@ class Simulator:
         )
         if not trace:
             return new_state, None
-        watched = functools.partial(_watched, T)
+        watched = lambda x: x.gather(1, T.watch)  # each row's watched queues
         return new_state, TickTrace(
             max_qlen=q_len.amax(dim=-1),
             sum_qlen=q_len.sum(dim=-1, dtype=I32),
@@ -1346,8 +1361,8 @@ class Simulator:
         ``scn`` as ``step_rows`` was given it.  Deltas telescope: summing
         ``stats_delta`` over ticks gives the final ``s_stats``."""
         now = int(tick)
-        T = self._tables(scn)
-        watched = functools.partial(_watched, T)
+        T = self._tables(scn, new.q_len.shape[0])
+        watched = lambda x: x.gather(1, T.watch)  # each row's watched queues
         done_now = new.c_done > prev.c_done  # c_done only turns on: new & ~prev
         served = new.q_served - prev.q_served
         return Probe(
@@ -1383,19 +1398,20 @@ class Simulator:
 
     # ------------------------------------------------------------------
     def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor,
-                 scn: ScenarioArrays | None = None):
-        """Run ticks ``0 ... n_ticks - 1`` of B runs in lock-step: ``states``
-        and the returned state have a leading row axis B, ``base_keys`` is
-        ``(B, 2)``, ``scn`` as ``step_rows`` takes it; returns ``(states,
-        trace)`` with the ``TickTrace`` fields stacked ``(n_ticks, B, ...)``.
-        The random draws are made ``DRAW_CHUNK`` ticks at a time, for every
-        row at once."""
+                 scn: ScenarioArrays | None = None, t0: int = 0):
+        """Run ticks ``t0 ... t0 + n_ticks - 1`` of B runs in lock-step:
+        ``states`` and the returned state have a leading row axis B,
+        ``base_keys`` is ``(B, 2)``, ``scn`` as ``step_rows`` takes it;
+        returns ``(states, trace)`` with the ``TickTrace`` fields stacked
+        ``(n_ticks, B, ...)``.  The random draws are made ``DRAW_CHUNK`` ticks
+        at a time, for every row at once."""
         traces = []
-        for t0 in range(0, n_ticks, DRAW_CHUNK):
-            n = min(DRAW_CHUNK, n_ticks - t0)
-            draws = self.tick_draws(base_keys, t0, n, scn)
+        end = int(t0) + n_ticks
+        for c0 in range(int(t0), end, DRAW_CHUNK):
+            n = min(DRAW_CHUNK, end - c0)
+            draws = self.tick_draws(base_keys, c0, n, scn)
             for i in range(n):
-                states, tr = self.step_rows(states, t0 + i, draws.row(i), scn)
+                states, tr = self.step_rows(states, c0 + i, draws.row(i), scn)
                 traces.append(tr)
         if not traces:
             raise ValueError("run needs n_ticks >= 1")
@@ -1410,12 +1426,6 @@ class Simulator:
             state = self.init_state()
         states, trace = self.run_rows(n_ticks, add_rows(state), self.base_key[None])
         return drop_rows(states), TickTrace(*(f[:, 0] for f in trace))
-
-
-def _watched(T: _Tables, x: torch.Tensor) -> torch.Tensor:
-    """The watched queues' columns of a ``(B, NQ)`` tensor, each row's own
-    watch list when the rows have their own scenarios."""
-    return x.gather(1, T.watch) if T.rows else x[:, T.watch]
 
 
 def _has_gray(f: tuple) -> bool:

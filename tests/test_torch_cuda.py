@@ -317,9 +317,10 @@ def test_next_queue_kernel_rows_match_plain_version(dev, tiers):
 
 @pytest.mark.parametrize("tiers", [2, 3])
 def test_next_queue_kernel_per_row_tables_match_plain_version(dev, tiers):
-    """The engine form with one connection table pair per row ``(B, NC)``,
-    adaptive on and off, penalty shared and per row: kernel == plain version
-    == B one-row kernel calls, each with its row's tables."""
+    """The engine form with one connection table pair per row ``(B, NC)``
+    (contiguous, or one row expanded: row stride 0), adaptive on and off,
+    penalty shared, per row and expanded: kernel == plain version == B
+    one-row kernel calls, each with its row's tables."""
     name, kw = ROUTE_FABRICS[tiers][0]
     topo = Topology.build(getattr(presets, name).replace(**kw))
     g, B = topo.geometry, 4
@@ -329,7 +330,9 @@ def test_next_queue_kernel_per_row_tables_match_plain_version(dev, tiers):
     fields = [_on(dev, np.stack([r[f] for r in rows])) for f in (PHOP, PCURQ, PCONN, PEV)]
     stack = lambda k: _on(dev, np.stack([c[k] for c in cases]))
     a_idx, q_len, src, dst = (stack(k) for k in ("a_idx", "q_len", "conn_src", "conn_dst"))
-    for pen in (_on(dev, cases[0]["q_pen"]), stack("q_pen")):
+    tables = [(src, dst), (src[1].expand(B, -1), dst[1].expand(B, -1))]
+    pens = (_on(dev, cases[0]["q_pen"]), stack("q_pen"), stack("q_pen")[2].expand(B, -1))
+    for (src, dst), pen in ((t, p) for t in tables for p in pens):
         for adaptive in (False, True):
             args = (g, *fields, src, dst, q_len, adaptive, pen, a_idx, NP)
             got = ops.next_queue(*args)
@@ -378,6 +381,11 @@ def test_next_queue_wrapper_raises(dev):
         ops.next_queue(g, q == 0, q, q, q, q, q, q, True)
     with pytest.raises(ValueError, match="agg_uplinks"):
         ops.next_queue(g._replace(agg_uplinks=0), q == 0, q, q, q, q, q, q_len, False)
+    q2 = _on(dev, np.zeros((2, 8), np.int32))
+    q_len2 = _on(dev, np.zeros((2, topo.n_queues), np.int32))
+    strided = _on(dev, np.zeros((2, 16), np.int32))[:, ::2]  # column stride 2
+    with pytest.raises(ValueError, match="row stride"):
+        ops.next_queue(g, q2, q2, q2, q2, strided, strided, q_len2, False, a_idx=q2, n_pkt=8)
 
 
 @pytest.mark.parametrize("lbn", ["reps", "mprdma", "mixed"])
@@ -499,3 +507,43 @@ def test_fleet_run_summary_with_own_scenarios_card_equals_cpu(dev):
         for k in a:
             assert a[k].tobytes() == b[k].tobytes(), k
     assert all(r["s_stats"][1] > 0 for r in rows_c)  # every row's failures drop packets
+
+
+def test_alternating_own_scenarios_do_not_synchronize(dev):
+    """Two stacked rows' scenarios, alternated tick by tick as a sweep over
+    buckets does: after each has been prepared, a window of ticks in which
+    no failure window opens or closes makes no device-to-host copy and no
+    synchronize inside an op (the tables are prepared once per scenario,
+    not at every switch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.netsim import FleetRunner, stack_scenarios
+
+    cfg = FATTREE_32_CI.replace(msg_slots=64, conns_per_host=2, failure_slots=4)
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)]
+    wls = [workloads.permutation(32, 48, seed=s) for s in (3, 4, 5)]
+    fss = [failures.link_down(ups[:2], 20, failures.FOREVER),
+           failures.link_degraded([ups[2]], 10, 300),
+           failures.gray_loss([ups[1]], 5, 300, 0.25)]
+    sims = [Simulator(cfg, w, make_lb("reps", evs_size=cfg.evs_size), failures=f,
+                      watch_queues=ups[:4], device=dev) for w, f in zip(wls, fss)]
+    scns = [stack_scenarios([s.scn for s in sims]),
+            stack_scenarios([sims[i].scn for i in (2, 0, 1)])]
+    fleet = FleetRunner(cfg, wls[0], sims[0].lb, failures=fss[0], watch_queues=ups[:4],
+                        seeds=(0, 5, 9), device=dev)
+    sim, states = fleet.sim, fleet.init_states()
+    draws = sim.tick_draws(fleet.base_keys(), 0, 100, scns[0])
+    for t in range(60):
+        states, _ = sim.step_rows(states, t, draws.row(t), scns[t % 2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(60, 100):
+            states, _ = sim.step_rows(states, t, draws.row(t), scns[t % 2])
+        torch.cuda.synchronize()
+    # the window's closing synchronize (and the profiler's own) are top-level
+    # device synchronizes; a tick's would be inside an op
+    top = lambda e: e.cpu_parent is None and e.name == "cudaDeviceSynchronize"
+    bad = [e.name for e in prof.events()
+           if "DtoH" in e.name or "DeviceToHost" in e.name
+           or ("Synchronize" in e.name and not top(e))]
+    assert not bad, bad[:5]

@@ -214,3 +214,50 @@ def test_rows_whose_shapes_differ_raise():
     assert no_gray.u_gray is None
     with pytest.raises(ValueError, match="gray"):
         sim.step_rows(states, 0, no_gray, scn)
+
+
+def test_alternating_scenarios_are_prepared_once(monkeypatch):
+    """A caller that alternates two rows' scenarios tick by tick (as a sweep
+    over buckets does) prepares each once: one host copy of each schedule,
+    and the fault masks uploaded only when a scenario's own active set
+    changes.  The ticks equal those of a simulator that keeps one
+    scenario's tables and so rebuilds them at every switch."""
+    tsims = port_rows()
+    sim = tsims[0]
+    scns = [stack_scenarios([s.scn for s in tsims]),
+            stack_scenarios([tsims[i].scn for i in (2, 0, 1)])]
+    n = 120
+    made = []
+    make = tengine.Simulator._make_tables
+    monkeypatch.setattr(tengine.Simulator, "_make_tables",
+                        lambda self, scn: made.append(id(scn)) or make(self, scn))
+
+    def alternate(fleet):
+        states = fleet.init_states()
+        draws = fleet.sim.tick_draws(fleet.base_keys(), 0, n, scns[0])
+        uploads = [[], []]  # per scenario: its fault masks at each of its ticks
+        for t in range(n):
+            states, _ = fleet.sim.step_rows(states, t, draws.row(t), scns[t % 2])
+            uploads[t % 2].append(fleet.sim._tables(scns[t % 2], 3).faults)
+        return states, uploads
+
+    fleet = FleetRunner(sim.cfg, sim.wl, sim.lb, failures=sim.failures,
+                        watch_queues=sim.watch.numpy(), seeds=SEEDS, device="cpu")
+    states, uploads = alternate(fleet)
+    assert made == [id(scns[0]), id(scns[1])]
+    for k in (0, 1):  # a new upload exactly where the scenario's active set changes
+        f = [x.numpy() for x in (scns[k].f_start, scns[k].f_end)]
+        acts = [((t >= f[0]) & (t < f[1])).tobytes() for t in range(k, n, 2)]
+        changes = sum(a != b for a, b in zip(acts, acts[1:]))
+        fresh = sum(a is not b for a, b in zip(uploads[k], uploads[k][1:]))
+        assert fresh == changes > 0, (k, fresh, changes)
+
+    made.clear()
+    monkeypatch.setattr(tengine, "SCN_TABLES", 1)
+    rebuilt = FleetRunner(sim.cfg, sim.wl, sim.lb, failures=sim.failures,
+                          watch_queues=sim.watch.numpy(), seeds=SEEDS, device="cpu")
+    again, _ = alternate(rebuilt)
+    assert len(made) == n
+    for i in range(len(SEEDS)):
+        assert_states_equal(interop.sim_state_to_numpy(fleet.state_at(states, i)),
+                            interop.sim_state_to_numpy(rebuilt.state_at(again, i)), f"row {i}")
