@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 600
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -52,7 +52,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      a shorter horizon;
   6. arena — the LB arena's failure block at full width: FATTREE_128, a
      permutation of 1024-packet messages and 5 % of the ToR uplinks down
-     from tick 150 on (``benchmarks/arena.py``), for each of the nine zoo
+     from tick 150 on (``benchmarks/arena.py``), 1100 ticks (past the first
+     failure plus the RTO), for each of the nine zoo
      load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
      ECMP background) on fig05's background cohort; exact launch counts
      per load balancer (``next_queue`` once per tick for every LB, adaptive
@@ -79,12 +80,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      and 64 (the same; no device-to-host copy or synchronize inside a
      tick); row-ticks/s of ``FleetRunner.run_summary`` against ``run``'s
      body (``Simulator.run_rows``) at B = 1 and 64, each resumed at the
-     fleet phase's warmed rows, from interleaved rounds.
+     fleet phase's warmed rows, from interleaved rounds;
+ 10. sweep — the sweep engine (``SweepEngine`` through the port's
+     ``figure_grid``, ``collect="summary"`` with quiescence early exit):
+     (a) the fig06 grid at the BENCH_FULL config (FATTREE_128's fabric,
+     4096-packet messages) and its full 8000-tick horizon, its two cells one
+     bucket behind ``SwitchLB(ops, reps)``, with exact launch counts; each
+     row equals its serial card run (the main path's run, continued to the
+     bucket's ``ticks_run``) on every leaf, the active SwitchLB slot against
+     the plain load balancer, the other slot at its init, and its sketch
+     summary equals ``summarize``; (b) the fig04 (with one shorter cell, so
+     that its bucket merges horizons; ECMP, OPS and REPS) and fig07
+     (permutation and ring-AllReduce blocks) smoke grids at FATTREE_32_CI,
+     shrunk as tests/test_figure_parity.py shrinks them: card == CPU on every
+     leaf and carry slot; (c) device launches per tick by name of (a)'s
+     bucket against a B = 2 fig06/reps ``run_summary`` fleet, and of (b)'s
+     horizon-merged bucket against the same bucket unmasked (equal on
+     ticks no row's horizon falls on).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` counts the main path's, fig18's, the arena's, the fleet's
-and the telemetry phase's runs; the flat ``ecmp_hash`` is launched there no
-more); the last line
+(``launches`` counts the main path's, fig18's, the arena's, the fleet's,
+the telemetry and the sweep phase's runs; the flat ``ecmp_hash`` is
+launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -817,7 +834,11 @@ def check_invariants(sim, state) -> None:
     assert int(state.c_inflight.min()) >= 0
 
 
-def main_path(dev, ticks: int) -> tuple[dict, dict]:
+def main_path(dev, ticks: int) -> tuple[dict, dict, dict]:
+    """The fig06 OPS and REPS cells for ``ticks`` ticks with exact launch
+    counts; returns the launches per kernel, the ticks/s per cell and each
+    cell's ``(simulator, final state, ticks)`` (the sweep phase continues
+    them as its serial references)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -829,7 +850,7 @@ def main_path(dev, ticks: int) -> tuple[dict, dict]:
                 "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 1,
                          "next_queue": 1, "ecmp_hash": 0}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
-    rates = {}
+    rates, finals = {}, {}
     for lb in ("ops", "reps"):
         sim = fig06_cell(lb, dev)
         state = sim.init_state()
@@ -852,7 +873,8 @@ def main_path(dev, ticks: int) -> tuple[dict, dict]:
                     f"fig06/{lb}: {k} launched {counts[k]} times, expected {n} x {ticks}")
             totals[k] += counts[k]
         rates[lb] = ticks / secs
-    return totals, rates
+        finals[lb] = (sim, state, ticks)
+    return totals, rates, finals
 
 
 def profile_window(dev, warm: int, ticks: int) -> None:
@@ -1498,6 +1520,329 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
     return totals
 
 
+SWEEP_PER_TICK = dict(TEL_PER_TICK)  # a summary sweep's tick: the default spec's 2 histograms
+
+
+def same_scenario(a, b) -> bool:
+    """Whether two simulators run the same scenario at the same shapes
+    (config but its shape pins, sizes, workload, failures, watch list, load
+    balancer and seed): then one's run is the other's."""
+    import dataclasses
+
+    import numpy as np
+
+    pins = ("msg_slots", "conns_per_host", "failure_slots")
+    ca, cb = (dataclasses.replace(s.cfg, **{p: 0 for p in pins}) for s in (a, b))
+    arrays = lambda s: [np.asarray(x) for x in (
+        s.wl.src, s.wl.dst, s.wl.msg_pkts, s.wl.start, s.wl.dep, s.failures.queue,
+        s.failures.start, s.failures.end, s.failures.kind, s.failures.param, s.watch.cpu())]
+    lb = lambda s: (type(s.lb), vars(s.lb))
+    return (ca == cb and (a.NP, a.MSG, a.CPH, a.NQ) == (b.NP, b.MSG, b.CPH, b.NQ)
+            and all(x.shape == y.shape and np.array_equal(x, y)
+                    for x, y in zip(arrays(a), arrays(b)))
+            and lb(a) == lb(b) and a.seed == b.seed)
+
+
+class TickRanges:
+    """Per-tick profiler ranges around a simulator's ``step_probe_rows``
+    calls, from one call to the next (the tick's telemetry update included),
+    so that ``launches_per_tick`` can count a tick of a loop that is not
+    ours (``SweepEngine.run_chunk``, ``FleetRunner.run_summary``); the
+    chunk's draws, made before its first tick, stay outside."""
+
+    def __init__(self, sim):
+        self.sim, self.open = sim, None
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        step = self.sim.step_probe_rows
+
+        def ranged(*a, **kw):
+            self.close()
+            self.open = record_function(TICK_RANGE)
+            self.open.__enter__()
+            return step(*a, **kw)
+
+        self.sim.step_probe_rows = ranged
+        return self
+
+    def close(self):
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
+
+    def __exit__(self, *exc):
+        self.close()
+        del self.sim.step_probe_rows  # the class's method again
+
+
+def profiled_ticks(label: str, sim, fn, n: int) -> list:
+    """``fn()`` (``n`` ticks of ``sim`` in someone's loop) under the
+    profiler with a range per tick: each tick's launches by name
+    (``launches_per_tick``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with TickRanges(sim):
+            fn()
+        torch.cuda.synchronize()
+    rows = launches_per_tick(prof)
+    if len(rows) != n:
+        raise AssertionError(f"{label}: {len(rows)} tick ranges in {n} ticks")
+    return rows
+
+
+def typical_tick(label: str, rows: list) -> tuple:
+    """The launch count most ticks of a window show and the median tick by
+    name ``(total, Counter)``; raises unless more than half show it."""
+    import collections
+
+    total, held = collections.Counter(r.total() for r in rows).most_common(1)[0]
+    if not total or 2 * held <= len(rows):
+        raise AssertionError(f"{label}: the most common launch count {total} in {held} of "
+                             f"{len(rows)} ticks")
+    names = {k for r in rows for k in r}
+    log(f"launches ({label}): {total} launches in {held} of {len(rows)} ticks")
+    return total, collections.Counter({k: statistics.median(r[k] for r in rows) for k in names})
+
+
+def sweep_rows_vs_serial(eng, res, name: str, ref) -> None:
+    """A sweep row against its serial card run ``ref`` (a simulator and its
+    state at the bucket's ``ticks_run``): every SimState leaf, the row's
+    active SwitchLB slot against the plain load balancer's state, every
+    other slot against its initial value, and the row's sketch summary
+    against ``summarize`` of the serial state (every field but the sketch
+    p99)."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.netsim import sim_state_to_numpy, summarize
+    from repro_torch.netsim.interop import lb_state_to_numpy
+
+    b, c = res._find(name)
+    row = c.rows[0]
+    sim, st = ref
+    got, want = sim_state_to_numpy(res.state_for(name)), sim_state_to_numpy(st)
+    plain = {k: v for k, v in want.items() if not k.startswith("lb_state")}
+    same_leaves({k: v for k, v in got.items() if not k.startswith("lb_state")}, plain,
+                f"sweep {name} vs serial")
+    slot = lambda i: {"lb_state" + k[len(f"lb_state.1.{i}"):]: v for k, v in got.items()
+                      if k == f"lb_state.1.{i}" or k.startswith(f"lb_state.1.{i}.")}
+    same_leaves(slot(c.branch), {k: v for k, v in want.items() if k.startswith("lb_state")},
+                f"sweep {name}: active SwitchLB slot vs the plain LB")
+    init = b.lb.init_state(sim.wl.n_conns, rng.fold_in(b.keys[row], 777))[1]
+    for i in range(len(b.lb.variants)):
+        if i != c.branch:
+            same_leaves(slot(i), lb_state_to_numpy(init[i]), f"sweep {name}: slot {i} vs init")
+    if int(got["lb_state.0"]) != c.branch:
+        raise AssertionError(f"sweep {name}: branch index {got['lb_state.0']} != {c.branch}")
+    sketch = res.summaries("sketch")[name][0]
+    state = summarize(sim, st, name=name, lb_name=b.lb.variants[c.branch].name,
+                      n_conns=c.case.workload.n_conns, conn_start=c.padded_wl.start)
+    a, z = dataclasses.asdict(sketch), dataclasses.asdict(state)
+    bad = {k: (a[k], z[k]) for k in a if k != "p99_fct_ticks" and a[k] != z[k]
+           and not (a[k] != a[k] and z[k] != z[k])}  # NaN == NaN
+    if bad:
+        raise AssertionError(f"sweep {name}: sketch summary differs from summarize: {bad}")
+    log(f"sweep {name} == serial card run: all {len(plain)} SimState leaves, the active "
+        f"SwitchLB slot (branch {c.branch}) against the plain LB, the other slots at their "
+        f"init, after {b.ticks_run} ticks; sketch summary == summarize (p99 {sketch.p99_fct_ticks} "
+        f"from the sketch, {state.p99_fct_ticks} exact)")
+
+
+def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: int) -> dict:
+    """The sweep engine on the card: (a) the fig06 grid through the port's
+    ``figure_grid`` at the BENCH_FULL config (FATTREE_128's fabric), its
+    two cells one SwitchLB(ops, reps) bucket, ``collect="summary"`` with
+    early exit, each row against its serial card run (the main path's run
+    when its scenario is the serial reference's, continued to
+    ``ticks_run``); (b) the fig04 and fig07 smoke grids at FATTREE_32_CI,
+    shrunk (fig04 with one shorter cell, so that its bucket merges
+    horizons), card == CPU on every leaf and carry slot; (c) launches per
+    tick by name of (a)'s bucket against a B = 2 ``run_summary`` fleet, and
+    of (b)'s horizon-merged bucket against the same bucket unmasked.
+    Returns the launches per kernel."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fig04_asym_macro as fig04
+    from repro_torch.bench import fig06_failures_micro as fig06
+    from repro_torch.bench import fig07_failures_macro as fig07
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import SweepEngine, sim_state_to_numpy
+    from repro_torch.netsim.engine import add_rows, drop_rows
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    t_start = time.perf_counter()
+
+    def step_done(what):
+        log(f"sweep phase: {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    def counted(what, fn, ticks=None):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if ticks is not None:
+            n = ticks(out) if callable(ticks) else ticks
+            for k, m in SWEEP_PER_TICK.items():
+                if counts[k] != m * n:
+                    raise AssertionError(f"{what}: {k} launched {counts[k]} times, "
+                                         f"expected {m} x {n}")
+        for k, m in counts.items():
+            totals[k] += m
+        return out, secs, counts
+
+    # (a) the fig06 grid at full width and its full horizon
+    cfg = bc.ci_cfg(full=True)
+    cases = [dataclasses.replace(c, ticks=fig06_ticks, seeds=(0,))
+             for c in fig06.cases(cfg, full=True)]
+    rows = bc.Rows(device=str(dev))
+    (eng, res), secs, counts = counted(
+        "sweep fig06", lambda: bc.figure_grid(rows, "fig06", cfg, cases, fmt=fig06.fmt,
+                                              collect="summary", device=dev),
+        ticks=lambda out: out[1].buckets[0].ticks_run)
+    bucket = res.buckets[0]
+    log("sweep fig06 plan:\n" + eng.plan.describe())
+    if len(res.buckets) != 1 or len(bucket.lb.variants) != 2:
+        raise AssertionError("sweep fig06: expected one bucket of SwitchLB(ops, reps)")
+    sums = res.summaries()
+    log(f"sweep fig06 (BENCH_FULL config = FATTREE_128: {cfg.n_hosts} hosts, "
+        f"{cfg.uplinks_per_tor} uplinks per ToR, queue {cfg.queue_capacity}, RTO "
+        f"{cfg.rto_ticks}, {cfg.evs_size} EVs), horizon {bucket.ticks}: ticks_run="
+        f"{bucket.ticks_run} in {secs:.3f} s ({bucket.exec_wall_s:.3f} s in the bucket's loop, "
+        f"{bucket.compile_wall_s:.3f} s set-up); launches={counts}")
+    for c in cases:
+        s = sums[c.name][0]
+        log(f"sweep {c.name}: completed={s.completed}/{s.n_conns} runtime_ticks="
+            f"{s.runtime_ticks} drops_fail={s.drops_fail} timeouts={s.timeouts} "
+            f"drops_cong={s.drops_cong} mean_fct={s.mean_fct_ticks}")
+    for r in rows.records:
+        if "/bucket/" in r["name"]:
+            log(f"sweep {r['name']}: bucket_ticks_per_sec={r['bucket_ticks_per_sec']:.3f} "
+                f"measured_row_tick_us={r['measured_row_tick_us']:.3f} "
+                f"est_row_tick_cost={r['est_row_tick_cost']:.1f} key={r['bucket_key']}")
+    step_done("(a) fig06 sweep")
+    ticks_run = bucket.ticks_run
+    for c in cases:
+        lbn = c.lb
+        ser = eng.serial_sim(c.name)
+        sim, st, t0 = main_refs[lbn]
+        if not (same_scenario(ser, sim) and t0 <= ticks_run):
+            log(f"sweep {c.name}: the main path's run is not its serial reference; running it")
+            sim, st, t0 = ser, ser.init_state(), 0
+        t1 = time.perf_counter()
+        if ticks_run > t0:
+            states, _ = sim.run_rows(ticks_run - t0, add_rows(st), sim.base_key[None], t0=t0)
+            st = drop_rows(states)
+        log(f"sweep {c.name}: serial card reference ({'the main path run, ' if t0 else ''}"
+            f"ticks {t0}-{ticks_run}) in {time.perf_counter() - t1:.3f} s")
+        sweep_rows_vs_serial(eng, res, c.name, (sim, st))
+        main_refs[lbn] = (sim, st, ticks_run)
+    step_done("(a) rows == serial")
+
+    # (b) heterogeneous horizons and three variants: card == CPU
+    small = FATTREE_32_CI
+    shrink = lambda cs: [dataclasses.replace(c, ticks=max(300, c.ticks // 16), seeds=(0,))
+                         for c in cs]
+    g04 = shrink(fig04.cases(small, smoke=True, full=False))
+    g04.append(dataclasses.replace(g04[1], name="fig04/permutation/ops@200", ticks=200))
+    g07 = shrink(fig07.cases(small, smoke=True, full=False))
+    merged = None
+    for label, grid in (("fig04", g04), ("fig07", g07)):
+        out = {}
+        for d in (dev, "cpu"):
+            e = SweepEngine(small, grid, device=d)
+            r, secs, counts = counted(
+                f"sweep {label} on {d}", lambda: e.run(collect="summary", early_exit=True),
+                ticks=(lambda r: sum(b.ticks_run for b in r.buckets)) if d == dev else None)
+            out[d] = (e, r)
+            log(f"sweep {label} on {d}: {secs:.3f} s, ticks_run "
+                f"{[b.ticks_run for b in r.buckets]}, masked "
+                f"{[b.program.masked for b in r.buckets]}, variants "
+                f"{[b.lb.name for b in r.buckets]}" + (f"; launches={counts}" if d == dev else ""))
+        (eg, rg), (_, rc) = out[dev], out["cpu"]
+        log(f"sweep {label} plan:\n" + eg.plan.describe())
+        n_slots = 0
+        for bg, bc_ in zip(rg.buckets, rc.buckets):
+            if bg.ticks_run != bc_.ticks_run or bg.telemetry.tobytes() != bc_.telemetry.tobytes():
+                raise AssertionError(f"sweep {label}: card and CPU differ in ticks_run or the "
+                                     "telemetry carry")
+            n_slots += bg.telemetry.size
+            if bg.program.masked:
+                merged = (eg, bg)
+        for c in grid:
+            same_leaves(sim_state_to_numpy(rg.state_for(c.name)),
+                        sim_state_to_numpy(rc.state_for(c.name)), f"sweep {label} {c.name}")
+        log(f"card vs CPU: sweep {label}: every SimState leaf of all {len(grid)} rows and all "
+            f"{n_slots} telemetry carry slots bit-equal")
+    if merged is None:
+        raise AssertionError("sweep (b): no bucket merged horizons")
+    step_done("(b) card == CPU")
+
+    # (c) launches per tick by name: (a)'s bucket against a B = 2 fleet of
+    # fig06/reps under run_summary; (b)'s merged bucket against unmasked
+    carry = eng.bucket_carry(bucket, "summary")
+    carry, _ = eng.run_chunk(bucket, carry, 0, warm, "summary")
+    rows_sw, _, counts6 = counted("sweep fig06 window", lambda: profiled_ticks(
+        "sweep fig06 bucket B=2", bucket.sim,
+        lambda: eng.run_chunk(bucket, carry, warm, prof_ticks, "summary"), prof_ticks),
+        ticks=prof_ticks)
+    n_sw, by_sw = typical_tick("sweep fig06 bucket, B=2", rows_sw)
+    fleet = fig06_fleet((0, 1), dev)
+    st, tel = fleet.run_summary(warm, horizon=warm + prof_ticks)
+    rows_fl, _, _ = counted("fleet window", lambda: profiled_ticks(
+        "fleet fig06/reps B=2 run_summary", fleet.sim,
+        lambda: fleet.run_summary(prof_ticks, states=st, tel=tel.tel, t0=warm,
+                                  horizon=warm + prof_ticks), prof_ticks), ticks=prof_ticks)
+    n_fl, by_fl = typical_tick("fleet fig06/reps B=2 run_summary", rows_fl)
+    log(f"sweep launches per tick: fig06 bucket (SwitchLB(ops, reps), B=2) {n_sw} against "
+        f"{n_fl} for the B=2 fig06/reps run_summary fleet ({n_sw - n_fl:+d}); kernels per tick "
+        f"by counter {({k: v / prof_ticks for k, v in counts6.items()})}")
+    diff = by_sw.copy()
+    diff.subtract(by_fl)
+    for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1])):
+        if v:
+            log(f"sweep launches vs fleet: {v:+g} per tick  {k[:100]}")
+    e_m, b_m = merged
+    unmasked = SweepEngine(small, [dataclasses.replace(c, ticks=b_m.ticks) for c in g04],
+                           device=dev)
+    b_u = unmasked.buckets[0]
+    if b_u.program.masked or b_u.plan.key != b_m.plan.key:
+        raise AssertionError("sweep (c): the unmasked twin bucket has other shapes")
+    lo = min(int(h) for h in b_m.horizons) // 2
+    n_w = lo // 2
+    per = {}
+    for label, e, b in (("merged", e_m, b_m), ("unmasked", unmasked, b_u)):
+        c = e.bucket_carry(b, "summary")
+        c, _ = e.run_chunk(b, c, 0, lo - n_w, "summary")
+        per[label] = profiled_ticks(f"sweep fig04 {label} bucket, ticks {lo - n_w}-{lo}", b.sim,
+                                    lambda: e.run_chunk(b, c, lo - n_w, n_w, "summary"), n_w)
+    # degraded links serve on even ticks only: the count alternates, tick by tick
+    totals_m, totals_u = ([r.total() for r in per[k]] for k in ("merged", "unmasked"))
+    by_m, by_u = (collections.Counter({k: statistics.median(r[k] for r in per[w])
+                                       for k in {k for r in per[w] for k in r}})
+                  for w in ("merged", "unmasked"))
+    if totals_m != totals_u or by_m != by_u:
+        raise AssertionError(f"sweep (c): the horizon-merged bucket's ticks launch {totals_m}, "
+                             f"the unmasked bucket's {totals_u}")
+    log(f"sweep launches per tick: the horizon-merged fig04 bucket == the unmasked bucket, tick "
+        f"by tick ({sorted(collections.Counter(totals_m).items())} launches: ticks), and the "
+        f"median tick by name, on ticks {lo - n_w}-{lo}, where no row's horizon falls")
+    step_done("(c) launches")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -1560,18 +1905,18 @@ def zoo_card_vs_cpu(dev, ticks: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
-    ap.add_argument("--arena-ticks", type=int, default=2000, help="arena ticks per cell")
+    ap.add_argument("--arena-ticks", type=int, default=1100, help="arena ticks per cell")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
-    ap.add_argument("--zoo-check-ticks", type=int, default=900,
+    ap.add_argument("--zoo-check-ticks", type=int, default=600,
                     help="card-vs-CPU horizon of each zoo load balancer")
     ap.add_argument("--fig18-ticks", type=int, default=2000, help="fig18/3tier/reps ticks")
     ap.add_argument("--fig18-check-ticks", type=int, default=600,
                     help="fig18/3tier/reps card-vs-CPU horizon")
-    ap.add_argument("--fleet-ticks", type=int, default=1200,
+    ap.add_argument("--fleet-ticks", type=int, default=800,
                     help="ticks of the B=4 fleet held against serial runs")
     ap.add_argument("--fleet-check-ticks", type=int, default=600,
                     help="card-vs-CPU horizon of the small fleet")
-    ap.add_argument("--fleet-bench-ticks", type=int, default=400,
+    ap.add_argument("--fleet-bench-ticks", type=int, default=200,
                     help="timed ticks per fleet per round")
     ap.add_argument("--fleet-rounds", type=int, default=3, help="interleaved rounds over B")
     ap.add_argument("--tel-ticks", type=int, default=1100,
@@ -1581,6 +1926,8 @@ def main() -> int:
     ap.add_argument("--tel-bench-ticks", type=int, default=150,
                     help="timed ticks per (B, path) per telemetry round")
     ap.add_argument("--tel-rounds", type=int, default=3, help="interleaved telemetry rounds")
+    ap.add_argument("--sweep-fig06-ticks", type=int, default=8000,
+                    help="the sweep's fig06 horizon (8000: the figure's own)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1633,7 +1980,7 @@ def main() -> int:
             log(f"kernel {r['name']}: the engine's former call form ({r['old_form']}): "
                 f"device {r['ms_old']:.5f} ms, eager from Python {r['eager_old_ms']:.5f} ms")
 
-    totals, rates = main_path(dev, args.ticks)
+    totals, rates, main_refs = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=100)
     phase_done("main path and profile")
     for k, n in three_tier_cell(dev, args.fig18_ticks, args.fig18_check_ticks).items():
@@ -1656,6 +2003,11 @@ def main() -> int:
         totals[k] += n
     del warmed
     phase_done("telemetry")
+    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=300,
+                            prof_ticks=50).items():
+        totals[k] += n
+    del main_refs
+    phase_done("sweep")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

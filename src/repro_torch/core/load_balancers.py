@@ -59,6 +59,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.reps_update import BUF as KERNEL_BUF
 from repro_torch.kernels.reps_update import MAX_ROUNDS
+from repro_torch.tree import tree_map
 
 I32 = torch.int32
 F32 = torch.float32
@@ -642,19 +643,38 @@ class FlowletTableLB(LoadBalancer):
 
 
 # ---------------------------------------------------------------------------
-# SwitchLB: N variants behind one branch index.  The reference dispatches
-# with lax.switch on a traced index so that scenarios differing only in
-# their LB share one compilation.  The port runs one scenario at a time, so
-# the branch is a host int fixed at construction and every call goes
-# straight to the active variant (no device-to-host read per tick).  The
-# state keeps the reference's layout, (branch index, tuple of every
-# variant's state), so interop maps it leaf for leaf; each call rewrites
-# only the active variant's slot with the draws it would see serially.
+# SwitchLB: N variants behind one branch index, so that scenarios differing
+# only in their LB share one tick (the sweep engine's LB dispatch,
+# repro_torch.netsim.sweep).  The state keeps the reference's layout,
+# (branch index, tuple of every variant's state): a 0-dim index for one run,
+# ``(B,)`` under a row axis, one per row (``with_branch``).  Every variant
+# steps all connections on the draws it would make serially (each its own,
+# from the one key), and each row keeps the outputs of its own variant
+# only: the other variants' slots of that row are left as they were, so the
+# active branch is bit-identical to a serial run with the plain variant,
+# as the reference's vmapped lax.switch (run every branch, select per row).
 # ---------------------------------------------------------------------------
+def _by_row(sel: torch.Tensor, new, old):
+    """``new`` on the rows where ``sel`` (the rows' ``(B,)`` or one run's
+    0-dim mask) holds, ``old`` elsewhere; a leaf's first axis holds the
+    rows' connections, row-major.  A leaf the variant left as it was costs
+    nothing."""
+    B = sel.numel()
+
+    def pick(n, o):
+        if n is o:
+            return n
+        rows = n.reshape(B, n.shape[0] // B, *n.shape[1:])
+        m = sel.reshape(B, *([1] * n.dim()))
+        return torch.where(m, rows, o.reshape(rows.shape)).reshape(n.shape)
+
+    return tree_map(pick, new, old)
+
+
 class SwitchLB(LoadBalancer):
     name = "switch"
 
-    def __init__(self, variants, branch: int = 0):
+    def __init__(self, variants):
         variants = tuple(variants)
         if not variants:
             raise ValueError("need at least one variant")
@@ -676,50 +696,69 @@ class SwitchLB(LoadBalancer):
                 "BitmapLB defaults to 256 while the rest of the zoo "
                 "defaults to 65536."
             )
-        if not 0 <= branch < len(variants):
-            raise ValueError(f"branch {branch} is outside [0, {len(variants)})")
         super().__init__(sizes.pop())
         self.variants = variants
-        self.branch = int(branch)
-        self.active = variants[self.branch]
         self.switch_adaptive = flags.pop()
         self.name = "switch(" + "+".join(v.name for v in variants) + ")"
-
-    def _with(self, state, new_slot):
-        bidx, states = state
-        i = self.branch
-        return (bidx, states[:i] + (new_slot,) + states[i + 1:])
 
     def init_state(self, n_conns, key):
         # every variant is seeded with the same key it would get serially
         return (
-            torch.tensor(self.branch, dtype=I32, device=key.device),
+            torch.zeros((), dtype=I32, device=key.device),
             tuple(v.init_state(n_conns, key) for v in self.variants),
         )
 
+    def with_branch(self, state, branch_idx):
+        """Rebind the branch index: an int for one run, one per row under a
+        row axis (the sweep sets it per scenario row).  An index outside
+        ``[0, len(variants))`` raises."""
+        dev = state[0].device
+        idx = torch.as_tensor(np.asarray(branch_idx, np.int32), device=dev)
+        bad = (idx < 0) | (idx >= len(self.variants))
+        if bool(bad.any()):
+            raise ValueError(f"branch index outside [0, {len(self.variants)}): {branch_idx}")
+        return (idx, state[1])
+
     def draw(self, keys, n_conns):
-        return self.active.draw(keys, n_conns)
+        return tuple(v.draw(keys, n_conns) for v in self.variants)
 
     def draw_ack(self, keys, n_conns):
-        return self.active.draw_ack(keys, n_conns)
+        return tuple(v.draw_ack(keys, n_conns) for v in self.variants)
 
     def draw_timeout(self, keys, n_conns):
-        return self.active.draw_timeout(keys, n_conns)
+        return tuple(v.draw_timeout(keys, n_conns) for v in self.variants)
+
+    def _dispatch(self, state, fn):
+        """``fn(i, variant, state_i) -> (evs or None, new state_i)`` for every
+        variant, each row keeping its own variant's.  One variant: no
+        selection at all, as the plain load balancer."""
+        bidx, states = state
+        if len(self.variants) == 1:
+            evs, s0 = fn(0, self.variants[0], states[0])
+            return evs, (bidx, (s0,))
+        evs, out = None, []
+        for i, (v, s) in enumerate(zip(self.variants, states)):
+            sel = bidx == i
+            e, ns = fn(i, v, s)
+            out.append(_by_row(sel, ns, s))
+            if e is not None:
+                evs = e if evs is None else _by_row(sel, e, evs)
+        return evs, (bidx, tuple(out))
 
     def choose_ev(self, state, mask, draw, now):
-        evs, slot = self.active.choose_ev(state[1][self.branch], mask, draw, now)
-        return evs, self._with(state, slot)
+        return self._dispatch(state, lambda i, v, s: v.choose_ev(s, mask, draw[i], now))
 
     def on_ack(self, state, mask, ev, ecn, now, draw):
-        return self._with(state, self.active.on_ack(state[1][self.branch], mask, ev, ecn, now, draw))
+        return self._dispatch(
+            state, lambda i, v, s: (None, v.on_ack(s, mask, ev, ecn, now, draw[i])))[1]
 
     def on_timeout(self, state, mask, now, draw):
-        return self._with(state, self.active.on_timeout(state[1][self.branch], mask, now, draw))
+        return self._dispatch(state, lambda i, v, s: (None, v.on_timeout(s, mask, now, draw[i])))[1]
 
     def step(self, state, acks, timeout_mask, send_mask, draws, now):
-        evs, slot = self.active.step(
-            state[1][self.branch], acks, timeout_mask, send_mask, draws, now)
-        return evs, self._with(state, slot)
+        return self._dispatch(state, lambda i, v, s: v.step(
+            s, [(m, e, c, d[i]) for m, e, c, d in acks], timeout_mask, send_mask,
+            (draws[0][i], draws[1][i]), now))
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,6 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -92,6 +91,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.netsim.config import INT32_MAX, SimConfig, checked_auto_pkt_slots
 from repro_torch.netsim.topology import Topology
+from repro_torch.tree import tree_map
 
 # packet states
 FREE, FLYING, QUEUED, IN_ACK, IN_NACK, LOST_WAIT = 0, 1, 2, 3, 4, 5
@@ -497,30 +497,6 @@ def _fma_f32(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def _f32(v: float) -> float:
     """The float32 value XLA uses for a python float constant."""
     return float(np.float32(v))
-
-
-def tree_map(fn, x, *rest):
-    """``fn`` over the tensors of a state tree (a ``SimState``, a load
-    balancer's state: dataclasses, tuples, named tuples, tensors, ``None``),
-    with ``rest`` trees of the same structure as further arguments.  The
-    tick maps a few trees per call, so the common cases come first."""
-    if isinstance(x, torch.Tensor):
-        return fn(x, *rest)
-    if x is None:
-        return None
-    if isinstance(x, tuple):
-        leaves = (tree_map(fn, *vs) for vs in zip(x, *rest))
-        return type(x)(*leaves) if hasattr(x, "_fields") else tuple(leaves)
-    names = _field_names(type(x))
-    return type(x)(**{n: tree_map(fn, getattr(x, n), *(getattr(r, n) for r in rest))
-                      for n in names})
-
-
-@functools.lru_cache(maxsize=None)
-def _field_names(cls) -> tuple[str, ...]:
-    if not dataclasses.is_dataclass(cls):
-        raise TypeError(f"a state tree holds tensors, tuples and dataclasses, not {cls.__name__}")
-    return tuple(f.name for f in dataclasses.fields(cls))
 
 
 def add_rows(x):

@@ -547,3 +547,42 @@ def test_alternating_own_scenarios_do_not_synchronize(dev):
            if "DtoH" in e.name or "DeviceToHost" in e.name
            or ("Synchronize" in e.name and not top(e))]
     assert not bad, bad[:5]
+
+
+def test_sweep_switch_bucket_one_reps_launch_per_tick_card_equals_cpu(dev):
+    """A sweep bucket whose SwitchLB runs REPS on one row of four (ECMP,
+    OPS and a second OPS seed beside it) and a horizon-merged row: each
+    kernel is one launch per tick (``reps_tick`` 1, ``seg_sum`` 4 +
+    histograms in summary mode), and every row and telemetry carry equals
+    the CPU sweep's."""
+    from repro_torch.netsim import SweepCase, SweepEngine, TelemetrySpec
+
+    cfg = FATTREE_32_CI
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+    fs = failures.link_down(ups, 40, failures.FOREVER)
+    wl = workloads.permutation(32, 40, seed=2)
+    kw = dict(evs_size=cfg.evs_size)
+    cases = [SweepCase("e", wl, "ecmp", 300, kw, fs), SweepCase("o", wl, "ops", 200, kw, fs,
+                                                               seeds=(0, 4)),
+             SweepCase("r", wl, "reps", 300, dict(kw, freezing_timeout=100), fs)]
+    out = {}
+    for d in (dev, "cpu"):
+        eng = SweepEngine(cfg, cases, device=d)
+        assert len(eng.buckets) == 1 and eng.buckets[0].program.masked
+        if d == dev:
+            ops.reset_launch_counts()
+        out[d] = (eng, eng.run(collect="summary", chunk=150))
+        if d == dev:
+            counts = ops.launch_counts()
+    n_hist = sum(type(c).__name__ == "Histogram" for c in TelemetrySpec.default().channels)
+    want = {"reps_tick": 1, "next_queue": 1, "seg_rank": 1, "queue_tick": 1,
+            "seg_sum": 4 + n_hist, "ecmp_hash": 0}
+    assert counts == {k: m * 300 for k, m in want.items()}, counts
+    (_, gres), (_, cres) = out[dev], out["cpu"]
+    assert np.array_equal(gres.buckets[0].telemetry, cres.buckets[0].telemetry)
+    for c in cases:
+        for si in range(len(c.seeds)):
+            a = sim_state_to_numpy(gres.state_for(c.name, si))
+            b = sim_state_to_numpy(cres.state_for(c.name, si))
+            for k in a:
+                assert a[k].tobytes() == b[k].tobytes(), (c.name, si, k)

@@ -46,11 +46,13 @@ def _leaves_equal(js, ts, where: str) -> None:
         np.testing.assert_array_equal(td[k], jd[k], err_msg=f"{where}: {k}")
 
 
-def step_both(jlb, tlb, seed: int, evs: int, jfns=None, jinit=None, steps=STEPS, every_call=True):
+def step_both(jlb, tlb, seed: int, evs: int, jfns=None, jinit=None, tinit=None, steps=STEPS,
+              every_call=True):
     """Drive both LBs through ``steps`` ticks of random sends, ACKs (carrying
     the EVs last chosen, or a random one) and timeouts; compare the chosen
     EVs and every state leaf after each call (after each tick only, when not
-    ``every_call``).  ``jfns`` replaces the reference's three callbacks."""
+    ``every_call``).  ``jfns`` replaces the reference's three callbacks;
+    ``jinit`` / ``tinit`` rewrite each side's initial state."""
     j_choose, j_ack, j_timeout = jfns or (jlb.choose_ev, jlb.on_ack, jlb.on_timeout)
     rs = np.random.RandomState(seed)
     jbase, tbase = jax.random.PRNGKey(seed), rng.PRNGKey(seed, "cpu")
@@ -58,6 +60,8 @@ def step_both(jlb, tlb, seed: int, evs: int, jfns=None, jinit=None, steps=STEPS,
     if jinit is not None:
         js = jinit(js)
     ts = tlb.init_state(N, rng.fold_in(tbase, 777))
+    if tinit is not None:
+        ts = tinit(ts)
     _leaves_equal(js, ts, "init")
     now, last_ev = 0, rs.randint(0, evs, size=N).astype(np.int32)
     B = lambda a: torch.as_tensor(a)
@@ -113,25 +117,30 @@ def test_switch_lb_steps_match_reference(evs):
     variants = lambda m: [m.make_lb(n, **_kw(n, evs)) for n in ENDPOINT]
     jsw = jlbs.SwitchLB(variants(jlbs))
     jfns = tuple(jax.jit(f) for f in (jsw.choose_ev, jsw.on_ack, jsw.on_timeout))
+    tsw = tlbs.SwitchLB(variants(tlbs))
+    assert tsw.name == jsw.name and tsw.evs_size == evs
     for branch in range(len(ENDPOINT)):
-        tsw = tlbs.SwitchLB(variants(tlbs), branch=branch)
-        assert tsw.name == jsw.name and tsw.evs_size == evs
         step_both(jsw, tsw, seed=branch, evs=evs, jfns=jfns, steps=16, every_call=False,
-                  jinit=lambda s, b=branch: jsw.with_branch(s, b))
+                  jinit=lambda s, b=branch: jsw.with_branch(s, b),
+                  tinit=lambda s, b=branch: tsw.with_branch(s, b))
 
 
 def _step_case(case: str):
-    """(load balancer, ACK rounds) for one ``step`` case."""
+    """(load balancer, ACK rounds, initial state's rewrite) for one ``step``
+    case."""
+    keep = lambda st: st
     if case == "mixed":
-        return tlbs.make_lb("mixed", fg="reps", bg="plb", bg_conns=(0, 3, 4, 17, 30, 47)), ROUNDS
+        lb = tlbs.make_lb("mixed", fg="reps", bg="plb", bg_conns=(0, 3, 4, 17, 30, 47))
+        return lb, ROUNDS, keep
     if case == "switch":
-        variants = [tlbs.make_lb(n, **_kw(n, 65536)) for n in ENDPOINT]
-        return tlbs.SwitchLB(variants, branch=ENDPOINT.index("reps")), ROUNDS
+        sw = tlbs.SwitchLB([tlbs.make_lb(n, **_kw(n, 65536)) for n in ENDPOINT])
+        return sw, ROUNDS, lambda st: sw.with_branch(st, ENDPOINT.index("reps"))
     if case == "reps-6-rounds":  # more rounds than one reps_tick launch takes
-        return tlbs.make_lb("reps", **_kw("reps", 65536)), 6
+        return tlbs.make_lb("reps", **_kw("reps", 65536)), 6, keep
     if case == "reps-no-freezing":
-        return tlbs.RepsLB(evs_size=65536, freezing_timeout=60, enable_freezing=False), ROUNDS
-    return tlbs.make_lb(case, **_kw(case, 65536)), ROUNDS
+        lb = tlbs.RepsLB(evs_size=65536, freezing_timeout=60, enable_freezing=False)
+        return lb, ROUNDS, keep
+    return tlbs.make_lb(case, **_kw(case, 65536)), ROUNDS, keep
 
 
 @pytest.mark.parametrize("case", ZOO + ["mixed", "switch", "reps-6-rounds", "reps-no-freezing"])
@@ -140,10 +149,10 @@ def test_step_equals_separate_calls(case):
     kernel launch for REPS) equals ``on_ack`` per round, ``on_timeout`` and
     ``choose_ev`` called one by one, on the same draws: the chosen EVs and
     every state leaf after every tick (tolerance 0)."""
-    lb, rounds = _step_case(case)
+    lb, rounds, init = _step_case(case)
     rs = np.random.RandomState(len(case))
     base = rng.PRNGKey(len(case), "cpu")
-    fused = calls = lb.init_state(N, rng.fold_in(base, 777))
+    fused = calls = init(lb.init_state(N, rng.fold_in(base, 777)))
     B = lambda a: torch.as_tensor(a)
     now, last_ev = 0, rs.randint(0, lb.evs_size, size=N).astype(np.int32)
     for t in range(20):
@@ -260,8 +269,9 @@ def test_switchlb_rejects_mismatched_evs_size():
     assert sw.evs_size == 256
     with pytest.raises(ValueError, match="switch_adaptive"):
         tlbs.SwitchLB([tlbs.make_lb("ops"), tlbs.make_lb("adaptive_roce")])
+    one = tlbs.SwitchLB([tlbs.make_lb("ops")])
     with pytest.raises(ValueError, match="branch"):
-        tlbs.SwitchLB([tlbs.make_lb("ops")], branch=1)
+        one.with_branch(one.init_state(4, rng.PRNGKey(0, "cpu")), 1)
 
 
 def test_prime_rotates_within_window_and_rehashes_on_rto():
@@ -311,3 +321,63 @@ def test_flowlet_table_prefers_uncongested_candidate():
     cur = int(st.cur[0])
     assert int(st.cand[0, cur]) != int(cand_before[0, cur])
     assert int(st.score[0, cur]) == 0
+
+
+def test_switch_lb_row_axis_equals_serial_plain_runs():
+    """SwitchLB under a row axis (``(B,)`` branch indices, leaves of B rows
+    of N connections stepped as B * N, as the engine hands them over):
+    rows on every endpoint branch, some branches on two rows, stepped with
+    ``step`` for 16 ticks; each row's active slot and chosen EVs equal the
+    plain variant's serial run on that row's events and keys, and every
+    other variant's slot of that row stays bit-identical to its init."""
+    from repro_torch.netsim.engine import _conn_rows, tree_map
+
+    K, n = len(ENDPOINT), 16
+    B = K + 3
+    branch = np.arange(B) % K
+    variants = lambda: [tlbs.make_lb(v, **_kw(v, 65536)) for v in ENDPOINT]
+    sw, plain = tlbs.SwitchLB(variants()), variants()
+    keys = torch.stack([rng.PRNGKey(100 + b, "cpu") for b in range(B)])
+    init = [sw.init_state(n, rng.fold_in(keys[b], 777)) for b in range(B)]
+    rows = sw.with_branch(tree_map(lambda *ls: torch.stack(ls), *init), branch)
+    serial = [plain[branch[b]].init_state(n, rng.fold_in(keys[b], 777)) for b in range(B)]
+    flat = lambda x: _conn_rows(x, B * n)
+    rs = np.random.RandomState(3)
+    now, last_ev = 0, rs.randint(0, 65536, size=(B, n)).astype(np.int32)
+    for t in range(16):
+        now += int(rs.randint(1, 40))
+        tk = rng.fold_in(keys, t)
+        acks = []
+        for r in range(ROUNDS):
+            ev = np.where(rs.rand(B, n) < 0.8, last_ev, rs.randint(0, 65536, size=(B, n)))
+            acks.append((torch.as_tensor(rs.rand(B, n) < 0.6),
+                         torch.as_tensor(ev.astype(np.int32)),
+                         torch.as_tensor(rs.rand(B, n) < 0.4),
+                         rng.fold_in(rng.fold_in(tk, 4), r)))
+        timeout = torch.as_tensor(rs.rand(B, n) < 0.15)
+        send = torch.as_tensor(rs.rand(B, n) < 0.7)
+        k_to, k_send = rng.fold_in(tk, 5), rng.fold_in(tk, 2)
+        evs, out = sw.step(
+            flat(rows),
+            [(m.reshape(-1), e.reshape(-1), c.reshape(-1), flat(sw.draw_ack(k, n)))
+             for m, e, c, k in acks],
+            timeout.reshape(-1), send.reshape(-1),
+            (flat(sw.draw_timeout(k_to, n)), flat(sw.draw(k_send, n))), now)
+        rows = tree_map(lambda new, old: new.reshape(old.shape), out, rows)
+        for b in range(B):
+            v = plain[branch[b]]
+            ev_b, serial[b] = v.step(
+                serial[b], [(m[b], e[b], c[b], v.draw_ack(k[b], n)) for m, e, c, k in acks],
+                timeout[b], send[b], (v.draw_timeout(k_to[b], n), v.draw(k_send[b], n)), now)
+            np.testing.assert_array_equal(evs[b * n:(b + 1) * n].numpy(), ev_b.numpy(),
+                                          err_msg=f"evs t={t} row {b}")
+        last_ev = np.where(send.numpy(), evs.view(B, n).numpy(), last_ev).astype(np.int32)
+    bidx, slots = rows
+    np.testing.assert_array_equal(bidx.numpy(), branch)
+    for b in range(B):
+        got = interop.lb_state_to_numpy(tree_map(lambda x: x[b], slots))
+        for i in range(K):
+            want = interop.lb_state_to_numpy(serial[b] if i == branch[b] else init[b][1][i],
+                                             f"lb_state.{i}")
+            for k, a in want.items():
+                assert got[k].dtype == a.dtype and np.array_equal(got[k], a), (b, i, k)
