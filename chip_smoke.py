@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 600
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 600 --scale-row6-ticks 300
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      torch / CUDA versions;
   2. build — compiles ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per source,
      all in parallel) into one library and loads it;
-  3. kernels — each of the six kernels against its plain PyTorch version on
+  3. kernels — each of the seven kernels against its plain PyTorch version on
      the card, bit for bit, at the main path's shapes and at edge shapes:
      ``reps_tick`` in the TPU kernel's one-round form and with R = 2 and 4
      ACK rounds (every event class, and with classes absent; one row and
@@ -29,12 +29,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      current queue, tied queue lengths, with and without adaptive routing
      and penalty, and with a fleet's row axis (B = 1, 4, 64 rows in one
      launch, against the plain version and B one-row launches; penalty
-     shared and per row; connection tables shared and one per row); then
+     shared and per row; connection tables shared and one per row), its
+     table form ``next_queue_table`` on four generated fabrics (clos3, rail,
+     mesh at 128 hosts and a one-ToR mesh corner; both forms, adaptive and
+     ECMP, penalty or none, B = 1, 4, 64 rows, connection tables shared, per
+     row or one row expanded), and ``seg_sum`` / ``seg_rank`` / ``reps_tick``
+     at the scale rows' shapes (NC = 10**5 and 10**6, B = 1 and 2: S = 3 (NC
+     + 1), NC + 1 and N = NC, timed beside their bounds); then
      each is timed with
      CUDA events (median of repeated batches) at the engine's call
      (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
      call's five fields; ``queue_tick``: K = 512, Q = 384, engine form;
-     ``next_queue``: K = 512, NQ = 384, engine form, ECMP) beside its plain
+     ``next_queue``: K = 512, NQ = 384, engine form, ECMP; ``next_queue_table``:
+     the same call on the 128-host rail fabric) beside its plain
      version, the engine's former call form where there is one and, for
      ``seg_sum``, ``index_add_`` (and ``next_queue`` at a 64-row fleet's call);
   4. main path — the paper's FATTREE_128 fabric (128 hosts, 16 ToR
@@ -44,7 +51,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      800) on the kernels; each kernel's launch count must equal its
      per-tick count times the ticks (``next_queue`` 1, ``ecmp_hash`` 0,
      ``reps_tick`` 1 per tick where REPS runs, ``seg_sum`` 4).
-     A profiled window of 100 REPS ticks then shows where a tick's time
+     A profiled window of 50 REPS ticks then shows where a tick's time
      goes (device busy share, launches per tick, kernel device times);
   5. fig18/3tier/reps — the 3-tier fabric at full width (FATTREE_128_3T), a
      permutation of 2048-packet messages, REPS, with exact launch counts and
@@ -96,12 +103,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      leaf and carry slot; (c) device launches per tick by name of (a)'s
      bucket against a B = 2 fig06/reps ``run_summary`` fleet, and of (b)'s
      horizon-merged bucket against the same bucket unmasked (equal on
-     ticks no row's horizon falls on).
+     ticks no row's horizon falls on);
+ 11. generated fabrics — the clos3 table form of FATTREE_128_3T equals the
+     fig18 phase's arithmetic card run on every leaf; rail (16 rails) and
+     mesh (2 planes) at 128 hosts, REPS and adaptive RoCE, ToR-0's first two
+     up queues down from tick 100, card == CPU after 300 ticks; the table
+     form launches once per tick, ``next_queue`` and ``ecmp_hash`` never;
+ 12. scale mode — fig06/reps with ``conn_sharding=True`` equals phase 7's
+     dense card run of the cell on every leaf but ``as_idx`` / ``as_count``, its
+     active set exactly the non-FREE slots, and device launches per tick,
+     sparse against dense; a binding ``active_slots`` cell card == CPU; the
+     10**5-connection row (``bench/scale_smoke.py``, 300 ticks) card == CPU;
+     the 10**6 row through ``SweepEngine(collect="none")`` for 1000 ticks
+     (done > 0, NP = A by the lifetime bound, ticks/s, peak memory, exact
+     kernel launches) and a profiled window of 100 ticks after it; its live
+     REPS state packs to <= 25 B/conn and round-trips, and
+     ``measure_scale(10**6)``.  Phases 11 and 12 run after phase 7.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
-the telemetry and the sweep phase's runs; the flat ``ecmp_hash`` is
-launched there no more); the last line
+the telemetry, the sweep, the fabric and the scale phases' runs; the flat
+``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -778,7 +800,469 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
         bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
         shape=f"K={K} ({valid} arrivals) NQ={NQ} engine form, ECMP; redesign of ecmp_hash",
     ))
+    rows.append(table_kernel_cases(dev, rs))
+    scale_kernel_shapes(dev, rs)
     return rows
+
+
+# ---------------------------------------------------------------------------
+TABLE_FABRICS = ("clos3:pods=4,tors=2,hosts=16,aggs=4,up=4",  # the table form of FATTREE_128_3T
+                 "rail:tors=8,hosts=16,rails=16", "mesh:tors=8,hosts=16,planes=2",
+                 "mesh:tors=1,hosts=16,planes=1")  # a corner: no mesh links, up_deg at 0
+
+
+def table_topology(fabric: str):
+    """The port's ``TableTopology`` of a spec string (its cfg: FATTREE_128's
+    with the fabric; the router reads only the spec's tables)."""
+    from repro_torch.netsim import SimConfig, Topology
+    from repro_torch.netsim.topogen import build_spec
+
+    spec = build_spec(fabric)
+    return Topology.build(SimConfig(n_hosts=spec.n_hosts, hosts_per_tor=16, fabric=fabric))
+
+
+def table_route_case(dev, rs, spec, K, NP, NC, penalty):
+    """Arrivals on a generated fabric in both forms: the engine's (empty
+    slots, fresh injections, every region's first and last queue as a
+    current queue, tied lengths, 4 x capacity of penalty on 15 % of
+    queues) and the reference's per-arrival hosts and flags, with garbage
+    lanes (hosts and queues outside the tables, which the router clips)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.netsim.engine import PCONN, PCURQ, PEV, PF, PHOP
+
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    NQ, NH = spec.n_queues, spec.n_hosts
+    H = max(NH // spec.n_tors, 1)
+    conn_src = rs.randint(0, NH, size=NC)
+    conn_dst = np.where(rs.rand(NC) < 0.3, conn_src // H * H + rs.randint(0, H, size=NC),
+                        rs.randint(0, NH, size=NC))
+    pkt = np.zeros((PF, NP + 1), np.int64)
+    pkt[PCONN] = rs.randint(0, NC, size=NP + 1)
+    pkt[PEV] = rs.randint(0, 65536, size=NP + 1)
+    pkt[PHOP] = rs.randint(1, 5, size=NP + 1)
+    pkt[PCURQ] = rs.randint(0, NQ, size=NP + 1)
+    edges = [q for r in spec.regions for q in (r.base, r.base + r.size - 1)]
+    pkt[PCURQ, : len(edges)] = edges
+    inj = rs.rand(NP + 1) < 0.3
+    inj[: len(edges)] = False
+    pkt[PHOP, inj] = 0
+    pkt[PCURQ, inj] = -1
+    a_idx = rs.randint(0, NP, size=K)
+    a_idx[rs.rand(K) < 0.25] = NP
+    a_idx[: min(K, len(edges))] = np.arange(min(K, len(edges)))
+    if K > 5:
+        a_idx[-5:] = NP
+    rows = pkt[:, a_idx.clip(max=NP - 1)]
+    cc = rows[PCONN].clip(0, NC - 1)
+    src, dst, cur = conn_src[cc], conn_dst[cc], rows[PCURQ].copy()
+    junk = rs.rand(K) < 0.1
+    src[junk] = rs.choice([-3, NH, NH + 9], size=int(junk.sum()))
+    dst[rs.rand(K) < 0.1] = -2
+    dst[rs.rand(K) < 0.05] = NH + 4
+    cur[(rs.rand(K) < 0.1) & (rows[PHOP] > 0)] = NQ + 7
+    q_pen = np.where(rs.rand(NQ) < 0.15, 340, 0)
+    return dict(engine=(i32(rows[PHOP]), i32(rows[PCURQ]), i32(rows[PCONN]), i32(rows[PEV])),
+                reference=(torch.as_tensor(rows[PHOP] == 0, device=dev), i32(cur),
+                           i32(rows[PCONN]), i32(rows[PEV]), i32(src), i32(dst)),
+                a_idx=i32(a_idx), NP=NP, conn_src=i32(conn_src), conn_dst=i32(conn_dst),
+                q_len=i32(rs.randint(0, 3, size=NQ)), q_pen=i32(q_pen) if penalty else None)
+
+
+def table_kernel_cases(dev, rs) -> dict:
+    """The table form of the routing kernel against its plain version on
+    every fabric of TABLE_FABRICS: both forms, adaptive on and off, penalty
+    or none, B = 1, 4 and 64 rows in one launch with the penalty and the
+    connection tables shared (stride 0) or one per row; then timed at the
+    engine's call on the 128-host rail fabric.  Returns the kernel's row of
+    the JSON table."""
+    import torch
+
+    from repro_torch.kernels import next_queue_table as nqt_mod
+    from repro_torch.kernels import ref
+
+    err, n_cases = 0.0, 0
+    for fabric in TABLE_FABRICS:
+        topo = table_topology(fabric)
+        t, spec = topo.tables(dev), topo.spec
+        K = spec.n_queues + spec.n_hosts  # the engine's MAX_ARR
+        for B in (1, 4, 64):
+            cs = [table_route_case(dev, rs, spec, K, 4096, 128, True) for _ in range(B)]
+            stack = lambda f: torch.stack([f(c) for c in cs])
+            eng = tuple(stack(lambda c, j=j: c["engine"][j]) for j in range(4))
+            refm = tuple(stack(lambda c, j=j: c["reference"][j]) for j in range(6))
+            a_idx, q_len = stack(lambda c: c["a_idx"]), stack(lambda c: c["q_len"])
+            for pen_kind in ("shared", "rows", None):
+                pen = {"shared": cs[0]["q_pen"], "rows": stack(lambda c: c["q_pen"]),
+                       None: None}[pen_kind]
+                for tables in ("shared", "rows", "expanded"):
+                    src, dst = {"shared": (cs[0]["conn_src"], cs[0]["conn_dst"]),
+                                "rows": (stack(lambda c: c["conn_src"]),
+                                         stack(lambda c: c["conn_dst"])),
+                                "expanded": (cs[0]["conn_src"].expand(B, -1),
+                                             cs[0]["conn_dst"].expand(B, -1))}[tables]
+                    for adaptive in (False, True):
+                        forms = [("engine", (t, *eng, src, dst, q_len, adaptive, pen, a_idx,
+                                             cs[0]["NP"]))]
+                        if tables == "shared":
+                            forms.append(("reference", (t, *refm, q_len, adaptive, pen)))
+                        for form, args in forms:
+                            if B == 1:  # one run's call: no row axis
+                                args = tuple(a[0] if isinstance(a, torch.Tensor) and a.dim() == 2
+                                             and a.shape[0] == 1 else a for a in args)
+                            got = nqt_mod.next_queue_table_cuda(*args)
+                            want = ref.next_queue_table_ref(*args)
+                            torch.cuda.synchronize()
+                            err = max(err, equal_all([got], [want], (
+                                f"next_queue_table {fabric} B={B} {form} form adaptive={adaptive} "
+                                f"penalty={pen_kind} connection tables {tables}")))
+                            n_cases += 1
+    log(f"kernel next_queue_table: {n_cases} cases bit-exact against the plain version "
+        f"({len(TABLE_FABRICS)} fabrics: {', '.join(TABLE_FABRICS)}; B in (1, 4, 64) x penalty "
+        f"shared / per row / none x connection tables shared / per row / expanded x adaptive x "
+        f"both forms)")
+    # the engine's call on the 128-host rail fabric: K = MAX_ARR slots of a
+    # 32768-slot table, 128 connections, ECMP, penalty shared
+    topo = table_topology(TABLE_FABRICS[1])
+    t, spec = topo.tables(dev), topo.spec
+    K = spec.n_queues + spec.n_hosts
+    c = table_route_case(dev, rs, spec, K, 32768, 128, True)
+    args = (t, *c["engine"], c["conn_src"], c["conn_dst"], c["q_len"], False, c["q_pen"],
+            c["a_idx"], c["NP"])
+    valid = int((c["a_idx"] < c["NP"]).sum())
+    out = nqt_mod.next_queue_table_cuda(*args)
+    # a_idx read and the target written for every slot; per arrival four
+    # packet-row words, two connection-table words and four table words
+    # (q_sw or host_sw, down_next; up_base, up_deg, salt on the way up);
+    # ~45 integer operations per arrival (the hash's ~15, clamps and indexing)
+    b, why = bound_ms(nbytes(c["a_idx"], out) + 40 * valid, 45 * valid)
+    ms = time_ms(lambda: nqt_mod.next_queue_table_cuda(*args))
+    adaptive_args = args[:8] + (True,) + args[9:]
+    log(f"kernel next_queue_table at {TABLE_FABRICS[1]} (K={K}, {valid} arrivals, engine form): "
+        f"ECMP device {ms:.5f} ms, adaptive device "
+        f"{time_ms(lambda: nqt_mod.next_queue_table_cuda(*adaptive_args)):.5f} ms")
+    return dict(
+        name="next_queue_table", route="cuda", source="src/repro_torch/csrc/next_queue_table.cu",
+        replaces="src/repro/kernels/ecmp_hash.py:40", ms=ms,
+        eager_ms=eager_ms(lambda: nqt_mod.next_queue_table_cuda(*args)),
+        plain_ms=time_ms(lambda: ref.next_queue_table_ref(*args)),
+        bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
+        shape=f"K={K} ({valid} arrivals) NQ={spec.n_queues} {TABLE_FABRICS[1]} engine form, "
+              f"ECMP; the table form of the ecmp_hash redesign")
+
+
+def scale_kernel_shapes(dev, rs) -> None:
+    """seg_sum (the feedback call's five fields at S = 3 (NC + 1)), seg_rank
+    (S = NC + 1) and reps_tick (N = NC, R = 2) at the scale rows' shapes, NC
+    = 10**5 and 10**6, B = 1 and 2: bit-exact against the plain versions,
+    then timed (CUDA-graph replay) beside the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import reps_update as ru_mod
+    from repro_torch.kernels import seg_rank as sr_mod
+    from repro_torch.kernels import seg_sum as ss_mod
+
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    K = 128  # MAX_EV = NH at FATTREE_128's shape
+    for NC in (10**5, 10**6):
+        for B in (1, 2):
+            sq = (lambda x: x[0]) if B == 1 else (lambda x: x)
+            S = 3 * (NC + 1)
+            seg = rs.randint(0, S, size=(B, K))
+            seg[rs.rand(B, K) < 0.3] = S  # the engine's sentinel
+            seg = sq(i32(seg))
+            fields = [sq(i32(rs.randint(0, 9, size=(B, K)))),
+                      sq(torch.as_tensor(rs.rand(B, K) < 0.5, device=dev)),
+                      sq(i32(rs.randint(0, 65536, size=(B, K)))),
+                      sq(torch.as_tensor(rs.rand(B, K) < 0.3, device=dev)),
+                      sq(i32(rs.randint(0, 900, size=(B, K))))]
+            got = ss_mod.seg_sum_cuda(seg, fields, S)
+            equal_all([got], [ref.seg_sum_ref(seg, fields, S)], f"seg_sum NC={NC} B={B} S={S}")
+            ss_b = bound_ms(nbytes(seg, *fields, got), int((seg < S).sum()) * 5)
+            ss_ms = time_ms(lambda: ss_mod.seg_sum_cuda(seg, fields, S), reps=3, inner=10)
+            rk = rs.randint(0, NC + 1, size=(B, K))
+            rk[:, ::3] = NC  # the sentinel segment, many repeats
+            rk = sq(i32(rk))
+            got = sr_mod.seg_rank_cuda(rk, NC + 1)
+            equal_all([got], [ref.seg_rank_ref(rk, NC + 1)], f"seg_rank NC={NC} B={B}")
+            sr_b = bound_ms(nbytes(rk, got), rk.numel())
+            sr_ms = time_ms(lambda: sr_mod.seg_rank_cuda(rk, NC + 1), reps=3, inner=10)
+            shape, n = ((NC,) if B == 1 else (B, NC)), B * NC
+            r = lambda lo, hi: i32(rs.randint(lo, hi, size=n)).reshape(shape)
+            bb = lambda p: torch.as_tensor(rs.rand(n) < p, device=dev).reshape(shape)
+            state = [i32(rs.randint(0, 65536, size=(n, 8))).reshape(*shape, 8),
+                     torch.as_tensor(rs.rand(n, 8) < 0.5, device=dev).reshape(*shape, 8),
+                     r(0, 8), r(0, 9), r(0, 3), bb(0.3), r(0, 3000), r(0, 3)]
+            acks = [(bb(0.5), r(0, 65536), bb(0.3)) for _ in range(2)]
+            ev = [tuple(a[c] for a in acks) for c in range(3)] + [bb(0.2), bb(0.6), r(0, 65536)]
+            outs = ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800)
+            equal_all(outs, ref.reps_tick_ref(*state, *ev, 1234, 32, 800),
+                      f"reps_tick N={NC} B={B}")
+            flat_ev = [x for e in ev for x in (e if isinstance(e, tuple) else (e,))]
+            ru_b = bound_ms(nbytes(*state, *flat_ev, *outs), n * 8 * 4)
+            ru_ms = time_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800),
+                            reps=3, inner=10)
+            log(f"kernel at scale NC={NC} B={B}: bit-exact; seg_sum (S={S}, K={K}, five fields) "
+                f"device {ss_ms:.5f} ms, bound {ss_b[0]:.3e} ms ({ss_b[1]}); seg_rank (S={NC + 1}, "
+                f"K={K}) device {sr_ms:.5f} ms, bound {sr_b[0]:.3e} ms ({sr_b[1]}); reps_tick "
+                f"(N={NC}, R=2) device {ru_ms:.5f} ms, bound {ru_b[0]:.3e} ms ({ru_b[1]})")
+            del state, acks, ev, outs
+
+
+def fabric_per_tick(reps: bool) -> dict:
+    """A generated fabric's kernel launches per tick: the table form routes,
+    the arithmetic routing and the flat hash never run."""
+    return {"next_queue_table": 1, "next_queue": 0, "ecmp_hash": 0, "seg_sum": 4,
+            "seg_rank": 1, "queue_tick": 1, "reps_tick": int(reps)}
+
+
+def counted_run(what: str, sim, ticks: int, want: dict):
+    """``sim.run(ticks)`` on the card with exact launch counts per tick;
+    returns the final state, the launches and the seconds."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _ = sim.run(ticks, state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in want.items():
+        if counts[k] != n * ticks:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} times, expected {n} x {ticks}")
+    return state, counts, secs
+
+
+def fabric_phase(dev, fig18_card: dict, fig18_ticks: int, check_ticks: int) -> dict:
+    """Generated fabrics at full width: (a) the clos3 table form of
+    FATTREE_128_3T (``clos3:pods=4,tors=2,hosts=16,aggs=4,up=4``), fig18's
+    REPS cell, equals the fig18 phase's arithmetic card run of
+    ``fig18_ticks`` (its card-vs-CPU horizon) on every leaf; (b) ``rail`` and ``mesh`` at 128 hosts (8 ToRs x 16 hosts; 16
+    rails, 2 planes), REPS and adaptive RoCE, a permutation of 1024-packet
+    messages with ToR-0's first two up queues down from tick 100, card ==
+    CPU on every leaf after ``check_ticks``.  The table form launches once
+    per tick, the arithmetic routing and the flat hash never.  Returns the
+    launches per kernel."""
+    from repro_torch.configs import FATTREE_128, FATTREE_128_3T
+    from repro_torch.core import make_lb
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import (
+        Simulator, Topology, failures, sim_state_to_numpy, summarize, workloads,
+    )
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    cfg = FATTREE_128_3T.replace(fabric=TABLE_FABRICS[0])
+    sim = Simulator(cfg, workloads.permutation(cfg.n_hosts, 2048, seed=3),
+                    make_lb("reps", evs_size=cfg.evs_size), device=dev)
+    state, counts, secs = counted_run("clos3/reps", sim, fig18_ticks, fabric_per_tick(True))
+    for k, n in counts.items():
+        totals[k] += n
+    same_leaves(sim_state_to_numpy(state), fig18_card, "clos3 vs arithmetic FATTREE_128_3T")
+    s = summarize(sim, state)
+    log(f"fabric clos3 ({TABLE_FABRICS[0]}) REPS: {fig18_ticks} ticks in {secs:.3f} s = "
+        f"{fig18_ticks / secs:.1f} ticks/s; completed={s.completed}/{s.n_conns}; all "
+        f"{len(fig18_card)} SimState leaves bit-equal to the arithmetic FATTREE_128_3T run "
+        f"(fig18) at tick {fig18_ticks}; launches={counts}")
+    for fabric in TABLE_FABRICS[1:3]:
+        cfg = FATTREE_128.replace(fabric=fabric)
+        ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+        for lbn in ("reps", "adaptive_roce"):
+            finals = []
+            for d in (dev, "cpu"):
+                sim = Simulator(cfg, workloads.permutation(cfg.n_hosts, 1024, seed=3),
+                                make_lb(lbn, evs_size=cfg.evs_size),
+                                failures=failures.link_down(ups, 100, failures.FOREVER),
+                                device=d)
+                t0 = time.perf_counter()
+                if d == dev:
+                    state, counts, secs = counted_run(f"{fabric}/{lbn}", sim, check_ticks,
+                                                      fabric_per_tick(lbn == "reps"))
+                    for k, n in counts.items():
+                        totals[k] += n
+                else:
+                    state, _ = sim.run(check_ticks)
+                finals.append(sim_state_to_numpy(state))
+                log(f"fabric {fabric} {lbn}: {check_ticks} ticks on {d} in "
+                    f"{time.perf_counter() - t0:.3f} s")
+            same_leaves(*finals, f"{fabric}/{lbn}")
+            st = finals[0]["s_stats"]
+            log(f"card vs CPU: fabric {fabric} {lbn}: all {len(finals[0])} SimState leaves "
+                f"bit-equal after {check_ticks} ticks (delivered={int(st[3])}, "
+                f"drops_fail={int(st[1])}); launches={counts}")
+    return totals
+
+
+def active_set_invariant(what: str, NP: int, state) -> None:
+    """``as_idx`` ascending, exactly the non-FREE slots; ``as_count +
+    fl_count == NP``."""
+    import numpy as np
+
+    from repro_torch.netsim.engine import FREE, PS
+
+    idx = state.as_idx.cpu().numpy()
+    live = idx[idx < NP]
+    nonfree = np.nonzero(state.pkt[PS, :NP].cpu().numpy() != FREE)[0]
+    if not (np.all(np.diff(live) > 0) and np.array_equal(live, nonfree)
+            and int(state.as_count) == len(live)
+            and int(state.as_count) + int(state.fl_count) == NP):
+        raise AssertionError(f"{what}: the active set is not the ascending non-FREE slots "
+                             f"({len(live)} entries, as_count={int(state.as_count)}, "
+                             f"fl_count={int(state.fl_count)}, NP={NP})")
+
+
+def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: int) -> dict:
+    """Scale mode on the card: (a) fig06/reps with ``conn_sharding=True``
+    (A == NP) equals the dense card run ``dense_reps`` (the card-vs-CPU
+    phase's run of the main path's cell: ``(simulator, state, ticks)``) on
+    every leaf but as_idx / as_count, the active set holds exactly the
+    non-FREE slots, and device launches per tick of the sparse tick against
+    the dense one from there; (b) a
+    small cell with ``active_slots`` binding, card == CPU; (c) the 10**5 row
+    (``bench/scale_smoke.py``'s, 300 ticks) card == CPU; (d) the 10**6 row
+    through ``SweepEngine(collect="none")`` with exact launch counts: done >
+    0, NP = A by the lifetime bound, ticks/s, peak memory, and a profiled
+    window (device busy share, launches per tick); its live REPS state packs
+    to <= 25 B/conn and round-trips, and ``measure_scale(10**6)``.  Returns
+    the launches per kernel."""
+    import torch
+
+    from repro_torch.bench.common import Rows
+    from repro_torch.bench.scale_smoke import run_row
+    from repro_torch.bench.table1_footprint import check_roundtrip, measure_scale
+    from repro_torch.core import make_lb
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import Simulator, SimConfig, sim_state_to_numpy, workloads
+    from repro_torch.netsim.engine import ST_ALLOC_FAIL, tree_map
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    t_start = time.perf_counter()
+
+    def step_done(what):
+        log(f"scale phase: {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    # (a) sparse == dense at fig06/reps
+    dense_sim, dense_state, main_ticks = dense_reps
+    (cfg, wl, lb), kw = fig06_scenario("reps")
+    sim = Simulator(cfg.replace(conn_sharding=True), wl, lb, **kw, device=dev)
+    if (sim.NP, sim.A) != (dense_sim.NP, dense_sim.NP):
+        raise AssertionError(f"fig06 scale mode: NP={sim.NP} A={sim.A}, dense NP={dense_sim.NP}")
+    state, counts, secs = counted_run("fig06/reps sparse", sim, main_ticks, FLEET_PER_TICK)
+    for k, n in counts.items():
+        totals[k] += n
+    active_set_invariant("fig06/reps sparse", sim.NP, state)
+    a, b = sim_state_to_numpy(state), sim_state_to_numpy(dense_state)
+    for k in ("as_idx", "as_count"):
+        a.pop(k), b.pop(k)
+    same_leaves(a, b, "fig06/reps sparse vs dense")
+    log(f"scale mode fig06/reps (NP = A = {sim.NP}): {main_ticks} ticks in {secs:.3f} s = "
+        f"{main_ticks / secs:.1f} ticks/s; all {len(a)} SimState leaves but as_idx / as_count "
+        f"bit-equal to the cell's dense card run; active set: {int(state.as_count)} "
+        f"ascending non-FREE slots, as_count + fl_count == NP")
+    win = 20  # profiled ticks of each tick body
+    for label, s, st, t in (("dense", dense_sim, dense_state, main_ticks),
+                            ("sparse", sim, state, main_ticks)):
+        draws = s.tick_draws(s.base_key, t, win)
+        cur = {"state": st}
+
+        def step(i, s=s, t=t, draws=draws, cur=cur):
+            cur["state"], _ = s.tick_fn(cur["state"], t + i, draws.row(i))
+
+        profile_ticks(f"fig06/reps {label}, ticks {t}-{t + win}", step, win)
+    step_done("(a) fig06 sparse vs dense")
+
+    # (b) a binding active set, card == CPU
+    small = SimConfig(n_hosts=16, hosts_per_tor=4, uplinks_per_tor=4, rto_ticks=120,
+                      conn_sharding=True, active_slots=48)
+    finals = []
+    for d in (dev, "cpu"):
+        s = Simulator(small, workloads.permutation(16, 24, seed=3),
+                      make_lb("reps", evs_size=small.evs_size), seed=7, device=d)
+        st, _ = s.run(300)
+        finals.append(sim_state_to_numpy(st))
+    same_leaves(*finals, "active_slots=48")
+    fails = int(finals[0]["s_stats"][ST_ALLOC_FAIL])
+    if fails == 0:
+        raise AssertionError("active_slots=48 did not bind: no alloc failure")
+    log(f"card vs CPU: scale mode with active_slots=48 (16 hosts, 300 ticks): all "
+        f"{len(finals[0])} SimState leaves bit-equal; alloc failures {fails}")
+    step_done("(b) binding active set")
+
+    # (c) the 10**5 row, card == CPU
+    finals = []
+    for d in (dev, "cpu"):
+        eng, res, info = run_row(10**5, row5_ticks, device=d)
+        finals.append(sim_state_to_numpy(res.state_for(eng.cases[0].name)))
+        log(f"scale row 10**5 on {d}: {row5_ticks} ticks, exec {info['exec_wall_s']:.3f} s = "
+            f"{info['ticks_per_sec']:.1f} ticks/s; done={info['done']} NP={info['NP']} "
+            f"A={info['A']} NC padded {info['NC_padded']}")
+        if d == dev:
+            for k, n in FLEET_PER_TICK.items():
+                if info["launches_per_tick"][k] != n:
+                    raise AssertionError(f"scale row 10**5: {k} {info['launches_per_tick'][k]} "
+                                         f"launches per tick, expected {n}")
+                totals[k] += n * row5_ticks
+    same_leaves(*finals, "scale row 10**5")
+    log(f"card vs CPU: scale row 10**5: all {len(finals[0])} SimState leaves bit-equal after "
+        f"{row5_ticks} ticks")
+    del finals
+    step_done("(c) 10**5 row")
+
+    # (d) the 10**6 row on the card
+    eng, res, info = run_row(10**6, row6_ticks, device=dev)
+    bucket = eng.buckets[0]
+    sim6 = bucket.sim
+    if (info["NP"], info["A"]) != (sim6._active_bound(), sim6._active_bound()):
+        raise AssertionError(f"scale row 10**6: NP={info['NP']} A={info['A']}, lifetime bound "
+                             f"{sim6._active_bound()}")
+    for k, n in FLEET_PER_TICK.items():
+        if info["launches_per_tick"][k] != n:
+            raise AssertionError(f"scale row 10**6: {k} {info['launches_per_tick'][k]} "
+                                 f"launches per tick, expected {n}")
+        totals[k] += n * row6_ticks
+    log(f"scale row 10**6: {row6_ticks} ticks, exec {info['exec_wall_s']:.3f} s = "
+        f"{info['ticks_per_sec']:.2f} ticks/s (wall with set-up {info['wall_s']:.3f} s); "
+        f"done={info['done']} of {info['conns']} (NC padded {info['NC_padded']}); NP = A = {info['NP']} "
+        f"(the lifetime bound); peak memory {info['peak_mem_bytes']} B = "
+        f"{info['peak_mem_bytes'] / 2**30:.3f} GiB; kernel launches per tick "
+        f"{ {k: v for k, v in info['launches_per_tick'].items() if v} }")
+    final = bucket.final_state
+    states = tree_map(lambda x: x.to(dev), final)
+    n_prof = prof_ticks
+    chunk = sim6.draw_chunk(states.q_len.shape[0])
+    cur = {"states": states, "draws": None}
+
+    def step(i):
+        t = row6_ticks + i
+        if i % chunk == 0:
+            cur["draws"] = sim6.tick_draws(bucket.keys, t, min(chunk, n_prof - i), bucket.scn)
+        cur["states"], _ = sim6.step_rows(cur["states"], t, cur["draws"].row(i % chunk),
+                                          bucket.scn, trace=False)
+
+    profile_ticks(f"scale row 10**6, ticks {row6_ticks}-{row6_ticks + n_prof} (draws every "
+                  f"{chunk} ticks included)", step, n_prof)
+    del states, cur
+    reps_state = tree_map(lambda x: x[0], final.lb_state[1][0])  # the row's REPS slot
+    lbv = bucket.lb.variants[0]
+    bpc = check_roundtrip(lbv.cfg, reps_state)
+    if bpc > 25:
+        raise AssertionError(f"scale row 10**6: packed REPS state {bpc} B/conn > 25")
+    live = int((reps_state.n_cached > 0).sum())
+    log(f"scale row 10**6: the row's live REPS state ({reps_state.head.shape[0]} conns, "
+        f"{live} with cached EVs) packs to {bpc:.3f} B/conn and round-trips exactly")
+    del final, res, eng, bucket, reps_state
+    rows = Rows(device="cuda")
+    bpc = measure_scale(10**6, rows, device=dev)
+    log(f"scale measure_scale(10**6) on the card: {bpc:.3f} B/conn, round trip exact")
+    step_done("(d) 10**6 row")
+    torch.cuda.empty_cache()
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -910,7 +1394,9 @@ def profile_ticks(label: str, step, ticks: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device trace alone: the host's op events are not read here, and
+    # processing them took most of a window's seconds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(ticks):
             step(i)
@@ -956,10 +1442,11 @@ def fig18_cell(device):
                      make_lb("reps", evs_size=cfg.evs_size), device=device)
 
 
-def three_tier_cell(dev, ticks: int, check_ticks: int) -> dict:
+def three_tier_cell(dev, ticks: int, check_ticks: int) -> tuple[dict, dict]:
     """The fig18/3tier/reps cell on the card with exact launch counts, every
     queue region carrying traffic; then card == CPU on every SimState leaf
-    after ``check_ticks``.  Returns the launches per kernel."""
+    after ``check_ticks``.  Returns the launches per kernel and the leaves
+    of the card run of ``check_ticks`` (``sim_state_to_numpy``)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1008,7 +1495,7 @@ def three_tier_cell(dev, ticks: int, check_ticks: int) -> dict:
     same_leaves(*finals, "fig18/3tier/reps")
     log(f"card vs CPU: fig18/3tier/reps: all {len(finals[0])} SimState leaves bit-equal after "
         f"{check_ticks} ticks")
-    return counts
+    return counts, finals[0]
 
 
 def arena_cells(dev, ticks: int) -> dict:
@@ -1424,7 +1911,7 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
                     st, _ = sim.step_rows(st, warm + i, d.row(i))
         return st
 
-    prof_ticks = 50
+    prof_ticks = 20
     typical = {}  # (B, summary) -> (total, by name) of the typical tick
     for B in Bs:
         for summary in (False, True):
@@ -1821,7 +2308,7 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
     if b_u.program.masked or b_u.plan.key != b_m.plan.key:
         raise AssertionError("sweep (c): the unmasked twin bucket has other shapes")
     lo = min(int(h) for h in b_m.horizons) // 2
-    n_w = lo // 2
+    n_w = min(lo // 2, 20)
     per = {}
     for label, e, b in (("merged", e_m, b_m), ("unmasked", unmasked, b_u)):
         c = e.bucket_carry(b, "summary")
@@ -1854,22 +2341,26 @@ def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
             raise AssertionError(f"{what}: card and CPU differ in SimState leaf {k} at {bad}")
 
 
-def card_vs_cpu(dev, ticks: int) -> None:
+def card_vs_cpu(dev, ticks: int) -> tuple:
+    """The fig06/reps cell for ``ticks`` on the card and on the CPU: every
+    leaf equal.  Returns the card run ``(simulator, state, ticks)``."""
     from repro_torch.netsim import sim_state_to_numpy
     from repro_torch.netsim.engine import ST_TIMEOUTS
 
-    finals = []
+    finals, card = [], None
     for d in (dev, "cpu"):
         sim = fig06_cell("reps", d)
         t0 = time.perf_counter()
         state, _ = sim.run(ticks)
         finals.append(sim_state_to_numpy(state))
+        card = card or (sim, state, ticks)
         log(f"card vs CPU: REPS {ticks} ticks on {d} in {time.perf_counter() - t0:.3f} s")
     gpu, cpu = finals
     same_leaves(gpu, cpu, "fig06/reps")
     froze = int((gpu["lb_state.exit_freezing"] > 0).sum())  # set only on entering freezing
     log(f"card vs CPU: all {len(gpu)} SimState leaves bit-equal after {ticks} ticks "
         f"(timeouts={int(gpu['s_stats'][ST_TIMEOUTS])}, REPS conns that entered freezing={froze})")
+    return card
 
 
 def zoo_card_vs_cpu(dev, ticks: int) -> None:
@@ -1907,27 +2398,35 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
     ap.add_argument("--arena-ticks", type=int, default=1100, help="arena ticks per cell")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
-    ap.add_argument("--zoo-check-ticks", type=int, default=600,
+    ap.add_argument("--zoo-check-ticks", type=int, default=500,
                     help="card-vs-CPU horizon of each zoo load balancer")
-    ap.add_argument("--fig18-ticks", type=int, default=2000, help="fig18/3tier/reps ticks")
+    ap.add_argument("--fig18-ticks", type=int, default=1200, help="fig18/3tier/reps ticks")
     ap.add_argument("--fig18-check-ticks", type=int, default=600,
                     help="fig18/3tier/reps card-vs-CPU horizon")
-    ap.add_argument("--fleet-ticks", type=int, default=800,
+    ap.add_argument("--fleet-ticks", type=int, default=600,
                     help="ticks of the B=4 fleet held against serial runs")
     ap.add_argument("--fleet-check-ticks", type=int, default=600,
                     help="card-vs-CPU horizon of the small fleet")
-    ap.add_argument("--fleet-bench-ticks", type=int, default=200,
+    ap.add_argument("--fleet-bench-ticks", type=int, default=150,
                     help="timed ticks per fleet per round")
-    ap.add_argument("--fleet-rounds", type=int, default=3, help="interleaved rounds over B")
+    ap.add_argument("--fleet-rounds", type=int, default=2, help="interleaved rounds over B")
     ap.add_argument("--tel-ticks", type=int, default=1100,
                     help="ticks of the four full-width telemetry rows held against serial runs")
     ap.add_argument("--tel-check-ticks", type=int, default=900,
                     help="card-vs-CPU horizon of the small telemetry fleet")
-    ap.add_argument("--tel-bench-ticks", type=int, default=150,
+    ap.add_argument("--tel-bench-ticks", type=int, default=100,
                     help="timed ticks per (B, path) per telemetry round")
-    ap.add_argument("--tel-rounds", type=int, default=3, help="interleaved telemetry rounds")
+    ap.add_argument("--tel-rounds", type=int, default=2, help="interleaved telemetry rounds")
     ap.add_argument("--sweep-fig06-ticks", type=int, default=8000,
                     help="the sweep's fig06 horizon (8000: the figure's own)")
+    ap.add_argument("--fabric-check-ticks", type=int, default=300,
+                    help="card-vs-CPU horizon of the rail and mesh cells")
+    ap.add_argument("--scale-row5-ticks", type=int, default=300,
+                    help="ticks of the 10**5-connection row (card vs CPU)")
+    ap.add_argument("--scale-row6-ticks", type=int, default=1000,
+                    help="ticks of the 10**6-connection row")
+    ap.add_argument("--scale-prof-ticks", type=int, default=100,
+                    help="profiled ticks of the 10**6-connection row")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1981,17 +2480,28 @@ def main() -> int:
                 f"device {r['ms_old']:.5f} ms, eager from Python {r['eager_old_ms']:.5f} ms")
 
     totals, rates, main_refs = main_path(dev, args.ticks)
-    profile_window(dev, warm=300, ticks=100)
+    profile_window(dev, warm=300, ticks=50)
     phase_done("main path and profile")
-    for k, n in three_tier_cell(dev, args.fig18_ticks, args.fig18_check_ticks).items():
+    fig18_counts, fig18_card = three_tier_cell(dev, args.fig18_ticks, args.fig18_check_ticks)
+    for k, n in fig18_counts.items():
         totals[k] += n
     phase_done("fig18/3tier")
     for k, n in arena_cells(dev, args.arena_ticks).items():
         totals[k] += n
     phase_done("arena")
-    card_vs_cpu(dev, args.check_ticks)
+    dense_reps = card_vs_cpu(dev, args.check_ticks)
     zoo_card_vs_cpu(dev, args.zoo_check_ticks)
     phase_done("card vs CPU")
+    for k, n in fabric_phase(dev, fig18_card, args.fig18_check_ticks,
+                             args.fabric_check_ticks).items():
+        totals[k] += n
+    del fig18_card
+    phase_done("generated fabrics")
+    for k, n in scale_phase(dev, dense_reps, args.scale_row5_ticks, args.scale_row6_ticks,
+                            args.scale_prof_ticks).items():
+        totals[k] += n
+    del dense_reps
+    phase_done("scale mode")
     fleet_totals, warmed = fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks,
                                        args.fleet_bench_ticks, args.fleet_rounds, warm=300,
                                        one_run_rate=rates["reps"])
@@ -2003,8 +2513,8 @@ def main() -> int:
         totals[k] += n
     del warmed
     phase_done("telemetry")
-    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=300,
-                            prof_ticks=50).items():
+    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=200,
+                            prof_ticks=20).items():
         totals[k] += n
     del main_refs
     phase_done("sweep")

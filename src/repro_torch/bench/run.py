@@ -3,6 +3,7 @@
     python -m repro_torch.bench.run --only fig06                  # on the card
     python -m repro_torch.bench.run --only fig02,fig06 --smoke --device cpu
     python -m repro_torch.bench.run --only fig06 --full            # paper scale
+    python -m repro_torch.bench.run --only scale --scale-conns 1000000 --scale-ticks 1000
 
 Prints ``name,us_per_call,derived`` CSV rows and merges them into
 ``build/repro_torch/BENCH_torch.json`` (``--out`` to write elsewhere): the
@@ -10,7 +11,10 @@ rows of the figures run replace their earlier rows, the other figures'
 rows are kept.  It never writes the reference's
 ``benchmarks/BENCH_netsim.json``.  ``--full``, ``--smoke``, ``--seeds`` and
 ``--collect`` default to the reference's BENCH_FULL, BENCH_SMOKE,
-BENCH_SEEDS and BENCH_COLLECT.
+BENCH_SEEDS and BENCH_COLLECT.  The scale modules (``scale_smoke``: one
+scale-mode sweep row; ``table1_footprint``: REPS's per-connection bytes)
+run only when ``--only`` names them; ``--scale-conns`` / ``--scale-ticks``
+(BENCH_SCALE_CONNS, BENCH_SCALE_TICKS; default 10**5 and 300) size them.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ MODULES = [
     "fig08_extreme",
     "fig02_symmetric",
 ]
+SCALE_MODULES = ["scale_smoke", "table1_footprint"]  # run only when --only names them
 
 
 def main(argv=None) -> int:
@@ -46,14 +51,21 @@ def main(argv=None) -> int:
     ap.add_argument("--collect", choices=common.COLLECTS, default=common.default_collect())
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--out", default=common.bench_path(), help="the BENCH file to merge into")
+    ap.add_argument("--scale-conns", type=int,
+                    default=int(os.environ.get("BENCH_SCALE_CONNS", "100000")),
+                    help="connections of the scale modules' row")
+    ap.add_argument("--scale-ticks", type=int,
+                    default=int(os.environ.get("BENCH_SCALE_TICKS", "300")),
+                    help="ticks of the scale row")
     args = ap.parse_args(argv)
     if args.seeds < 1:
         ap.error(f"--seeds must be >= 1, got {args.seeds}")
     os.environ["BENCH_SEEDS"] = str(args.seeds)  # sweep_case's seed axis
     keys = [k.strip() for k in args.only.split(",") if k.strip()]
     selected = [m for m in MODULES if not keys or any(m.startswith(k) for k in keys)]
+    selected += [m for m in SCALE_MODULES if any(m.startswith(k) for k in keys)]
     if not selected:
-        ap.error(f"--only {args.only!r} selects no figure of {MODULES}")
+        ap.error(f"--only {args.only!r} selects no module of {MODULES + SCALE_MODULES}")
 
     if args.device in (None, "cuda"):
         from repro_torch.kernels import build
@@ -65,7 +77,11 @@ def main(argv=None) -> int:
     t0 = time.time()
     for name in selected:
         mod = importlib.import_module(f"repro_torch.bench.{name}")
-        mod.main(rows, full=args.full, smoke=args.smoke, collect=args.collect, device=args.device)
+        if name in SCALE_MODULES:
+            mod.main(rows, conns=args.scale_conns, ticks=args.scale_ticks, device=args.device)
+        else:
+            mod.main(rows, full=args.full, smoke=args.smoke, collect=args.collect,
+                     device=args.device)
     wall = time.time() - t0
     records = {r["name"]: {k: v for k, v in r.items() if k != "name"} for r in rows.records}
 

@@ -112,6 +112,8 @@ _SIGNATURES = {
     "repro_queue_tick": [_P] * 5 + [_I] * 7 + [_F, _F, _I] + [_P] * 7,
     "repro_ecmp_hash": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _P],
     "repro_next_queue": [_P] * 8 + [_I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "repro_next_queue_table": [_P] * 6 + [_I] * 4 + [_P] * 7 + [_I, _I, _I, _P, _P, _I, _I,
+                                                                  _I, _I, _P, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Dispatch of the six kernels by the device of their tensors.
+"""Dispatch of the seven kernels by the device of their tensors.
 
 A CPU tensor goes to the kernel's plain version in ``ref`` — that is the
 only reason the plain version runs.  A CUDA tensor goes to the hand-written
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import ecmp_hash as _eh
 from repro_torch.kernels import next_queue as _nq
+from repro_torch.kernels import next_queue_table as _nqt
 from repro_torch.kernels import queue_tick as _qt
 from repro_torch.kernels import ref
 from repro_torch.kernels import reps_update as _ru
@@ -21,7 +22,7 @@ from repro_torch.kernels import seg_sum as _ss
 
 KERNEL_MODULES = {
     "seg_sum": _ss, "seg_rank": _sr, "reps_tick": _ru, "queue_tick": _qt, "ecmp_hash": _eh,
-    "next_queue": _nq,
+    "next_queue": _nq, "next_queue_table": _nqt,
 }
 
 
@@ -90,6 +91,19 @@ def next_queue(g, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptiv
     if _on_cuda(cur_queue, "next_queue"):
         return _nq.next_queue_cuda(*args)
     return ref.next_queue_ref(*args)
+
+
+def next_queue_table(t, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptive: bool,
+                     q_penalty=None, a_idx=None, n_pkt: int = 0) -> torch.Tensor:
+    """The routing step of a generated fabric: each arrival's next queue by
+    the tables ``t`` (a ``next_queue_table.RouteTables``), in the
+    reference's form or, with ``a_idx``, the engine's; see
+    ``ref.next_queue_table_ref``."""
+    args = (t, at_injection, cur_queue, flow_id, ev, src, dst, q_len, adaptive, q_penalty,
+            a_idx, n_pkt)
+    if _on_cuda(cur_queue, "next_queue_table"):
+        return _nqt.next_queue_table_cuda(*args)
+    return ref.next_queue_table_ref(*args)
 
 
 def launch_counts() -> dict[str, int]:

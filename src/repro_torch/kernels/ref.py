@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six hand-written kernels.
+"""Plain PyTorch versions of the seven hand-written kernels.
 
 Each ``<name>_ref`` computes exactly what the CUDA kernel behind
 ``repro_torch.kernels.<name>`` must produce, and follows the reference's
@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import reps as reps_core
 from repro_torch.kernels.ecmp_hash import check_nports
 from repro_torch.kernels.next_queue import RouteGeometry, check_geometry
+from repro_torch.kernels.next_queue_table import RouteTables
 from repro_torch.kernels.reps_update import ack_rounds
 from repro_torch.rng import M32, _mulmod32
 
@@ -159,19 +160,72 @@ def next_queue_ref(g: RouteGeometry, at_injection, cur_queue, flow_id, ev, src, 
     return nxt if a_idx is None else torch.where(valid, nxt, g.n_queues)
 
 
+def next_queue_table_ref(t: RouteTables, at_injection, cur_queue, flow_id, ev, src, dst, q_len,
+                         adaptive: bool, q_penalty=None, a_idx=None,
+                         n_pkt: int = 0) -> torch.Tensor:
+    """The queue each arrival enters next on a generated fabric
+    (``repro.netsim.topology``'s ``TableTopology.next_queue``), by the
+    tables ``t``: the arguments, forms and rows as ``next_queue_ref``.
+
+    ``sw`` is the source host's ToR at injection, else the switch the
+    current queue feeds (indices clipped to the tables, then ``sw`` to
+    ``[0, NS)``: garbage lanes read real entries); the packet goes down
+    ``down_next[sw, dst]`` when that is >= 0, else to ``up_base[sw, dst] +
+    choice``, ``choice`` the ECMP hash of (flow, EV, ``salt[sw]``) over
+    ``max(up_deg[sw], 1)`` ports or, under ``adaptive``, the first least of
+    ``q_len`` (``+ q_penalty``) over ``t.max_up_deg`` candidates, the lanes
+    at or past ``up_deg[sw]`` reading ``2**30``."""
+    if a_idx is not None:  # mask the empty slots, gather the hosts
+        valid = a_idx < n_pkt
+        flow_id = torch.where(valid, flow_id, 0)
+        ev = torch.where(valid, ev, 0)
+        at_injection = torch.where(valid, at_injection, 1) == 0
+        cur_queue = torch.where(valid, cur_queue, 0)
+        cc = flow_id.clamp(0, src.shape[-1] - 1)
+        if src.dim() == 2:  # one table per row
+            cc = cc.long()
+            src, dst = torch.gather(src, -1, cc), torch.gather(dst, -1, cc)
+        else:
+            src, dst = src[cc], dst[cc]
+    if adaptive and q_penalty is not None:
+        q_len = q_len + q_penalty
+    NH, NQ, NS = t.n_hosts, t.n_queues, t.n_switches
+    dev = cur_queue.device
+    sw = torch.where(at_injection, t.host_sw[src.clamp(0, NH - 1)],
+                     t.q_sw[cur_queue.clamp(0, NQ - 1)]).clamp(0, NS - 1)
+    cell = sw.long() * NH + dst.clamp(0, NH - 1)
+    down_q = t.down_next.reshape(-1)[cell]
+    base = t.up_base.reshape(-1)[cell]
+    deg = t.up_deg[sw]
+    if adaptive:
+        lane = torch.arange(t.max_up_deg, dtype=torch.int32, device=dev)
+        cand = (base[..., None] + lane).clamp(0, NQ - 1)
+        lens = torch.gather(q_len, -1, cand.flatten(-2).long()).view(cand.shape)
+        lens = torch.where(lane < deg[..., None], lens, 2**30)
+        choice = torch.argmin(lens, dim=-1).to(torch.int32)
+    else:
+        choice = ecmp_hash_ref(flow_id, ev, t.salt[sw], deg.clamp(min=1))
+    nxt = torch.where(down_q >= 0, down_q, base + choice).to(torch.int32)
+    return nxt if a_idx is None else torch.where(valid, nxt, NQ)
+
+
 # ---------------------------------------------------------------------------
 def seg_sum_ref(seg: torch.Tensor, vals, n_segments: int) -> torch.Tensor:
-    """``out[..., f, s] = sum_k vals[..., f, k] * (seg[..., k] == s)`` as a
-    dense one-hot masked reduction; ids outside ``[0, n_segments)`` fall in
-    no bucket.  ``seg (..., K)`` and ``vals (..., F, K)`` int32, or a
-    sequence of F bool / int32 fields shaped like ``seg`` (bools count as
-    0/1) -> ``(..., F, S)``."""
+    """``out[..., f, s] = sum_k vals[..., f, k] * (seg[..., k] == s)``; ids
+    outside ``[0, n_segments)`` fall in no bucket.  ``seg (..., K)`` and
+    ``vals (..., F, K)`` int32, or a sequence of F bool / int32 fields shaped
+    like ``seg`` (bools count as 0/1) -> ``(..., F, S)``.  One scatter-add
+    into an extra bucket that takes the out-of-range ids (int32 addition is
+    exact in any order), so memory and work follow K + S, not K x S: the
+    scale mode's feedback call has S = 3 (NC + 1) ~ 3e6."""
     if not isinstance(vals, torch.Tensor):
         vals = torch.stack([v.to(torch.int32) for v in vals], dim=-2)
-    s = torch.arange(n_segments, dtype=seg.dtype, device=seg.device)
-    onehot = seg[..., :, None] == s  # (..., K, S)
-    picked = torch.where(onehot[..., None, :, :], vals[..., :, :, None], 0)
-    return picked.sum(dim=-2, dtype=torch.int32)
+    vals = vals.to(torch.int32)
+    *lead, F, K = vals.shape
+    idx = torch.where((seg >= 0) & (seg < n_segments), seg, n_segments).long()
+    out = torch.zeros((*lead, F, n_segments + 1), dtype=torch.int32, device=seg.device)
+    out.scatter_add_(-1, idx[..., None, :].expand(*lead, F, K), vals)
+    return out[..., :n_segments]
 
 
 def seg_rank_ref(seg: torch.Tensor, n_segments: int) -> torch.Tensor:

@@ -62,8 +62,9 @@ class SimConfig:
     tors_per_pod: int = 4
     aggs_per_pod: int = 4
     agg_uplinks: int = 4  # cores per agg
-    # generated fabric spec (reference: netsim/topogen.py); "" = the built-in
-    # arithmetic fat-tree.  Generated fabrics are not ported yet.
+    # generated fabric spec ("" = the built-in arithmetic fat-tree), e.g.
+    # "clos3:pods=4,tors=2,hosts=16,aggs=4,up=4", "rail:..." or "mesh:...":
+    # built by netsim/topogen.py and routed by topology.TableTopology
     fabric: str = ""
 
     # --- timing -----------------------------------------------------------
@@ -96,8 +97,9 @@ class SimConfig:
 
     # --- engine sizing ----------------------------------------------------
     pkt_slots: int = 0  # 0 = auto (n_conns * max_cwnd + slack)
-    # conn-scale mode (sparse active set, conn-axis sharding) is not ported
-    # yet; the engine raises NotImplementedError when it is asked for.
+    # scale mode: the sparse active set and the lifetime-sized packet table
+    # (engine.py); active_slots pins the set's size A (0 = the lifetime
+    # bound).  Sharding the connection axis over several cards is not ported.
     conn_sharding: bool = False
     active_slots: int = 0
     # shape pins of the reference's sweep bucketing (0 = derive from the

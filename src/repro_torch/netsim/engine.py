@@ -1,5 +1,5 @@
 """Discrete-time packet-level fat-tree simulator (counterpart of
-``repro.netsim.engine``, dense path).
+``repro.netsim.engine``).
 
 One tick runs five stages in the reference's order (the order is part of
 the model):
@@ -50,7 +50,22 @@ gets there with PyTorch:
   * The random draws depend on the tick, not on the state, so ``run`` makes
     them for a chunk of ticks at once (``tick_draws``), the load balancer's
     ``choose_ev`` / ``on_ack`` / ``on_timeout`` draws included; a tick
-    stepped alone draws for itself and gets the same bits.
+    stepped alone draws for itself and gets the same bits.  The chunk is
+    ``DRAW_CHUNK`` ticks, fewer where rows x connections are many
+    (``Simulator.draw_chunk``: at 10**6 connections a 256-tick chunk of
+    REPS's EV draws alone would be ~1 GB).
+  * Scale mode (``SimConfig(conn_sharding=True)``, the reference's sparse
+    active set).  The packet table is sized by slot lifetime, not by
+    connection count (NP = min(the connection rule, the lifetime bound),
+    ``_active_bound``), and stages 1, 2, 4 and 6 scan it through the
+    ascending active set ``as_idx (B, A)`` (``as_count (B,)`` real entries)
+    instead of all NP slots: compaction runs over positions in ``as_idx``
+    and maps back through it, so the compacted slot sequences are the dense
+    path's; writes go through ``as_idx`` with the sentinel column taking
+    the padding; injection is gated by ``as_count + rank < A``; the free
+    list is pushed by position; at the tick's end the freed slots leave the
+    set, the tick's allocations join it and it is sorted again.  With A ==
+    NP every leaf but ``as_idx`` / ``as_count`` equals dense mode.
   * Kernels.  The segment sums and ranks, the arrivals enqueue, the ECMP
     hash and REPS's update go through ``repro_torch.kernels.ops``: on a
     CUDA device the hand-written kernel runs, on the CPU its plain version
@@ -73,9 +88,9 @@ gets there with PyTorch:
         scn = stack_scenarios([Simulator(cfg, w, lb, failures=f).scn for w, f in rows])
         states, tel = fleet.run_summary(4000, scn=scn)   # one scenario per row
 
-Not ported yet: conn-scale mode (``conn_sharding`` / the active set), the
-conn-axis mesh and the flight recorder's events (``emit_events``); each
-raises ``NotImplementedError``.
+Not ported yet: the conn-axis mesh (``conn_axis``, several cards) and the
+flight recorder's events (``emit_events``); each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -111,7 +126,8 @@ N_STATS = 8
 
 I32 = torch.int32
 F32 = torch.float32
-DRAW_CHUNK = 256  # ticks whose random inputs ``run`` draws in one pass
+DRAW_CHUNK = 256  # ticks whose random inputs ``run`` draws in one pass, at most
+DRAW_ELEMS = 2**26  # per-connection draws (ticks x rows x conns x kinds) per pass, at most
 SCN_TABLES = 16  # rows' scenarios whose prepared tables a simulator keeps
 
 
@@ -327,8 +343,10 @@ class SimState:
     Four leaves carry one extra sentinel slot that absorbs dropped scatter
     lanes and is never read: ``pkt`` is ``(PF, NP + 1)``, ``qbuf`` ``(NQ +
     1, QCAP)``, ``c_rtx``/``c_rcv`` ``(NC + 1, MSG)`` and ``fl`` ``(NP +
-    1,)``.  ``as_idx``/``as_count`` are the reference's dense-mode
-    placeholders (empty and 0), kept so the two leaf sets match.
+    1,)``.  ``as_idx``/``as_count`` are the scale mode's active set
+    (``(A,)`` ascending slots padded with NP, and their count); dense mode
+    carries the reference's placeholders (empty and 0), so the leaf sets
+    match.
 
     The shapes below are one run's.  The tick itself (``Simulator.step_rows``)
     takes B runs of one scenario at once: then every leaf, the load
@@ -357,7 +375,7 @@ class SimState:
     fl_head: torch.Tensor  # () int32
     fl_count: torch.Tensor  # () int32
     s_stats: torch.Tensor  # (N_STATS,) int32 cumulative stats
-    as_idx: torch.Tensor  # (0,) int32
+    as_idx: torch.Tensor  # (A,) int32 active slots, ascending, NP-padded (dense: (0,))
     as_count: torch.Tensor  # () int32
 
     def replace(self, **kw) -> "SimState":
@@ -659,11 +677,6 @@ class Simulator:
         seed: int = 0,
         device=None,
     ):
-        if cfg.conn_sharding:
-            raise NotImplementedError(
-                "conn_sharding (the sparse active set of scale mode) is not ported "
-                "yet; see ROADMAP.md, queue 1 item 12"
-            )
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.topo = Topology.build(cfg)
@@ -685,7 +698,21 @@ class Simulator:
         self.MSG = int(cfg.msg_slots) if cfg.msg_slots else auto_msg
         self.NQ = self.topo.n_queues
         self.NH = cfg.n_hosts
-        self.NP = checked_auto_pkt_slots(NC, cfg.max_cwnd_pkts, self.NH, pin=cfg.pkt_slots)
+        if cfg.conn_sharding:
+            # scale mode: live slots are bounded by slot lifetime (injection
+            # admits <= NH per tick, each slot frees within one lifetime), not
+            # by NC * max_cwnd; at figure sizes the connection rule is smaller
+            bound = self._active_bound()
+            conn_auto = int(2 ** np.ceil(np.log2(NC * cfg.max_cwnd_pkts + 4 * self.NH + 64)))
+            self.NP = int(cfg.pkt_slots) if cfg.pkt_slots else min(conn_auto, bound)
+            if self.NP > INT32_MAX:
+                raise ValueError(
+                    f"pkt_slots={self.NP} exceeds the int32 slot namespace (max {INT32_MAX})")
+            self.A = min(int(cfg.active_slots) if cfg.active_slots else bound, self.NP)
+        else:
+            # dense mode: the connection rule, checked against int32 in python ints
+            self.NP = checked_auto_pkt_slots(NC, cfg.max_cwnd_pkts, self.NH, pin=cfg.pkt_slots)
+            self.A = 0
         # MAX_ARR sets the shape of the per-arrival RED draw: kept exactly
         self.MAX_ARR = self.NQ + self.NH
         # tight per-tick event bounds (ACKs come only from the NH final-hop
@@ -758,6 +785,28 @@ class Simulator:
         self.base_key = rng.PRNGKey(seed, device=dev)
 
     # ------------------------------------------------------------------
+    def _active_bound(self) -> int:
+        """Power-of-two bound on the slots allocated at once in scale mode:
+        injection admits <= NH packets per tick and a slot frees within one
+        lifetime of its send (RTO, the ACK and NACK delays, and per hop the
+        latency plus a full queue at degraded half rate), as the
+        reference's.  LOST_WAIT slots of finished connections can outlive
+        it; then injection alloc-fails, counted in ``s_alloc_fail``."""
+        cfg = self.cfg
+        lifetime = (cfg.rto_ticks + cfg.ack_delay_ticks + cfg.nack_delay_ticks
+                    + self.topo.diameter * (cfg.hop_latency_ticks + 2 * cfg.queue_capacity))
+        raw = self.NH * lifetime + 4 * self.NH + 64
+        return int(2 ** np.ceil(np.log2(max(raw, 2))))
+
+    def draw_chunk(self, B: int) -> int:
+        """Ticks whose random inputs ``run_rows`` (and the fleet's and the
+        sweep's loops) draw in one pass for ``B`` rows: ``DRAW_CHUNK``, fewer
+        where the per-connection draws of one pass would pass
+        ``DRAW_ELEMS``.  Every draw is keyed by its tick, so the chunk
+        changes no bit."""
+        per_tick = max(B, 1) * max(self.wl.n_conns, 1) * (self.cfg.feedback_rounds + 2)
+        return max(1, min(DRAW_CHUNK, DRAW_ELEMS // per_tick))
+
     def init_state(self, key: torch.Tensor | None = None, device=None) -> SimState:
         dev = self.device if device is None else resolve_device(device)
         if dev != self.device:
@@ -788,7 +837,7 @@ class Simulator:
             fl_head=z(),
             fl_count=torch.full((), NP, dtype=I32, device=dev),
             s_stats=z(N_STATS),
-            as_idx=z(0),
+            as_idx=torch.full((self.A,), NP, dtype=I32, device=dev),
             as_count=z(),
         )
 
@@ -1020,12 +1069,31 @@ class Simulator:
         c_rcv = st.c_rcv.clone()
         c_inflight, c_rtx_count = st.c_inflight, st.c_rtx_count
         c_cwnd, c_alpha, lb_state = st.c_cwnd, st.c_alpha, st.lb_state
-        state_at_entry = st.pkt[:, PS, :NP]
+        sparse = cfg.conn_sharding
+        if sparse:
+            # scale mode: the packet columns of the active set (A slots); a
+            # compaction's positions map back through it (``slots``)
+            as_idx = st.as_idx
+            asx = as_idx.clamp(max=NP - 1)
+            as_valid = as_idx < NP
+            asg = torch.where(as_valid, as_idx, NP)  # NP: the sentinel column
+            P = R.pkt_get(st.pkt, asx)  # (PF, B, A) one gather
+            p_state = torch.where(as_valid, P[PS], FREE)
+            p_evt, p_conn, p_orph, p_send = P[PEVT], P[PCONN], P[PORPH], P[PSEND]
+            # position A (a compaction's padding) maps to slot NP
+            as_pad = torch.nn.functional.pad(as_idx, (0, 1), value=NP)
+            slots = lambda pos: as_pad[R.of(pos), pos]
+        else:
+            p_state = st.pkt[:, PS, :NP]
+            p_evt, p_conn = st.pkt[:, PEVT, :NP], st.pkt[:, PCONN, :NP]
+            p_orph, p_send = st.pkt[:, PORPH, :NP], st.pkt[:, PSEND, :NP]
+            slots = lambda idx: idx
+        state_at_entry = p_state
 
         # =============== 1. feedback (ACK / NACK) =====================
-        p_state = st.pkt[:, PS, :NP]
-        due = ((p_state == IN_ACK) | (p_state == IN_NACK)) & (st.pkt[:, PEVT, :NP] == now)
-        e_idx = _compact(due, R.ranks[self.MAX_EV])
+        # (an empty entry of the active set reads FREE: it is never due)
+        due = ((p_state == IN_ACK) | (p_state == IN_NACK)) & (p_evt == now)
+        e_idx = slots(_compact(due, R.ranks[self.MAX_EV]))
         e_valid = e_idx < NP
         E = R.pkt_get(st.pkt, e_idx.clamp(max=NP - 1))  # (PF, B, MAX_EV) one gather
         e_conn = torch.where(e_valid, E[PCONN], NC)  # NC = sentinel segment
@@ -1081,17 +1149,16 @@ class Simulator:
         # a packet fires exactly at send + rto and injection admits <= 1 per
         # host per tick, so <= NH fire per tick: compact to NH rows
         p_state = torch.where(due, FREE, p_state)
-        p_conn = st.pkt[:, PCONN, :NP]
-        p_orphan = st.pkt[:, PORPH, :NP] == 1
+        p_orphan = p_orph == 1
         active_data = (p_state == FLYING) | (p_state == QUEUED) | (p_state == LOST_WAIT)
         conn_done_of_pkt = st.c_done[R.of(p_conn), p_conn.clamp(0, NC - 1)]
         rto = (
             active_data
             & ~p_orphan
-            & ((now - st.pkt[:, PSEND, :NP]) >= cfg.rto_ticks)
+            & ((now - p_send) >= cfg.rto_ticks)
             & ~conn_done_of_pkt
         )
-        r_idx = _compact(rto, R.ranks[NH])
+        r_idx = slots(_compact(rto, R.ranks[NH]))
         timeouts_d = rto.sum(dim=-1, dtype=I32)
         r_valid = r_idx < NP
         Rp = R.pkt_get(st.pkt, r_idx.clamp(max=NP - 1))  # (PF, B, NH)
@@ -1106,9 +1173,16 @@ class Simulator:
         c_inflight = c_inflight - rto_per_conn
         c_cwnd = torch.clamp(c_cwnd - rto_per_conn.to(F32), 1.0, float(cfg.max_cwnd_pkts))
         timed_out = rto_per_conn > 0  # the LB's on_timeout mask, taken at injection
-        # orphan in-network packets; free LOST_WAIT ones
-        pkt[:, PORPH, :NP] = (p_orphan | rto).to(I32)
-        pkt[:, PS, :NP] = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
+        # orphan in-network packets; free LOST_WAIT ones (in scale mode the
+        # active set's columns: every other slot is FREE and stays so)
+        new_orph = (p_orphan | rto).to(I32)
+        new_ps = torch.where(rto & (p_state == LOST_WAIT), FREE, p_state)
+        if sparse:
+            pkt[:, PORPH][R.of(asg), asg] = new_orph
+            pkt[:, PS][R.of(asg), asg] = new_ps
+        else:
+            pkt[:, PORPH, :NP] = new_orph
+            pkt[:, PS, :NP] = new_ps
 
         # =============== 3. service / dequeue ===========================
         failed_q, not_degraded, gray_p, q_penalty = self._fault_masks(now, T)
@@ -1179,8 +1253,12 @@ class Simulator:
         R.pkt_set(pkt, pid, D)
 
         # =============== 4. arrivals / enqueue ==========================
-        arr = (pkt[:, PS, :NP] == FLYING) & (pkt[:, PEVT, :NP] == now)
-        a_idx = _compact(arr, R.ranks[self.MAX_ARR])
+        if sparse:
+            at = lambda f: pkt[:, f][R.of(asx), asx]
+            arr = as_valid & (at(PS) == FLYING) & (at(PEVT) == now)
+        else:
+            arr = (pkt[:, PS, :NP] == FLYING) & (pkt[:, PEVT, :NP] == now)
+        a_idx = slots(_compact(arr, R.ranks[self.MAX_ARR]))
         a_valid = a_idx < NP
         A = R.pkt_get(pkt, a_idx.clamp(max=NP - 1))  # (PF, B, MAX_ARR)
         # the routing step in one launch; NQ where ~a_valid.  Adaptive
@@ -1234,6 +1312,11 @@ class Simulator:
         # free-slot allocation (ring pop)
         srank = torch.cumsum(any_pick, -1, dtype=I32) - 1
         can_alloc = srank < st.fl_count[:, None]
+        if sparse:
+            # the active set's capacity: as_count + fl_count == NP always, so
+            # with A == NP this is the dense gate; when A binds, the overflow
+            # is counted as alloc failures, never a lost slot
+            can_alloc = can_alloc & ((st.as_count[:, None] + srank) < self.A)
         sendh = any_pick & can_alloc
         alloc_fail_d = (any_pick & ~can_alloc).sum(dim=-1, dtype=I32)
         n_alloc = sendh.sum(dim=-1, dtype=I32)
@@ -1285,14 +1368,19 @@ class Simulator:
             zero,  # PORPH
             zero,  # PACK
         ])
-        R.pkt_set(pkt, torch.where(sendh, slot_p, NP), W)
+        wslot = torch.where(sendh, slot_p, NP)
+        R.pkt_set(pkt, wslot, W)
 
         # =============== 6. free-list push ==============================
         # slots popped this tick are FLYING now, not FREE: no conflict.  The
         # push writes the contiguous (mod NP) ring segment after the live
         # entries — the reference's rotate-and-blend writes the same values
-        freed = (pkt[:, PS, :NP] == FREE) & (state_at_entry != FREE)
-        f_idx = _compact(freed, R.ranks[self.MAX_FREE])
+        if sparse:
+            f_state = torch.where(as_valid, pkt[:, PS][R.of(asx), asx], FREE)
+            freed = (f_state == FREE) & (state_at_entry != FREE)
+        else:
+            freed = (pkt[:, PS, :NP] == FREE) & (state_at_entry != FREE)
+        f_idx = slots(_compact(freed, R.ranks[self.MAX_FREE]))
         f_val = f_idx < NP
         n_freed = f_val.sum(dim=-1, dtype=I32)
         frank = torch.cumsum(f_val, -1, dtype=I32) - 1
@@ -1300,6 +1388,15 @@ class Simulator:
         fl = st.fl.clone()
         fl[R.of(f_idx), torch.where(f_val, fpos, NP)] = f_idx
         fl_count = fl_count + n_freed
+        as_idx_new, as_count = st.as_idx, st.as_count
+        if sparse:
+            # active-set maintenance: the freed slots leave, the tick's
+            # allocations join, ascending again (distinct slots; NP pads sort
+            # last; real entries <= A by the injection gate)
+            alive = f_state != FREE
+            cand = torch.cat([torch.where(alive, as_idx, NP), wslot], dim=-1)
+            as_idx_new = torch.sort(cand, dim=-1).values[:, : self.A]
+            as_count = alive.sum(dim=-1, dtype=I32) + n_alloc
 
         # =============== 7. fused stats update ==========================
         s_stats = st.s_stats + torch.stack([
@@ -1313,7 +1410,7 @@ class Simulator:
             c_rx_pending=c_rx_pending, c_done=c_done, c_done_tick=c_done_tick,
             c_rtx_count=c_rtx_count, c_rtx=c_rtx, c_rcv=c_rcv, c_cwnd=c_cwnd,
             c_alpha=c_alpha, h_rr=h_rr, lb_state=lb_state, fl=fl, fl_head=fl_head,
-            fl_count=fl_count, s_stats=s_stats, as_idx=st.as_idx, as_count=st.as_count,
+            fl_count=fl_count, s_stats=s_stats, as_idx=as_idx_new, as_count=as_count,
         )
         if not trace:
             return new_state, None
@@ -1379,12 +1476,13 @@ class Simulator:
         ``states`` and the returned state have a leading row axis B,
         ``base_keys`` is ``(B, 2)``, ``scn`` as ``step_rows`` takes it;
         returns ``(states, trace)`` with the ``TickTrace`` fields stacked
-        ``(n_ticks, B, ...)``.  The random draws are made ``DRAW_CHUNK`` ticks
-        at a time, for every row at once."""
+        ``(n_ticks, B, ...)``.  The random draws are made ``draw_chunk(B)``
+        ticks at a time, for every row at once."""
         traces = []
         end = int(t0) + n_ticks
-        for c0 in range(int(t0), end, DRAW_CHUNK):
-            n = min(DRAW_CHUNK, end - c0)
+        chunk = self.draw_chunk(states.q_len.shape[0])
+        for c0 in range(int(t0), end, chunk):
+            n = min(chunk, end - c0)
             draws = self.tick_draws(base_keys, c0, n, scn)
             for i in range(n):
                 states, tr = self.step_rows(states, c0 + i, draws.row(i), scn)

@@ -39,7 +39,7 @@ from repro_torch import rng
 from repro_torch.core.load_balancers import LoadBalancer
 from repro_torch.netsim.config import SimConfig
 from repro_torch.netsim.engine import (
-    DRAW_CHUNK, FailureSchedule, ScenarioArrays, Simulator, SimState, Workload, tree_map,
+    FailureSchedule, ScenarioArrays, Simulator, SimState, Workload, tree_map,
 )
 from repro_torch.netsim.metrics import RunSummary, summarize, summarize_sketch
 from repro_torch.netsim.telemetry import TelemetryProgram, TelemetrySpec
@@ -147,8 +147,9 @@ class FleetRunner:
         if tel.shape != (self.n_runs, prog.size):
             raise ValueError(f"tel must be ({self.n_runs}, {prog.size}), got {tuple(tel.shape)}")
         keys = self.base_keys()
-        for c0 in range(int(t0), int(t0) + int(n_ticks), DRAW_CHUNK):
-            n = min(DRAW_CHUNK, int(t0) + int(n_ticks) - c0)
+        chunk = sim.draw_chunk(self.n_runs)
+        for c0 in range(int(t0), int(t0) + int(n_ticks), chunk):
+            n = min(chunk, int(t0) + int(n_ticks) - c0)
             draws = sim.tick_draws(keys, c0, n, scn)
             for i in range(n):
                 states, probe = sim.step_probe_rows(states, c0 + i, draws.row(i), scn)

@@ -10,6 +10,12 @@ off, so the dict has exactly the reference's shapes and dtypes;
 from any JAX state at tick *t* and compare one step, and compare two states
 (JAX vs port, card vs CPU) leaf for leaf.
 
+Scale mode's ``as_idx`` / ``as_count`` cross like every other leaf (they
+carry no sentinel slot).  ``topology_spec_to_numpy`` gives a generated
+fabric's ``TopologySpec`` (``netsim/topogen.py``) as named arrays, its
+regions as ``(name, base, size)`` rows, so that two generators' specs
+compare the same way.
+
 The load balancer's state is flattened by path: one entry ``"lb_state"``
 when it is a single array (ECMP, OPS), ``"lb_state.<field>"`` per field of
 a state dataclass (REPS, PLB, ...) and ``"lb_state.<i>"`` per element of a
@@ -58,6 +64,19 @@ def _unflatten(prefix: str, like, arrays: dict, t):
     if isinstance(like, tuple):
         return tuple(_unflatten(f"{prefix}.{i}", v, arrays, t) for i, v in enumerate(like))
     return t(arrays[prefix])
+
+
+def topology_spec_to_numpy(spec) -> dict:
+    """A ``TopologySpec`` (the port's or the reference's: the same fields)
+    as plain values: every table, the sizes, the diameter, the parameters
+    and the regions as ``(name, base, size)`` tuples."""
+    out = {f: np.asarray(getattr(spec, f)) for f in (
+        "host_sw", "q_sw", "up_base", "up_deg", "down_next", "salt", "sw_up_span")}
+    out.update({f: getattr(spec, f) for f in (
+        "name", "params", "n_hosts", "n_tors", "n_switches", "n_queues", "t0_down_base",
+        "diameter", "max_up_deg")})
+    out["regions"] = [(r.name, r.base, r.size) for r in spec.regions]
+    return out
 
 
 def sim_state_to_numpy(state: SimState) -> dict[str, np.ndarray]:

@@ -52,10 +52,12 @@ reference does:
      ``run_chunk`` and ``finalize_bucket`` are the building blocks ``run``
      drives: any chunking of ``[0, ticks)`` gives the same result.
 
-Not ported yet: the row-sharded device mesh (``devices`` other than one
-card), the conn-sharded scale mode (``conn_devices > 1``) and the flight
-recorder (``trace=``, ``SweepResult.flight_for``); each raises
-``NotImplementedError``.
+Scale mode (``SimConfig(conn_sharding=True)``: the sparse active set and
+the lifetime-sized packet table) runs through the same buckets on the one
+card (``conn_devices=1``).  Not ported yet: the row-sharded device mesh
+(``devices`` other than one card), the connection axis sharded over
+several cards (``conn_devices > 1``) and the flight recorder (``trace=``,
+``SweepResult.flight_for``); each raises ``NotImplementedError``.
 
 Example (on the card; pass ``device="cpu"`` for the plain versions):
 
@@ -80,7 +82,7 @@ from repro_torch.core.load_balancers import SwitchLB, make_lb
 from repro_torch.device import resolve_device
 from repro_torch.netsim.config import SimConfig
 from repro_torch.netsim.engine import (
-    DRAW_CHUNK, FailureSchedule, ScenarioArrays, Simulator, SimState, TickTrace, Workload,
+    FailureSchedule, ScenarioArrays, Simulator, SimState, TickTrace, Workload,
     tree_map,
 )
 from repro_torch.netsim.failures import truncate_dead
@@ -853,7 +855,7 @@ class SweepEngine:
     ``device``: the card unless ``"cpu"`` is asked for (the plain versions
     of the kernels run there).  ``devices`` takes ``"auto"``, ``None`` or 1
     (the one device; a row mesh over several cards is not ported yet),
-    ``conn_devices`` only 1 (scale mode is not ported yet), and
+    ``conn_devices`` only 1 (scale mode runs on one card), and
     ``kernels_backend`` only ``None``: the port has one kernel path per
     device, and the device picks it.  ``measured_costs`` feeds the packer's
     measured-cost model, see ``pack`` / ``measured_costs_from_bench``.
@@ -884,8 +886,10 @@ class SweepEngine:
         self.conn_devices = max(1, int(conn_devices))
         if self.conn_devices > 1:
             raise NotImplementedError(
-                "conn_devices > 1 (the conn-sharded scale mode) is not ported yet; "
-                "see ROADMAP.md, queue 1 item 12"
+                f"conn_devices={self.conn_devices}: sharding the connection axis over "
+                "several cards (multi-GPU torch.distributed) is not ported yet; scale "
+                "mode (conn_sharding=True) runs with conn_devices=1 (ROADMAP.md, queue 1 "
+                "item 12, multi-GPU)"
             )
         if devices not in ("auto", None, 1):
             raise NotImplementedError(
@@ -1137,8 +1141,9 @@ class SweepEngine:
             if t0 in sets:
                 keep(t0)
             trs = []
-            for c0 in range(t0, end, DRAW_CHUNK):
-                m = min(DRAW_CHUNK, end - c0)
+            chunk = sim.draw_chunk(keys.shape[0])
+            for c0 in range(t0, end, chunk):
+                m = min(chunk, end - c0)
                 draws = sim.tick_draws(keys, c0, m, scn)
                 for i in range(m):
                     t = c0 + i
@@ -1278,7 +1283,7 @@ class SweepEngine:
         copy it to the host *before* the call to keep it.  Rows whose own
         horizon lies inside the window freeze bit-exactly there, so driving
         a bucket to its horizon in any chunking yields identical results.
-        The draws are made ``DRAW_CHUNK`` ticks at a time."""
+        The draws are made ``sim.draw_chunk(rows)`` ticks at a time."""
         fn = self.chunk_runner(bucket, n, collect, spec, trace=trace)
         return fn(carry, bucket.keys, bucket.scn, bucket.horizons, t0)
 

@@ -23,6 +23,11 @@ The whole hop transition is one kernel, ``next_queue`` (its plain version
 (the reference's signature) and ``Topology.route`` (the engine's arrivals).
 ``ecmp_hash`` is the flat hash kernel, ``mix32`` and ``ecmp_hash_np`` the
 hash's finalizer on tensors and its Python-int mirror for host-side walks.
+
+A generated fabric (``cfg.fabric``, ``netsim/topogen.py``) builds a
+``TableTopology`` instead: the same interface over the spec's tables, its
+routing step the ``next_queue_table`` kernel (one launch per tick for every
+fabric kind; plain version ``kernels.ref.next_queue_table_ref``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.next_queue import RouteGeometry
+from repro_torch.kernels.next_queue_table import RouteTables
 from repro_torch.kernels.ref import mix32  # noqa: F401  (re-exported)
 from repro_torch.netsim.config import SimConfig
 from repro_torch.rng import M32
@@ -76,10 +82,9 @@ class Topology:
     @staticmethod
     def build(cfg: SimConfig) -> "Topology":
         if cfg.fabric:
-            raise NotImplementedError(
-                f"generated fabric {cfg.fabric!r}: TableTopology is not ported "
-                "yet (see ROADMAP.md, queue 1 item 12)"
-            )
+            # a generated fabric: the same interface, one table-driven router
+            # for every fabric kind
+            return TableTopology.build(cfg)
         T, H = cfg.n_tors, cfg.hosts_per_tor
         if cfg.tiers == 2:
             U = cfg.uplinks_per_tor
@@ -158,3 +163,86 @@ class Topology:
         return kernel_ops.next_queue(
             self.geometry, hop, cur_queue, conn, ev, conn_src, conn_dst, q_len, adaptive,
             q_penalty=q_penalty, a_idx=a_idx, n_pkt=n_pkt)
+
+
+class TableTopology:
+    """Table-driven topology of a generated ``TopologySpec``
+    (``netsim/topogen.py``), with the interface of ``Topology`` (``n_queues``,
+    ``t0_down_base``, ``diameter``, ``t0_up_queues``, ``t0_down_queue``,
+    ``is_final_hop``, ``next_queue``, ``route``), so that the engine, the
+    fleet and the sweep run generated fabrics with no special case.
+
+    Routing is one up/down rule over the spec's tables: down through
+    ``down_next[sw, dst]`` when it is defined, else over the ``up_deg[sw]``
+    queues from ``up_base[sw, dst]``, by the ECMP hash of (flow, EV, the
+    switch's salt plane) or, under an adaptive LB, the first least-loaded.
+    The tables are uploaded once per device (``tables``)."""
+
+    def __init__(self, cfg: SimConfig, spec):
+        if spec.n_hosts != cfg.n_hosts:
+            raise ValueError(
+                f"fabric {cfg.fabric!r} has {spec.n_hosts} hosts but "
+                f"SimConfig.n_hosts={cfg.n_hosts}; they must agree"
+            )
+        self.cfg = cfg
+        self.spec = spec
+        self.n_queues = spec.n_queues
+        self.t0_down_base = spec.t0_down_base
+        # region bases kept for the interface (the router does not use them)
+        self.t0_up_base = 0
+        self.agg_up_base = -1
+        self.core_down_base = -1
+        self.agg_down_base = -1
+        self._tables: dict[torch.device, RouteTables] = {}
+
+    @staticmethod
+    def build(cfg: SimConfig) -> "TableTopology":
+        from repro_torch.netsim.topogen import build_spec
+
+        return TableTopology(cfg, build_spec(cfg.fabric))
+
+    @property
+    def diameter(self) -> int:
+        """Max queue hops on any src->dst path (host downlink included)."""
+        return self.spec.diameter
+
+    def tables(self, device) -> RouteTables:
+        """The spec's routing tables as int32 tensors on ``device``, made once
+        per device."""
+        dev = torch.device(device)
+        t = self._tables.get(dev)
+        if t is None:
+            sp = self.spec
+            up = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+            t = self._tables[dev] = RouteTables(
+                host_sw=up(sp.host_sw), q_sw=up(sp.q_sw), up_base=up(sp.up_base),
+                up_deg=up(sp.up_deg), down_next=up(sp.down_next), salt=up(sp.salt),
+                max_up_deg=max(sp.max_up_deg, 1))
+        return t
+
+    # -- host-side helpers ------------------------------------------------
+    def t0_up_queues(self, tor: int) -> np.ndarray:
+        base, size = (int(v) for v in self.spec.sw_up_span[tor])
+        return np.arange(size) + base
+
+    def t0_down_queue(self, host: int) -> int:
+        return self.t0_down_base + host
+
+    def is_final_hop(self, q: torch.Tensor) -> torch.Tensor:
+        return q >= self.t0_down_base
+
+    # -- the hop-transition function: the ``next_queue_table`` kernel -----
+    def next_queue(self, at_injection, cur_queue, flow_id, ev, src, dst, q_len,
+                   adaptive: bool) -> torch.Tensor:
+        """``Topology.next_queue``'s signature and arguments."""
+        return kernel_ops.next_queue_table(
+            self.tables(cur_queue.device), at_injection, cur_queue, flow_id, ev, src, dst,
+            q_len, adaptive)
+
+    def route(self, a_idx, n_pkt: int, hop, cur_queue, conn, ev, conn_src, conn_dst, q_len,
+              q_penalty, adaptive: bool) -> torch.Tensor:
+        """``Topology.route``'s signature and arguments: the engine's
+        arrivals, of one run or of a fleet's rows, in one launch."""
+        return kernel_ops.next_queue_table(
+            self.tables(q_len.device), hop, cur_queue, conn, ev, conn_src, conn_dst, q_len,
+            adaptive, q_penalty=q_penalty, a_idx=a_idx, n_pkt=n_pkt)

@@ -29,12 +29,14 @@ def case(m, name, wl, lb, ticks, fs=None, seeds=(0,), **lb_kwargs):
                            failures=fs, seeds=tuple(seeds))
 
 
-def engines(cases_of, packer=None, **kw):
+def engines(cases_of, packer=None, cfg_kw=None, **kw):
     """``cases_of(m)`` in both packages, as two SweepEngines (the port's on
-    the CPU), with the same packer and engine arguments."""
+    the CPU), with the same packer and engine arguments (and FATTREE_32_CI
+    with ``cfg_kw`` replaced, when given)."""
     pk = lambda m: None if packer is None else m.net.PackerConfig(**packer)
-    je = jnet.SweepEngine(J_CFG, cases_of(J), packer=pk(J), **kw)
-    te = tnet.SweepEngine(T_CFG, cases_of(T), packer=pk(T), device="cpu", **kw)
+    cfg_kw = cfg_kw or {}
+    je = jnet.SweepEngine(J_CFG.replace(**cfg_kw), cases_of(J), packer=pk(J), **kw)
+    te = tnet.SweepEngine(T_CFG.replace(**cfg_kw), cases_of(T), packer=pk(T), device="cpu", **kw)
     assert plan_fields(te.plan) == plan_fields(je.plan)
     return je, te
 

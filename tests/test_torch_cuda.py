@@ -92,6 +92,74 @@ def route_case(topo, seed, K=None, NP=700, NC=128, penalty=True):
                 q_len=i32(q_len), q_pen=i32(q_pen), NP=NP, NC=NC)
 
 
+# generated fabrics of every kind and degenerate corners, shared with
+# tests/test_torch_topogen.py (which holds the table form's plain version
+# against JAX's TableTopology on them)
+TABLE_FABRICS = [
+    "clos3:pods=2,tors=2,hosts=4,aggs=2,up=2",
+    "rail:tors=4,hosts=4,rails=4",
+    "mesh:tors=4,hosts=4,planes=2",
+    "clos3:pods=1,tors=1,hosts=2,aggs=1,up=1",
+    "rail:tors=2,hosts=1,rails=1",
+    "mesh:tors=1,hosts=4,planes=1",  # no mesh links at all
+]
+
+
+def table_topology(fabric: str):
+    """The port's ``TableTopology`` of a fabric spec string."""
+    from repro_torch.netsim import SimConfig
+    from repro_torch.netsim.topogen import build_spec
+
+    spec = build_spec(fabric)
+    return Topology.build(SimConfig(n_hosts=spec.n_hosts, hosts_per_tor=spec.n_hosts,
+                                    fabric=fabric))
+
+
+def table_route_case(spec, seed, K=None, NP=700, NC=96, penalty=True):
+    """``route_case`` for a generated fabric (its regions from the spec), and
+    the reference form's per-arrival hosts and flags with garbage lanes:
+    hosts and current queues outside the tables (the router clips them)."""
+    rs = np.random.RandomState(seed)
+    NQ, NH = spec.n_queues, spec.n_hosts
+    K = K or NQ + NH
+    H = max(NH // spec.n_tors, 1)
+    conn_src = rs.randint(0, NH, size=NC)
+    near = rs.rand(NC) < 0.3
+    conn_dst = np.where(near, (conn_src // H) * H + rs.randint(0, H, size=NC),
+                        rs.randint(0, NH, size=NC))
+    pkt = np.zeros((PF, NP + 1), np.int32)
+    pkt[PCONN] = rs.randint(0, NC, size=NP + 1)
+    pkt[PEV] = rs.randint(0, 65536, size=NP + 1)
+    pkt[PHOP] = rs.randint(1, 5, size=NP + 1)
+    pkt[PCURQ] = rs.randint(0, NQ, size=NP + 1)
+    edges = [q for r in spec.regions for q in (r.base, r.base + r.size - 1)]
+    pkt[PCURQ, : len(edges)] = edges
+    inj = rs.rand(NP + 1) < 0.3
+    inj[: len(edges)] = False
+    pkt[PHOP, inj] = 0
+    pkt[PCURQ, inj] = -1
+    a_idx = rs.randint(0, NP, size=K)
+    a_idx[rs.rand(K) < 0.25] = NP
+    a_idx[-min(5, K):] = NP
+    a_idx[: min(K, len(edges))] = np.arange(min(K, len(edges)))
+    q_len = rs.randint(0, 3, size=NQ)
+    q_pen = np.where(rs.rand(NQ) < 0.15, 340, 0) if penalty else np.zeros(NQ, np.int64)
+    # the reference form: each arrival's own flags and hosts, some garbage
+    rows = pkt[:, a_idx.clip(max=NP - 1)]
+    conn = rows[PCONN].clip(0, NC - 1)
+    src, dst, cur = conn_src[conn], conn_dst[conn], rows[PCURQ].copy()
+    junk = rs.rand(K) < 0.1
+    src[junk] = rs.choice([-3, NH, NH + 9], size=int(junk.sum()))
+    dst[rs.rand(K) < 0.1] = -2
+    dst[rs.rand(K) < 0.05] = NH + 4
+    cur[(rs.rand(K) < 0.1) & (rows[PHOP] > 0)] = NQ + 7
+    i32 = lambda a: np.asarray(a, np.int32)
+    return dict(pkt=pkt, a_idx=i32(a_idx), conn_src=i32(conn_src), conn_dst=i32(conn_dst),
+                q_len=i32(q_len), q_pen=i32(q_pen), NP=NP, NC=NC, inj=rows[PHOP] == 0,
+                cur=i32(cur), flow=i32(rows[PCONN]), ev=i32(rows[PEV]), src=i32(src),
+                dst=i32(dst))
+
+
 # ---------------------------------------------------------------------------
 def test_seg_kernels_match_plain_versions(dev):
     rs = np.random.RandomState(0)
@@ -576,7 +644,7 @@ def test_sweep_switch_bucket_one_reps_launch_per_tick_card_equals_cpu(dev):
             counts = ops.launch_counts()
     n_hist = sum(type(c).__name__ == "Histogram" for c in TelemetrySpec.default().channels)
     want = {"reps_tick": 1, "next_queue": 1, "seg_rank": 1, "queue_tick": 1,
-            "seg_sum": 4 + n_hist, "ecmp_hash": 0}
+            "seg_sum": 4 + n_hist, "ecmp_hash": 0, "next_queue_table": 0}
     assert counts == {k: m * 300 for k, m in want.items()}, counts
     (_, gres), (_, cres) = out[dev], out["cpu"]
     assert np.array_equal(gres.buckets[0].telemetry, cres.buckets[0].telemetry)
@@ -586,3 +654,125 @@ def test_sweep_switch_bucket_one_reps_launch_per_tick_card_equals_cpu(dev):
             b = sim_state_to_numpy(cres.state_for(c.name, si))
             for k in a:
                 assert a[k].tobytes() == b[k].tobytes(), (c.name, si, k)
+
+
+@pytest.mark.parametrize("fabric", TABLE_FABRICS)
+def test_next_queue_table_kernel_matches_plain_version(dev, fabric):
+    """The table form on every fabric kind and corner: both forms, adaptive
+    on and off, penalty or none, one run's arrivals and a fleet's rows
+    (tables and penalty shared or per row): kernel == plain version == one-row
+    launches."""
+    topo = table_topology(fabric)
+    t, B = topo.tables(dev), 4
+    cases = [table_route_case(topo.spec, 40 + b) for b in range(B)]
+    NP = cases[0]["NP"]
+    stack = lambda k: _on(dev, np.stack([c[k] for c in cases]))
+    rows = [c["pkt"][:, c["a_idx"].clip(max=NP - 1)] for c in cases]
+    fields = [_on(dev, np.stack([r[f] for r in rows])) for f in (PHOP, PCURQ, PCONN, PEV)]
+    a_idx, q_len = stack("a_idx"), stack("q_len")
+    flat = [_on(dev, np.stack([c["inj"] for c in cases]))] + [
+        stack(k) for k in ("cur", "flow", "ev", "src", "dst")]
+    for pen in (_on(dev, cases[0]["q_pen"]), stack("q_pen"), None):
+        for src, dst in ((_on(dev, cases[0]["conn_src"]), _on(dev, cases[0]["conn_dst"])),
+                         (stack("conn_src"), stack("conn_dst"))):
+            for adaptive in (False, True):
+                engine = (t, *fields, src, dst, q_len, adaptive, pen, a_idx, NP)
+                reference = (t, *flat, q_len, adaptive, pen)
+                for args in (engine, reference):
+                    got = ops.next_queue_table(*args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, ref.next_queue_table_ref(*args)), (fabric, adaptive)
+                    one = [x[0].contiguous() if isinstance(x, torch.Tensor) and x.dim() == 2
+                           else x for x in args]
+                    assert torch.equal(got[0], ops.next_queue_table(*one)), (fabric, adaptive)
+
+
+def test_next_queue_table_wrapper_raises(dev):
+    topo = table_topology(TABLE_FABRICS[1])
+    t, q = topo.tables(dev), _on(dev, np.zeros(8, np.int32))
+    q_len = _on(dev, np.zeros(topo.n_queues, np.int32))
+    with pytest.raises(ValueError, match="bool"):
+        ops.next_queue_table(t, q, q, q, q, q, q, q_len, False)
+    with pytest.raises(ValueError, match="connection tables"):
+        ops.next_queue_table(t, q, q, q, q, q[:0], q[:0], q_len, False, a_idx=q, n_pkt=8)
+    with pytest.raises(ValueError, match="up_deg"):
+        ops.next_queue_table(t._replace(up_deg=t.up_deg.long()), q == 0, q, q, q, q, q, q_len,
+                             False)
+
+
+@pytest.mark.parametrize("fabric,lbn", [("rail:tors=4,hosts=4,rails=4", "reps"),
+                                        ("mesh:tors=4,hosts=4,planes=2", "adaptive_roce"),
+                                        ("clos3:pods=2,tors=2,hosts=4,aggs=2,up=2", "reps")])
+def test_generated_fabric_card_run_equals_cpu_run(dev, fabric, lbn):
+    """A generated fabric on the card == on the CPU, every leaf; the table
+    form launches once per tick, the arithmetic routing and the flat hash
+    never."""
+    from repro_torch.netsim import SimConfig
+
+    cfg = SimConfig(n_hosts=16, hosts_per_tor=4, uplinks_per_tor=4, rto_ticks=120,
+                    evs_size=256, fabric=fabric)
+    finals = []
+    for d in (dev, "cpu"):
+        sim = Simulator(cfg, workloads.permutation(16, 24, seed=3),
+                        make_lb(lbn, evs_size=cfg.evs_size), seed=7, device=d)
+        ops.reset_launch_counts()
+        state, _ = sim.run(300)
+        counts = ops.launch_counts()
+        finals.append(sim_state_to_numpy(state))
+        if d == dev:
+            assert counts["next_queue_table"] == 300 and counts["next_queue"] == 0, counts
+            assert counts["ecmp_hash"] == 0, counts
+    for k in finals[0]:
+        assert finals[0][k].tobytes() == finals[1][k].tobytes(), k
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_kernels_at_scale_shapes_match_plain_versions(dev, B):
+    """seg_sum (the feedback call: five fields, S = 3 (NC + 1)), seg_rank (S =
+    NC + 1) and reps_tick (N = NC, two ACK rounds) at a scale-mode shape
+    (NC = 2**17 connections, reduced from the 10**6 of chip_smoke.py):
+    kernel == plain version, with the global-memory paths these S take."""
+    rs = np.random.RandomState(B)
+    NC, K = 2**17, 128
+    S = 3 * (NC + 1)
+    seg = rs.randint(0, S, size=(B, K)).astype(np.int32)
+    seg[rs.rand(B, K) < 0.3] = S
+    fields = [_on(dev, rs.randint(0, 9, size=(B, K)).astype(np.int32)), _on(dev, rs.rand(B, K) < 0.5)]
+    fields += [_on(dev, rs.randint(0, 65536, size=(B, K)).astype(np.int32)),
+               _on(dev, rs.rand(B, K) < 0.3), _on(dev, rs.randint(0, 900, size=(B, K)).astype(np.int32))]
+    sq = (lambda x: x[0]) if B == 1 else (lambda x: x)
+    got = ops.seg_sum(sq(_on(dev, seg)), [sq(f) for f in fields], S)
+    assert torch.equal(got, ref.seg_sum_ref(sq(_on(dev, seg)), [sq(f) for f in fields], S))
+    rk = rs.randint(0, NC + 1, size=(B, K)).astype(np.int32)
+    rk[:, ::3] = NC  # the sentinel segment, many repeats
+    assert torch.equal(ops.seg_rank(sq(_on(dev, rk)), NC + 1), ref.seg_rank_ref(sq(_on(dev, rk)), NC + 1))
+    shape = (NC,) if B == 1 else (B, NC)
+    n = B * NC
+    r = lambda lo, hi: _on(dev, rs.randint(lo, hi, size=n).astype(np.int32).reshape(shape))
+    b = lambda p: _on(dev, (rs.rand(n) < p).reshape(shape))
+    state = [_on(dev, rs.randint(0, 65536, size=(n, 8)).astype(np.int32).reshape(*shape, 8)),
+             _on(dev, (rs.rand(n, 8) < 0.5).reshape(*shape, 8)), r(0, 8), r(0, 9), r(0, 3), b(0.3),
+             r(0, 3000), r(0, 3)]
+    acks = [(b(0.5), r(0, 65536), b(0.3)) for _ in range(2)]
+    ev = [tuple(a[c] for a in acks) for c in range(3)] + [b(0.2), b(0.6), r(0, 65536)]
+    for x, y in zip(ops.reps_tick(*state, *ev, 1234, 32, 800),
+                    ref.reps_tick_ref(*state, *ev, 1234, 32, 800)):
+        assert torch.equal(x, y)
+
+
+def test_scale_mode_card_run_equals_cpu_run(dev):
+    """The sparse active-set engine on the card == on the CPU, every leaf,
+    with a binding active_slots cap (alloc failures counted)."""
+    from repro_torch.netsim import SimConfig
+
+    for active in (0, 64):
+        cfg = SimConfig(n_hosts=16, hosts_per_tor=4, uplinks_per_tor=4, rto_ticks=120,
+                        conn_sharding=True, active_slots=active)
+        finals = []
+        for d in (dev, "cpu"):
+            sim = Simulator(cfg, workloads.permutation(16, 24, seed=3),
+                            make_lb("reps", evs_size=cfg.evs_size), seed=7, device=d)
+            state, _ = sim.run(300)
+            finals.append(sim_state_to_numpy(state))
+        for k in finals[0]:
+            assert finals[0][k].tobytes() == finals[1][k].tobytes(), (active, k)

@@ -250,9 +250,13 @@ def test_ops_dispatch_cpu_uses_plain_versions_and_counts_nothing():
     g = Topology.build(FATTREE_32_CI).geometry
     ops.next_queue(g, seg > 0, seg, seg, seg, seg, seg, torch.zeros(g.n_queues, dtype=torch.int32),
                    True)
+    tables = Topology.build(FATTREE_32_CI.replace(fabric="mesh:tors=4,hosts=8,planes=2")).tables(
+        "cpu")
+    ops.next_queue_table(tables, seg > 0, seg, seg, seg, seg, seg,
+                         torch.zeros(tables.n_queues, dtype=torch.int32), True)
     assert ops.launch_counts() == {
         "seg_sum": 0, "seg_rank": 0, "reps_tick": 0, "queue_tick": 0, "ecmp_hash": 0,
-        "next_queue": 0}
+        "next_queue": 0, "next_queue_table": 0}
 
 
 # ---------------------------------------------------------------------------

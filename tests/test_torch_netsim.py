@@ -350,10 +350,16 @@ def test_entry_points_refuse_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tengine.Simulator(tpresets.FATTREE_32_CI, wl, lb)
+    # scale mode and generated fabrics are ported; the conn-axis mesh (several
+    # cards) and the flight recorder's events are not
+    sim = tengine.Simulator(tpresets.FATTREE_32_CI.replace(conn_sharding=True), wl, lb,
+                            device="cpu")
     with pytest.raises(NotImplementedError):
-        tengine.Simulator(tpresets.FATTREE_32_CI.replace(conn_sharding=True), wl, lb, device="cpu")
+        sim.step_scenario(sim.init_state(), 0, sim.base_key, conn_axis="conns")
     with pytest.raises(NotImplementedError):
-        ttopo.Topology.build(tpresets.FATTREE_32_CI.replace(fabric="mesh:tors=4,hosts=8,planes=2"))
+        sim.step_scenario(sim.init_state(), 0, sim.base_key, emit_events=True)
+    assert isinstance(ttopo.Topology.build(tpresets.FATTREE_32_CI.replace(
+        fabric="mesh:tors=4,hosts=8,planes=2")), ttopo.TableTopology)
     with pytest.raises(ValueError, match="unknown load balancer"):
         t_make_lb("no_such_lb")
     with pytest.raises(ValueError, match="only 'auto'"):
