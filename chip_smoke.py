@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 600 --scale-row6-ticks 300
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 1500 --scale-row6-ticks 300 --bins-steps 4000
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -35,7 +35,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      ECMP, penalty or none, B = 1, 4, 64 rows, connection tables shared, per
      row or one row expanded), and ``seg_sum`` / ``seg_rank`` / ``reps_tick``
      at the scale rows' shapes (NC = 10**5 and 10**6, B = 1 and 2: S = 3 (NC
-     + 1), NC + 1 and N = NC, timed beside their bounds); then
+     + 1), NC + 1 and N = NC, timed beside their bounds), the traced form
+     of ``reps_tick`` (the flight recorder's per-row decision counts in the
+     same launch: N = 128, R = 2, every class, one row and 64; N = 10**6;
+     its state == the untraced launch's, its counts == the plain
+     version's, device time traced against untraced), and ``seg_rank`` /
+     ``seg_sum`` at the balls-into-bins shapes (a recycled step, K = S = n
+     for n = 8, 32, 128; an OPS run's 10000 x 128 rows; fig16's K = 2**21
+     onto S = 32 as 8 and 64 rows), with bytes and bound; then
      each is timed with
      CUDA events (median of repeated batches) at the engine's call
      (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
@@ -59,15 +66,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      a shorter horizon;
   6. arena — the LB arena's failure block at full width: FATTREE_128, a
      permutation of 1024-packet messages and 5 % of the ToR uplinks down
-     from tick 150 on (``benchmarks/arena.py``), 1100 ticks (past the first
-     failure plus the RTO), for each of the nine zoo
+     from tick 150 on (``benchmarks/arena.py``), 400 ticks (past the first
+     failure), for each of the nine zoo
      load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
      ECMP background) on fig05's background cohort; exact launch counts
      per load balancer (``next_queue`` once per tick for every LB, adaptive
      RoCE included; ``reps_tick`` 1 per tick where REPS runs (reps, mixed));
   7. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
      first failure and REPS freezing), then every zoo load balancer on
-     FATTREE_32_CI under a ToR-uplink failure past the RTO, each on the
+     FATTREE_32_CI through a ToR-uplink failure (its timeouts are held card
+     == CPU by the sweep phase's traced zoo grid), each on the
      card with the kernels and on the CPU through the plain versions;
      every ``SimState`` leaf must be equal;
   8. fleet — the fig06/reps cell under many seeds (``FleetRunner``, one
@@ -96,14 +104,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      row equals its serial card run (the main path's run, continued to the
      bucket's ``ticks_run``) on every leaf, the active SwitchLB slot against
      the plain load balancer, the other slot at its init, and its sketch
-     summary equals ``summarize``; (b) the fig04 (with one shorter cell, so
+     summary equals ``summarize``; the grid runs traced (``trace=TraceSpec``
+     with a ring that holds the whole run), so its rows equal their
+     *untraced* serial runs, each row's ring shows ``fail_active`` at ticks
+     150 and 1200 with one queue each, and its ``fail_rerouted`` value and
+     first-drop / re-delivery ticks equal its RecoveryTracker's; (b) the fig04 (with one shorter cell, so
      that its bucket merges horizons; ECMP, OPS and REPS) and fig07
      (permutation and ring-AllReduce blocks) smoke grids at FATTREE_32_CI,
      shrunk as tests/test_figure_parity.py shrinks them: card == CPU on every
-     leaf and carry slot; (c) device launches per tick by name of (a)'s
-     bucket against a B = 2 fig06/reps ``run_summary`` fleet, and of (b)'s
-     horizon-merged bucket against the same bucket unmasked (equal on
-     ticks no row's horizon falls on);
+     leaf and carry slot; (b') nine LBs of the zoo (``mixed`` among them)
+     as one traced FATTREE_32_CI grid under two ToR-0 uplinks down, card ==
+     CPU on every ring carry, telemetry carry and leaf; (c) device launches
+     per tick by name of (a)'s bucket against a B = 2 fig06/reps
+     ``run_summary`` fleet and against itself traced (the tracer's added
+     launches by name), and of (b)'s horizon-merged bucket against the same
+     bucket unmasked (equal on ticks no row's horizon falls on);
  11. generated fabrics — the clos3 table form of FATTREE_128_3T equals the
      fig18 phase's arithmetic card run on every leaf; rail (16 rails) and
      mesh (2 planes) at 128 hosts, REPS and adaptive RoCE, ToR-0's first two
@@ -113,16 +128,30 @@ Phases, in order; any failure exits non-zero and prints no result:
      dense card run of the cell on every leaf but ``as_idx`` / ``as_count``, its
      active set exactly the non-FREE slots, and device launches per tick,
      sparse against dense; a binding ``active_slots`` cell card == CPU; the
-     10**5-connection row (``bench/scale_smoke.py``, 300 ticks) card == CPU;
-     the 10**6 row through ``SweepEngine(collect="none")`` for 1000 ticks
+     10**5-connection row (``bench/scale_smoke.py``, 150 ticks) card == CPU;
+     the 10**6 row through ``SweepEngine(collect="none")`` for 400 ticks
      (done > 0, NP = A by the lifetime bound, ticks/s, peak memory, exact
      kernel launches) and a profiled window of 100 ticks after it; its live
      REPS state packs to <= 25 B/conn and round-trips, and
      ``measure_scale(10**6)``.  Phases 11 and 12 run after phase 7.
+ 13. balls into bins — ``repro_torch.core.balls_bins``: fig13/14 at n = 8,
+     32, 128 for 10000 steps and fig17's coalescing ratios, card == CPU on
+     every output; fig16's full grid on the card, == CPU on every trial or
+     on the first 4 where the CPU run of 64 is too long; Theorem 5.1's
+     assertions at n = 128; exact seg_rank / seg_sum launches per step and
+     steps/s;
+ 14. soak — ``bench/soak_fig07``'s grid on FATTREE_128's fabric, 480 ticks
+     (AllReduce 960), chunk 120, traced, checkpointing to a temporary
+     directory: straight; killed at 240 and resumed by a fresh engine and
+     runner (records equal, flight parts equal array by array); a spine
+     injected at 40 through ``inject`` against the same spine declared
+     statically (records equal); snapshot bytes and save seconds,
+     synchronous and asynchronous.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
-the telemetry, the sweep, the fabric and the scale phases' runs; the flat
+the telemetry, the sweep, the fabric, the scale, the balls-into-bins and
+the soak phases' runs; the flat
 ``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -144,6 +173,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # must touch (per valid event-field for seg_sum), over the CUDA-core rate.
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak; int32 work counted against it
+# the traced zoo grid of the sweep phase: the LBs whose trace port counts
+# decisions, and one that counts none (mprdma), as one SwitchLB bucket
+ZOO_TRACED = (("reps", {"freezing_timeout": 200}), ("plb", {}), ("flowlet", {}), ("mptcp", {}),
+              ("prime", {}), ("seqbalance", {}), ("flowlet_table", {}), ("mprdma", {}),
+              ("mixed", {"fg": "reps", "bg": "plb", "bg_conns": (1, 3, 5, 8)}))
 # the load balancers of the zoo beyond ECMP / OPS / REPS, in registry order
 ZOO = ("plb", "flowlet", "mptcp", "mprdma", "bitmap", "adaptive_roce", "prime",
        "seqbalance", "flowlet_table")
@@ -802,6 +836,8 @@ def kernel_phase(dev, shapes: dict) -> list[dict]:
     ))
     rows.append(table_kernel_cases(dev, rs))
     scale_kernel_shapes(dev, rs)
+    traced_reps_cases(dev, rs, R)
+    bins_kernel_shapes(dev, rs)
     return rows
 
 
@@ -950,6 +986,86 @@ def table_kernel_cases(dev, rs) -> dict:
         bound_ms=b, bound_by=why, library_ms=None, max_abs_err=err,
         shape=f"K={K} ({valid} arrivals) NQ={spec.n_queues} {TABLE_FABRICS[1]} engine form, "
               f"ECMP; the table form of the ecmp_hash redesign")
+
+
+def traced_reps_cases(dev, rs, R: int) -> None:
+    """The traced form of ``reps_tick`` (the flight recorder's decision
+    counts in the same launch): at the engine's call (N = 128, R rounds,
+    every class; one row and a fleet's 64 rows of 128) and at N = 10**6,
+    its state outputs bit-identical to the untraced launch's and to the
+    plain version's, its counts equal to the plain version's; device time
+    traced against untraced."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import reps_update as ru_mod
+
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    for N, rows, reps, inner in ((128, 1, 5, 50), (128 * 64, 64, 5, 50), (10**6, 1, 3, 10)):
+        r = lambda lo, hi: i32(rs.randint(lo, hi, size=N))
+        bb = lambda p: torch.as_tensor(rs.rand(N) < p, device=dev)
+        state = [i32(rs.randint(0, 65536, size=(N, 8))),
+                 torch.as_tensor(rs.rand(N, 8) < 0.5, device=dev),
+                 r(0, 8), r(0, 9), r(0, 3), bb(0.3), r(0, 3000), r(0, 3)]
+        acks = [(bb(0.5), r(0, 65536), bb(0.3)) for _ in range(R)]
+        ev = [tuple(a[c] for a in acks) for c in range(3)] + [bb(0.2), bb(0.6), r(0, 65536)]
+        untraced = ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800)
+        traced = ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800, trace_rows=rows)
+        plain = ref.reps_tick_ref(*state, *ev, 1234, 32, 800, trace_rows=rows)
+        equal_all(traced[:-1], untraced, f"traced reps_tick N={N}: state vs untraced")
+        equal_all(traced, plain, f"traced reps_tick N={N} rows={rows} vs plain")
+        counts = traced[-1].sum(dim=0).tolist()
+        if sum(counts[:3]) != int(ev[4].sum()):
+            raise AssertionError(f"traced reps_tick N={N}: hit+miss+recycle {counts[:3]} != sends")
+        t_ms = time_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800, trace_rows=rows),
+                       reps=reps, inner=inner)
+        u_ms = time_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800),
+                       reps=reps, inner=inner)
+        log(f"kernel reps_tick traced (N={N}, R={R}, every class, {rows} row(s)): bit-exact; "
+            f"state == untraced, counts == plain {counts[:4]} (hit, miss, recycle, freeze); "
+            f"device traced {t_ms:.5f} ms against untraced {u_ms:.5f} ms")
+
+
+def bins_kernel_shapes(dev, rs) -> None:
+    """``seg_rank`` and ``seg_sum`` at the balls-into-bins models' shapes:
+    a recycled step (K = S = n for n = 8, 32, 128: the arrivals' rank and
+    per-bin count), an OPS run's arrivals (steps x n rows, one launch) and
+    fig16's largest case (K = 2**21 EV draws onto S = 32 ports, 8 and 64
+    trials as rows), bit-exact against the plain versions, with bytes and
+    bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seg_rank as sr_mod
+    from repro_torch.kernels import seg_sum as ss_mod
+
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    for n in (8, 32, 128):
+        t = i32(rs.randint(0, n, size=n))
+        t[: n // 4] = 0  # remembered bins pile up
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        rk = sr_mod.seg_rank_cuda(t, n)
+        cnt = ss_mod.seg_sum_cuda(t, [ones], n)
+        equal_all([rk, cnt], [ref.seg_rank_ref(t, n), ref.seg_sum_ref(t, [ones], n)],
+                  f"balls-bins step n={n}")
+        sr_b, ss_b = bound_ms(nbytes(t, rk), n), bound_ms(nbytes(t, ones, cnt), n)
+        log(f"kernel balls-bins step n={n}: seg_rank (K=S={n}) bit-exact, {nbytes(t, rk)} B, device "
+            f"{time_ms(lambda: sr_mod.seg_rank_cuda(t, n)):.5f} ms, bound {sr_b[0]:.3e} ms "
+            f"({sr_b[1]}); seg_sum (K=S={n}, one bool field) {nbytes(t, ones, cnt)} B, device "
+            f"{time_ms(lambda: ss_mod.seg_sum_cuda(t, [ones], n)):.5f} ms, bound {ss_b[0]:.3e} ms")
+    for B, K, S, what in ((10000, 128, 128, "OPS run, steps x n"), (8, 2**21, 32, "fig16 chunk"),
+                          (64, 2**21, 32, "fig16, all 64 trials")):
+        seg = i32(rs.randint(0, S, size=(B, K)))
+        vals = torch.as_tensor(rs.rand(B, K) < 0.99, device=dev)
+        got = ss_mod.seg_sum_cuda(seg, [vals], S)
+        equal_all([got], [ref.seg_sum_ref(seg, [vals], S)], f"seg_sum {what}")
+        b = bound_ms(nbytes(seg, vals, got), B * K)
+        ms = time_ms(lambda: ss_mod.seg_sum_cuda(seg, [vals], S), reps=3, inner=5)
+        log(f"kernel seg_sum ({what}: B={B}, K={K}, S={S}, one bool field): bit-exact; "
+            f"{nbytes(seg, vals, got)} B, device {ms:.5f} ms, bound {b[0]:.3e} ms ({b[1]})")
+        del seg, vals, got
 
 
 def scale_kernel_shapes(dev, rs) -> None:
@@ -1125,7 +1241,7 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
     non-FREE slots, and device launches per tick of the sparse tick against
     the dense one from there; (b) a
     small cell with ``active_slots`` binding, card == CPU; (c) the 10**5 row
-    (``bench/scale_smoke.py``'s, 300 ticks) card == CPU; (d) the 10**6 row
+    (``bench/scale_smoke.py``'s, 150 ticks by default) card == CPU; (d) the 10**6 row
     through ``SweepEngine(collect="none")`` with exact launch counts: done >
     0, NP = A by the lifetime bound, ticks/s, peak memory, and a profiled
     window (device busy share, launches per tick); its live REPS state packs
@@ -2032,18 +2148,19 @@ def same_scenario(a, b) -> bool:
 
 class TickRanges:
     """Per-tick profiler ranges around a simulator's ``step_probe_rows``
-    calls, from one call to the next (the tick's telemetry update included),
-    so that ``launches_per_tick`` can count a tick of a loop that is not
-    ours (``SweepEngine.run_chunk``, ``FleetRunner.run_summary``); the
-    chunk's draws, made before its first tick, stay outside."""
+    calls (``step_events_rows`` in a traced loop), from one call to the
+    next (the tick's telemetry and tracer updates included), so that
+    ``launches_per_tick`` can count a tick of a loop that is not ours
+    (``SweepEngine.run_chunk``, ``FleetRunner.run_summary``); the chunk's
+    draws, made before its first tick, stay outside."""
 
-    def __init__(self, sim):
-        self.sim, self.open = sim, None
+    def __init__(self, sim, method: str = "step_probe_rows"):
+        self.sim, self.method, self.open = sim, method, None
 
     def __enter__(self):
         from torch.profiler import record_function
 
-        step = self.sim.step_probe_rows
+        step = getattr(self.sim, self.method)
 
         def ranged(*a, **kw):
             self.close()
@@ -2051,7 +2168,7 @@ class TickRanges:
             self.open.__enter__()
             return step(*a, **kw)
 
-        self.sim.step_probe_rows = ranged
+        setattr(self.sim, self.method, ranged)
         return self
 
     def close(self):
@@ -2061,10 +2178,10 @@ class TickRanges:
 
     def __exit__(self, *exc):
         self.close()
-        del self.sim.step_probe_rows  # the class's method again
+        delattr(self.sim, self.method)  # the class's method again
 
 
-def profiled_ticks(label: str, sim, fn, n: int) -> list:
+def profiled_ticks(label: str, sim, fn, n: int, method: str = "step_probe_rows") -> list:
     """``fn()`` (``n`` ticks of ``sim`` in someone's loop) under the
     profiler with a range per tick: each tick's launches by name
     (``launches_per_tick``)."""
@@ -2073,7 +2190,7 @@ def profiled_ticks(label: str, sim, fn, n: int) -> list:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with TickRanges(sim):
+        with TickRanges(sim, method):
             fn()
         torch.cuda.synchronize()
     rows = launches_per_tick(prof)
@@ -2164,10 +2281,14 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
     from repro_torch.configs import FATTREE_32_CI
     from repro_torch.kernels import ops
     from repro_torch.netsim import SweepEngine, sim_state_to_numpy
+    from repro_torch.netsim import tracer as tr
     from repro_torch.netsim.engine import add_rows, drop_rows
 
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     t_start = time.perf_counter()
+    # a ring that holds the whole 8000-tick run of the REPS row (a few
+    # pushes per tick), so that the failure edges of ticks 150 and 1200 stay
+    trace = tr.TraceSpec(ring=32768, marker_every=256)
 
     def step_done(what):
         log(f"sweep phase: {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -2197,14 +2318,15 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
     rows = bc.Rows(device=str(dev))
     (eng, res), secs, counts = counted(
         "sweep fig06", lambda: bc.figure_grid(rows, "fig06", cfg, cases, fmt=fig06.fmt,
-                                              collect="summary", device=dev),
+                                              collect="summary", device=dev, trace=trace),
         ticks=lambda out: out[1].buckets[0].ticks_run)
     bucket = res.buckets[0]
     log("sweep fig06 plan:\n" + eng.plan.describe())
     if len(res.buckets) != 1 or len(bucket.lb.variants) != 2:
         raise AssertionError("sweep fig06: expected one bucket of SwitchLB(ops, reps)")
     sums = res.summaries()
-    log(f"sweep fig06 (BENCH_FULL config = FATTREE_128: {cfg.n_hosts} hosts, "
+    log(f"sweep fig06, traced (TraceSpec ring {trace.ring}; BENCH_FULL config = FATTREE_128: "
+        f"{cfg.n_hosts} hosts, "
         f"{cfg.uplinks_per_tor} uplinks per ToR, queue {cfg.queue_capacity}, RTO "
         f"{cfg.rto_ticks}, {cfg.evs_size} EVs), horizon {bucket.ticks}: ticks_run="
         f"{bucket.ticks_run} in {secs:.3f} s ({bucket.exec_wall_s:.3f} s in the bucket's loop, "
@@ -2220,6 +2342,33 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
                 f"measured_row_tick_us={r['measured_row_tick_us']:.3f} "
                 f"est_row_tick_cost={r['est_row_tick_cost']:.1f} key={r['bucket_key']}")
     step_done("(a) fig06 sweep")
+    fail_ticks = [int(t) for t in (150, 1200)]
+    for c in cases:
+        ev, rec = res.flight_for(c.name), res.telemetry_for(c.name)["recovery"]
+        codes = [int(x) for x in ev["code"]]
+        if ev["lost"] or ev["cursor"] != len(codes):
+            raise AssertionError(f"sweep {c.name}: the ring lost {ev['lost']} events")
+        opened = [(int(t), int(v)) for t, v, k in zip(ev["tick"], ev["value"], codes)
+                  if k == tr.FAIL_ACTIVE]
+        if opened != [(t, 1) for t in fail_ticks]:
+            raise AssertionError(f"sweep {c.name}: fail_active events {opened}, expected one "
+                                 f"queue at each of {fail_ticks}")
+        rer = [(int(t), int(v)) for t, v, k in zip(ev["tick"], ev["value"], codes)
+               if k == tr.FAIL_REROUTED]
+        if (ev["first_drop_tick"], ev["first_redeliver_tick"]) != (
+                rec["first_drop_tick"], rec["first_redeliver_tick"]) or (
+                rec["recovery_ticks"] >= 0 and rer != [(rec["first_redeliver_tick"],
+                                                        rec["recovery_ticks"])]):
+            raise AssertionError(f"sweep {c.name}: ring edges {ev['first_drop_tick']}, "
+                                 f"{ev['first_redeliver_tick']}, rerouted {rer} against the "
+                                 f"RecoveryTracker {rec}")
+        by = collections.Counter(tr.CODE_NAMES[k] for k in codes)
+        log(f"sweep {c.name} flight ring: {ev['cursor']} events, 0 lost, {dict(by)}; "
+            f"fail_active at {opened} (tick, queues); first drop {ev['first_drop_tick']}, "
+            f"first re-routed delivery {ev['first_redeliver_tick']}: fail_rerouted value "
+            f"{rer[0][1] if rer else None} == RecoveryTracker recovery_ticks "
+            f"{rec['recovery_ticks']}")
+    step_done("(a) flight rings")
     ticks_run = bucket.ticks_run
     for c in cases:
         lbn = c.lb
@@ -2240,7 +2389,7 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
 
     # (b) heterogeneous horizons and three variants: card == CPU
     small = FATTREE_32_CI
-    shrink = lambda cs: [dataclasses.replace(c, ticks=max(300, c.ticks // 16), seeds=(0,))
+    shrink = lambda cs: [dataclasses.replace(c, ticks=max(300, c.ticks // 32), seeds=(0,))
                          for c in cs]
     g04 = shrink(fig04.cases(small, smoke=True, full=False))
     g04.append(dataclasses.replace(g04[1], name="fig04/permutation/ops@200", ticks=200))
@@ -2277,15 +2426,67 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
         raise AssertionError("sweep (b): no bucket merged horizons")
     step_done("(b) card == CPU")
 
+    # (b') the load-balancer zoo as one traced grid (two ToR-0 uplinks down
+    # from tick 30, past the RTO): card == CPU on every ring carry
+    from repro_torch.netsim import SweepCase, Topology, failures, workloads
+
+    ups = [int(q) for q in Topology.build(small).t0_up_queues(0)[:2]]
+    fs = failures.link_down(ups, 30, failures.FOREVER)
+    wl = workloads.permutation(32, 64, seed=3)
+    zoo = [SweepCase(f"zoo/{lb}", wl, lb, 460, dict(evs_size=small.evs_size, **kw), fs)
+           for lb, kw in ZOO_TRACED]
+    out = {}
+    for d in (dev, "cpu"):
+        e = SweepEngine(small, zoo, device=d)
+        out[d], secs, counts = counted(
+            f"sweep zoo traced on {d}",
+            lambda: e.run(collect="summary", trace=tr.TraceSpec(ring=4096)))
+        n_run = sum(b.ticks_run for b in out[d].buckets)
+        if d == dev and counts["reps_tick"] != 2 * n_run:  # the reps variant and mixed's
+            raise AssertionError(f"sweep zoo traced: reps_tick launched {counts['reps_tick']} "
+                                 f"times in {n_run} ticks, expected 2 per tick")
+        log(f"sweep zoo traced on {d}: {len(e.buckets)} bucket(s) {[b.lb.name for b in e.buckets]},"
+            f" {secs:.3f} s" + (f"; launches={counts}" if d == dev else ""))
+    n_slots, events = 0, collections.Counter()
+    for bg, bc_ in zip(out[dev].buckets, out["cpu"].buckets):
+        if (bg.trace_rows.tobytes() != bc_.trace_rows.tobytes()
+                or bg.telemetry.tobytes() != bc_.telemetry.tobytes()):
+            raise AssertionError("sweep zoo traced: card and CPU rings or carries differ")
+        n_slots += bg.trace_rows.size
+    for c in zoo:
+        same_leaves(sim_state_to_numpy(out[dev].state_for(c.name)),
+                    sim_state_to_numpy(out["cpu"].state_for(c.name)), f"sweep {c.name}")
+        ev = out[dev].flight_for(c.name)
+        events.update(tr.CODE_NAMES[int(k)] for k in ev["code"])
+    log(f"card vs CPU: sweep zoo traced ({len(zoo)} LBs): all {n_slots} ring carry slots, the "
+        f"telemetry carries and every SimState leaf bit-equal; events {dict(events)}")
+    step_done("(b') zoo traced card == CPU")
+
     # (c) launches per tick by name: (a)'s bucket against a B = 2 fleet of
     # fig06/reps under run_summary; (b)'s merged bucket against unmasked
     carry = eng.bucket_carry(bucket, "summary")
     carry, _ = eng.run_chunk(bucket, carry, 0, warm, "summary")
+    # the traced window starts from the same warmed rows with a fresh ring
+    # (the untraced window below updates the telemetry carry in place)
+    carry_t = (carry[0], carry[1].clone(),
+               eng._trc_prog(bucket.program, trace).init_rows(bucket.plan.n_padded_rows))
     rows_sw, _, counts6 = counted("sweep fig06 window", lambda: profiled_ticks(
         "sweep fig06 bucket B=2", bucket.sim,
         lambda: eng.run_chunk(bucket, carry, warm, prof_ticks, "summary"), prof_ticks),
         ticks=prof_ticks)
     n_sw, by_sw = typical_tick("sweep fig06 bucket, B=2", rows_sw)
+    rows_tr, _, _ = counted("sweep fig06 traced window", lambda: profiled_ticks(
+        "sweep fig06 bucket B=2 traced", bucket.sim,
+        lambda: eng.run_chunk(bucket, carry_t, warm, prof_ticks, "summary", None, trace),
+        prof_ticks, method="step_events_rows"), ticks=prof_ticks)
+    n_tr, by_tr = typical_tick("sweep fig06 bucket, B=2, traced", rows_tr)
+    log(f"tracer launches per tick: the traced fig06 bucket {n_tr} against {n_sw} untraced "
+        f"({n_tr - n_sw:+d}: the traced LB step's counts and the ring update)")
+    diff_tr = by_tr.copy()
+    diff_tr.subtract(by_sw)
+    for k, v in sorted(diff_tr.items(), key=lambda kv: -abs(kv[1])):
+        if v:
+            log(f"tracer launches vs untraced: {v:+g} per tick  {k[:100]}")
     fleet = fig06_fleet((0, 1), dev)
     st, tel = fleet.run_summary(warm, horizon=warm + prof_ticks)
     rows_fl, _, _ = counted("fleet window", lambda: profiled_ticks(
@@ -2327,6 +2528,293 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
         f"by tick ({sorted(collections.Counter(totals_m).items())} launches: ticks), and the "
         f"median tick by name, on ticks {lo - n_w}-{lo}, where no row's horizon falls")
     step_done("(c) launches")
+    return totals
+
+
+def _counting(totals: dict):
+    """``counted(fn) -> (out, seconds, launches by kernel)``: ``fn()`` run
+    with every launch count set to 0 just before and read just after,
+    added into ``totals``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, m in counts.items():
+            totals[k] += m
+        return out, secs, counts
+
+    return counted
+
+
+def exact_launches(what: str, counts: dict, want: dict) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+BINS_N = (8, 32, 128)
+BINS_FIG17 = (32, 4000, (1, 2, 4, 8))  # n, steps, coalescing ratios
+FIG16 = [(flows, bits) for flows in (1, 32) for bits in (4, 8, 12, 16)]
+
+
+def fig16_cpu_trials(m: int) -> int:
+    """Trials of a fig16 cell held on the CPU: all 64, or the first 4 where
+    m = flows x EVS > 2**17 (a CPU run of 64 would take minutes; the trials'
+    keys are a prefix of the 64's, so their draws are too)."""
+    return 64 if m <= 2**17 else 4
+
+
+BINS_PARTS = ("fig13", "fig17", "fig16")
+
+
+def bins_runs(dev, steps: int, parts=BINS_PARTS) -> dict:
+    """The balls-into-bins outputs of ``bins_phase`` on ``dev`` for the
+    figures in ``parts``, as numpy arrays keyed by cell (the card's in the
+    phase, the CPU's in helper processes beside it, one per figure), with
+    each cell's seconds under ``("secs", key)``."""
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.bench.bins import params
+    from repro_torch.core import balls_bins as bb
+
+    torch.set_num_threads(2)
+    on_card = torch.device(dev).type == "cuda"
+    out = {}
+
+    def run(k, fn):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        out[("secs", k)] = time.perf_counter() - t0
+        out[k] = [x.cpu().numpy() for x in (r if isinstance(r, tuple) else (r,))]
+
+    key = rng.PRNGKey(0, dev)
+    for n in BINS_N if "fig13" in parts else ():
+        b, tau = params(n)
+        run(("ops", n), lambda: bb.simulate_ops_bins(key, n, 0.99, steps, device=dev))
+        run(("rec", n), lambda: bb.simulate_recycled_bins(key, n, b, tau, steps, device=dev))
+    n, s17, ratios = BINS_FIG17
+    b, tau = params(n)
+    for ratio in ratios if "fig17" in parts else ():
+        run(("c", ratio), lambda: bb.simulate_recycled_bins(key, n, b, tau, s17, coalesce=ratio,
+                                                            device=dev))
+    if "fig17" in parts:
+        run(("ops17", n), lambda: bb.simulate_ops_bins(key, n, 1.0, s17, device=dev))
+    for flows, bits in FIG16 if "fig16" in parts else ():
+        trials = 64 if on_card else fig16_cpu_trials(flows * 2**bits)
+        run(("evs", flows, bits), lambda: bb.evs_load_imbalance(key, 32, 2**bits, flows, trials,
+                                                                device=dev))
+    return out
+
+
+def bins_phase(dev, steps: int) -> dict:
+    """The balls-into-bins models (``repro_torch.core.balls_bins``, the
+    reference's fig13/14, fig16 and fig17 cells) on the card against the
+    port's plain path on the CPU (in a helper process per figure while the
+    card runs): fig13/14 at n = 8, 32, 128 for ``steps`` steps, fig17's
+    coalescing ratios (n = 32, 4000 steps), every output equal; fig16's
+    full grid (flows 1, 32 x EVS 2^4 ... 2^16 x 64 trials) on the card,
+    equal to the CPU on every trial or on the first 4 (``fig16_cpu_trials``);
+    Theorem 5.1's assertions (tests/test_property_reps.py) at n = 128 on the
+    card's 4000-step prefix; exact ``seg_rank`` / ``seg_sum`` launches per
+    run and steps/s.  Returns the launches per kernel."""
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.bench.bins import params
+    from repro_torch.core import balls_bins as bb
+    from repro_torch.kernels import ops
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    with multiprocessing.get_context("spawn").Pool(len(BINS_PARTS)) as pool:
+        pending = [pool.apply_async(bins_runs, ("cpu", steps, (p,))) for p in BINS_PARTS]
+        card, secs, counts = counted(lambda: bins_runs(dev, steps))
+        cpu = {k: v for p in pending for k, v in p.get(timeout=900).items()}
+    n17, s17, ratios = BINS_FIG17
+    want = {"seg_rank": len(BINS_N) * steps + len(ratios) * s17,
+            "seg_sum": len(BINS_N) * (1 + steps) + len(ratios) * s17 + 1 + sum(
+                -(-64 // max(1, bb.TRIAL_DRAWS // (f * 2**b))) for f, b in FIG16)}
+    exact_launches("balls into bins", counts, want)
+    for k, outs in cpu.items():
+        if k[0] == "secs":
+            continue
+        got = card[k]
+        for i, (x, y) in enumerate(zip(got, outs)):
+            x = x[: len(y)] if k[0] == "evs" else x
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise AssertionError(f"balls into bins {k}: card output {i} differs from the CPU")
+    log(f"bins: card == CPU on every output of {len(cpu) // 2} cells in {secs:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} } == expected (seg_rank 1 and seg_sum 1 per "
+        f"recycled step, seg_sum 1 per OPS run, 1 per fig16 chunk of trials)")
+    for n in BINS_N:
+        b, tau = params(n)
+        ml, = card[("ops", n)]
+        mx, frac, _ = card[("rec", n)]
+        log(f"bins fig13/ops/n{n}: max_load_end={ml[-1]} peak={ml.max()}, "
+            f"{steps / card[('secs', ('ops', n))]:.1f} steps/s; fig14/recycled/n{n} (b={b}, "
+            f"tau={tau}): max_load_end={mx[-1]} frac_remember={frac[-1]:.3f}, "
+            f"{steps / card[('secs', ('rec', n))]:.1f} steps/s (CPU "
+            f"{steps / cpu[('secs', ('rec', n))]:.1f}); {steps} steps, card == CPU")
+    for ratio in ratios:
+        mx = card[("c", ratio)][0]
+        log(f"bins fig17/recycled_c{ratio}: max_load_end={mx[-1]} tau={params(n17)[1]}, "
+            f"{s17 / card[('secs', ('c', ratio))]:.1f} steps/s; card == CPU")
+    for flows, bits in FIG16:
+        lam = card[("evs", flows, bits)][0]
+        n_cpu = fig16_cpu_trials(flows * 2**bits)
+        log(f"bins fig16/flows{flows}/evs2^{bits}: 64 trials of m={flows * 2**bits} draws in "
+            f"{card[('secs', ('evs', flows, bits))]:.3f} s; card == CPU on "
+            f"{'all 64 trials' if n_cpu == 64 else 'the first 4 trials (a CPU run of 64 is too long)'}"
+            f"; mean_imbalance={lam.mean():.4f} p95={np.percentile(lam, 95):.4f}")
+    # Theorem 5.1 at n = 128 (the test's 4000 steps: the draws and the
+    # process are causal, so they are the prefix of the longer runs)
+    n, T5 = 128, 4000
+    tau = params(n)[1]
+    mx, frac, _ = card[("rec", n)]
+    ml, ops_ml = mx[:T5], card[("ops", n)][0][:T5]
+    if not (int(ml[-1]) <= 3 * tau and int(ml[2000:].max()) <= 3 * tau
+            and int(ops_ml[-1]) > 3 * tau and float(frac[T5 - 1]) > 0.3):
+        raise AssertionError(f"Theorem 5.1 at n={n}: recycled end {ml[-1]}, max after 2000 "
+                             f"{ml[2000:].max()}, OPS end {ops_ml[-1]}, 3 tau {3 * tau}, "
+                             f"frac_remember {frac[T5 - 1]}")
+    log(f"bins Theorem 5.1 at n={n} (tau={tau}): recycled max load {int(ml[-1])} at step {T5} "
+        f"and <= {int(ml[2000:].max())} after 2000 (bound 3 tau = {3 * tau}); OPS "
+        f"{int(ops_ml[-1])} > 3 tau; frac_remember {float(frac[T5 - 1]):.3f} > 0.3")
+    return totals
+
+
+def soak_phase(dev, ticks: int, chunk: int, kill_at: int, ring: int) -> dict:
+    """The soak runtime at full width: ``bench/soak_fig07``'s grid
+    (permutation and ring-AllReduce blocks x OPS / REPS under 5 % of the
+    uplinks down) on FATTREE_128's fabric, ``ticks`` (AllReduce 2x), chunk
+    ``chunk``, traced, checkpointing to a temporary directory: straight
+    through; killed at ``kill_at`` (the runner abandoned, a fresh engine and
+    runner resumed); a spine injected at the first boundary through
+    ``inject`` at tick 40 against the same spine declared statically.  The records of
+    straight and resumed runs are equal, their flight parts array by array,
+    and the injected and static records are equal.  Snapshot bytes and save
+    seconds, synchronous and asynchronous.  Returns the launches per
+    kernel."""
+    import dataclasses
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.bench import soak_fig07 as sf
+    from repro_torch.configs import FATTREE_128
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import FailureSchedule, SoakRunner, SweepEngine, failures
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    cfg = FATTREE_128
+    base = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+    t_start = time.perf_counter()
+
+    def parts(d):
+        fd = os.path.join(d, "flight")
+        out = {}
+        for f in sorted(os.listdir(fd)):
+            if f.endswith(".npz"):
+                with np.load(os.path.join(fd, f)) as z:
+                    out[f] = {k: z[k] for k in z.files}
+        return out
+
+    try:
+        d_a = os.path.join(base, "straight")
+        soak = sf.build(cfg, ticks, chunk, d_a, ring, dev)
+        log("soak fig07 grid on FATTREE_128:\n" + soak.engine.plan.describe())
+        _, secs, counts = counted(lambda: sf.drive(soak, chunk))
+        # snapshot size and save times at the finished cursor, before result()
+        snap = ckpt.latest(d_a)
+        n_bytes = sum(os.path.getsize(os.path.join(snap, f)) for f in os.listdir(snap))
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(base, "timed", "step_sync"), soak.cursor, soak._trees(),
+                  extra=soak._extra())
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h = ckpt.save_async(os.path.join(base, "timed", "step_async"), soak.cursor, soak._trees(),
+                            extra=soak._extra())
+        snap_s = time.perf_counter() - t0
+        h.join()
+        async_s = time.perf_counter() - t0
+        straight = sf.record(soak)
+        log(f"soak straight: {soak.cursor} ticks (permutation {ticks}, AllReduce {2 * ticks}) in "
+            f"{secs:.3f} s with {soak.cursor // chunk} checkpoints; launches={counts}; snapshot "
+            f"{n_bytes} B; save {sync_s:.4f} s synchronous, {snap_s:.4f} s to the host copy and "
+            f"{async_s:.4f} s to the commit asynchronous")
+        for name, ss in straight["summaries"].items():
+            s = ss[0]
+            log(f"soak {name}: completed={s['completed']}/{s['n_conns']} drops_fail="
+                f"{s['drops_fail']} timeouts={s['timeouts']}")
+
+        d_b = os.path.join(base, "killed")
+        first = sf.build(cfg, ticks, chunk, d_b, ring, dev)
+        _, s1, _ = counted(lambda: sf.drive(first, chunk, kill_at=kill_at))
+        if first.cursor != kill_at:
+            raise AssertionError(f"soak: killed at {first.cursor}, not {kill_at}")
+        del first  # the preemption: only the snapshots survive
+        resumed = sf.build(cfg, ticks, chunk, d_b, ring, dev)
+        _, s2, _ = counted(lambda: (resumed.resume(), sf.drive(resumed, chunk)))
+        got = sf.record(resumed)
+        if _json.dumps(got, sort_keys=True) != _json.dumps(straight, sort_keys=True):
+            raise AssertionError("soak: the killed-and-resumed record differs from the straight")
+        pa, pb = parts(d_a), parts(d_b)
+        if sorted(pa) != sorted(pb) or any(
+                sorted(pa[f]) != sorted(pb[f]) or any(not np.array_equal(pa[f][k], pb[f][k])
+                                                      for k in pa[f]) for f in pa):
+            raise AssertionError("soak: the resumed run's flight parts differ from the straight")
+        n_ev = sum(int(p["seq"].size) for p in pa.values())
+        log(f"soak killed at {kill_at} and resumed by a fresh engine and runner ({s1:.3f} s + "
+            f"{s2:.3f} s): record == straight; all {len(pa)} flight parts ({n_ev} events) equal "
+            f"array by array")
+
+        # injected at tick 40, while the permutation's messages are in
+        # flight (its random uplink failures start at 60; by the first
+        # boundary, 120, its traffic has drained but for stalled packets)
+        spine, at = 0, 40
+        delta = failures.spine_down(cfg, spine, start=at)
+        inj = sf.build(cfg, ticks, chunk, os.path.join(base, "injected"), ring, dev)
+        _, s3, _ = counted(lambda: sf.drive(inj, chunk, inject_spine=spine, inject_at=at, cfg=cfg))
+        injected = sf.record(inj)
+        cases = [dataclasses.replace(c, failures=FailureSchedule.concat(c.failures, delta))
+                 for c in sf.cases(cfg, ticks)]
+        eng = SweepEngine(cfg, cases, min_failure_slots=sf.MIN_FAILURE_SLOTS, device=dev)
+        static = SoakRunner(eng, dataclasses.replace(inj.config,
+                                                     ckpt_dir=os.path.join(base, "static")))
+        _, s4, _ = counted(lambda: sf.drive(static, chunk))
+        declared = sf.record(static)
+        if len(injected["injections"]) != 1:
+            raise AssertionError(f"soak: injections {injected['injections']}")
+        strip = lambda r: _json.dumps({k: v for k, v in r.items() if k != "injections"},
+                                      sort_keys=True)
+        if strip(injected) != strip(declared):
+            raise AssertionError("soak: the injected spine's record differs from the static one")
+        if strip(injected) == strip(straight):
+            raise AssertionError("soak: the spine changed nothing")
+        log(f"soak spine {spine} injected at {at} ({s3:.3f} s) == declared statically "
+            f"({s4:.3f} s): records equal")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"soak phase: {time.perf_counter() - t_start:.1f} s")
     return totals
 
 
@@ -2396,37 +2884,46 @@ def zoo_card_vs_cpu(dev, ticks: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
-    ap.add_argument("--arena-ticks", type=int, default=1100, help="arena ticks per cell")
+    ap.add_argument("--arena-ticks", type=int, default=400,
+                    help="arena ticks per cell (past the failures at 150)")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
-    ap.add_argument("--zoo-check-ticks", type=int, default=500,
+    ap.add_argument("--zoo-check-ticks", type=int, default=300,
                     help="card-vs-CPU horizon of each zoo load balancer")
-    ap.add_argument("--fig18-ticks", type=int, default=1200, help="fig18/3tier/reps ticks")
-    ap.add_argument("--fig18-check-ticks", type=int, default=600,
+    ap.add_argument("--fig18-ticks", type=int, default=800, help="fig18/3tier/reps ticks")
+    ap.add_argument("--fig18-check-ticks", type=int, default=400,
                     help="fig18/3tier/reps card-vs-CPU horizon")
-    ap.add_argument("--fleet-ticks", type=int, default=600,
+    ap.add_argument("--fleet-ticks", type=int, default=300,
                     help="ticks of the B=4 fleet held against serial runs")
-    ap.add_argument("--fleet-check-ticks", type=int, default=600,
+    ap.add_argument("--fleet-check-ticks", type=int, default=460,
                     help="card-vs-CPU horizon of the small fleet")
-    ap.add_argument("--fleet-bench-ticks", type=int, default=150,
+    ap.add_argument("--fleet-bench-ticks", type=int, default=100,
                     help="timed ticks per fleet per round")
     ap.add_argument("--fleet-rounds", type=int, default=2, help="interleaved rounds over B")
     ap.add_argument("--tel-ticks", type=int, default=1100,
                     help="ticks of the four full-width telemetry rows held against serial runs")
-    ap.add_argument("--tel-check-ticks", type=int, default=900,
+    ap.add_argument("--tel-check-ticks", type=int, default=600,
                     help="card-vs-CPU horizon of the small telemetry fleet")
-    ap.add_argument("--tel-bench-ticks", type=int, default=100,
+    ap.add_argument("--tel-bench-ticks", type=int, default=60,
                     help="timed ticks per (B, path) per telemetry round")
     ap.add_argument("--tel-rounds", type=int, default=2, help="interleaved telemetry rounds")
     ap.add_argument("--sweep-fig06-ticks", type=int, default=8000,
                     help="the sweep's fig06 horizon (8000: the figure's own)")
     ap.add_argument("--fabric-check-ticks", type=int, default=300,
                     help="card-vs-CPU horizon of the rail and mesh cells")
-    ap.add_argument("--scale-row5-ticks", type=int, default=300,
+    ap.add_argument("--scale-row5-ticks", type=int, default=150,
                     help="ticks of the 10**5-connection row (card vs CPU)")
-    ap.add_argument("--scale-row6-ticks", type=int, default=1000,
+    ap.add_argument("--scale-row6-ticks", type=int, default=400,
                     help="ticks of the 10**6-connection row")
     ap.add_argument("--scale-prof-ticks", type=int, default=100,
                     help="profiled ticks of the 10**6-connection row")
+    ap.add_argument("--bins-steps", type=int, default=10000,
+                    help="fig13/14 steps (10000: the paper scale; the Theorem 5.1 checks need "
+                         ">= 4000)")
+    ap.add_argument("--soak-ticks", type=int, default=480,
+                    help="the soak grid's permutation horizon (AllReduce 2x)")
+    ap.add_argument("--soak-chunk", type=int, default=120, help="soak chunk = checkpoint cadence")
+    ap.add_argument("--soak-kill-at", type=int, default=240, help="soak preemption tick")
+    ap.add_argument("--soak-ring", type=int, default=2048, help="soak flight-ring size")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2513,11 +3010,18 @@ def main() -> int:
         totals[k] += n
     del warmed
     phase_done("telemetry")
-    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=200,
+    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=100,
                             prof_ticks=20).items():
         totals[k] += n
     del main_refs
     phase_done("sweep")
+    for k, n in bins_phase(dev, args.bins_steps).items():
+        totals[k] += n
+    phase_done("balls into bins")
+    for k, n in soak_phase(dev, args.soak_ticks, args.soak_chunk, args.soak_kill_at,
+                           args.soak_ring).items():
+        totals[k] += n
+    phase_done("soak")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -98,14 +98,15 @@ def measured_costs() -> dict:
     return measured_costs_from_bench(bench_path())
 
 
-def run_sweep(cfg, cases, packer=None, collect=None, device=None):
+def run_sweep(cfg, cases, packer=None, collect=None, device=None, trace=None):
     """Submit a whole figure as one sweep.  ``collect`` defaults to
     BENCH_COLLECT; "none" and "summary" stop at quiescence (early exit;
     reported metrics are bit-identical to the full horizon), "full" keeps
-    raw trace streams and runs every tick."""
+    raw trace streams and runs every tick.  ``trace`` (a ``TraceSpec``,
+    summary mode) also carries the flight recorder."""
     collect = collect or default_collect()
     eng = SweepEngine(cfg, cases, packer=packer, measured_costs=measured_costs(), device=device)
-    res = eng.run(collect=collect, early_exit=collect != "full")
+    res = eng.run(collect=collect, early_exit=collect != "full", trace=trace)
     return eng, res
 
 
@@ -150,14 +151,14 @@ def sweep_rows(rows, res, fmt=None, derive=None, collect=None, derive_res=None):
 
 
 def figure_grid(rows, fig, cfg, cases, fmt=None, derive=None, packer=None, collect=None,
-                derive_res=None, device=None):
+                derive_res=None, device=None, trace=None):
     """Run a declarative figure grid (a list of SweepCases) as one sweep
     submission and emit its rows, one ``{fig}/bucket/*`` row per bucket
     (its PackPlan key beside the measured bucket_ticks_per_sec and
     measured_row_tick_us, the packer's measured-cost feedback) and a
     ``{fig}/sweep_total`` row.  Returns ``(engine, result)``."""
     collect = collect or default_collect()
-    eng, res = run_sweep(cfg, cases, packer=packer, collect=collect, device=device)
+    eng, res = run_sweep(cfg, cases, packer=packer, collect=collect, device=device, trace=trace)
     sweep_rows(rows, res, fmt=fmt, derive=derive, collect=collect, derive_res=derive_res)
     plan = eng.plan
     for i, b in enumerate(res.buckets):

@@ -4,6 +4,7 @@
     python -m repro_torch.bench.run --only fig02,fig06 --smoke --device cpu
     python -m repro_torch.bench.run --only fig06 --full            # paper scale
     python -m repro_torch.bench.run --only scale --scale-conns 1000000 --scale-ticks 1000
+    python -m repro_torch.bench.run --only bins --full             # fig13/14, fig16, fig17
 
 Prints ``name,us_per_call,derived`` CSV rows and merges them into
 ``build/repro_torch/BENCH_torch.json`` (``--out`` to write elsewhere): the
@@ -35,6 +36,7 @@ MODULES = [
     "fig07_failures_macro",
     "fig08_extreme",
     "fig02_symmetric",
+    "bins",
 ]
 SCALE_MODULES = ["scale_smoke", "table1_footprint"]  # run only when --only names them
 

@@ -16,6 +16,8 @@ tuple of them) that the engine threads through the tick:
     on_ack(state, mask, ev, ecn, now, draw)   -> state
     on_timeout(state, mask, now, draw)        -> state
     step(state, acks, timeout_mask, send_mask, draws, now) -> (evs, state)
+    step(..., rows=B)                         -> (evs, state, counts (B, N_TRACE_KINDS))
+    trace(site, prev, new, mask, rows=1)      -> counts (rows, N_TRACE_KINDS) int32
 
 ``step`` is one tick of the load balancer as the engine calls it: ``on_ack``
 for each feedback round of ``acks`` (a sequence of ``(mask, ev, ecn,
@@ -44,7 +46,18 @@ connection axis (``(..., N)``, ``(..., N, K)``).  So the engine hands B runs
 of one scenario to a load balancer as ``B * N`` connections: ``(B, N, ...)``
 leaves and draws viewed as ``(B * N, ...)``.
 
-The flight recorder's ``trace`` port waits for the tracer slice.
+The flight recorder's ``trace`` port is the reference's: observation-only
+decision counts from state diffs around the call sites ``"ack"``,
+``"timeout"`` and ``"choose"``, every count gated on the site's mask, so
+that an idle tick counts nothing.  The one change of shape: the counts are
+per row, ``(rows, N_TRACE_KINDS)``, each row's sum over its connections
+(the connections are ``rows`` runs of equal length, row-major), where the
+reference's ``(N_TRACE_KINDS,)`` sums one run's.  ``step(..., rows=B)`` is
+the traced tick: the same calls, each site's counts added, as the
+reference engine adds them into its ``lb_counts``; ``trace_sites`` names
+the sites an LB reports anything at, and the others are not diffed.
+REPS counts inside its one ``reps_tick`` launch (the kernel's traced form).
+Untraced (``rows=None``), ``step`` makes no diff and no count.
 """
 from __future__ import annotations
 
@@ -57,12 +70,43 @@ from repro_torch import rng
 from repro_torch.core import reps as reps_core
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels import reps_update as _kernel
 from repro_torch.kernels.reps_update import BUF as KERNEL_BUF
 from repro_torch.kernels.reps_update import MAX_ROUNDS
 from repro_torch.tree import tree_map
 
 I32 = torch.int32
 F32 = torch.float32
+
+# Trace-event kinds of the optional ``LoadBalancer.trace`` port (one int32
+# count per kind); the tracer maps them to ring event codes, and the
+# numbering is serialised into flight-recorder part files.
+TR_EV_HIT = 0  # REPS: popped the oldest *valid* cached EV
+TR_EV_MISS = 1  # REPS: explored a fresh uniform EV
+TR_EV_RECYCLE = 2  # REPS: freezing-mode reuse of a (possibly invalid) slot
+TR_EV_FREEZE = 3  # REPS: entered freezing mode (failure detected)
+TR_REPATH_ACK_ECN = 4  # re-path decided from ECN feedback on ACKs
+TR_REPATH_RTO = 5  # re-path decided from a retransmission timeout
+TR_REPATH_FLOWLET = 6  # re-path decided from a flowlet gap expiry
+TR_REPATH_EPOCH = 7  # re-path decided at an epoch / message boundary
+N_TRACE_KINDS = 8
+assert (_kernel.N_TRACE_KINDS, _kernel.TR_EV_HIT, _kernel.TR_EV_MISS, _kernel.TR_EV_RECYCLE,
+        _kernel.TR_EV_FREEZE) == (N_TRACE_KINDS, TR_EV_HIT, TR_EV_MISS, TR_EV_RECYCLE, TR_EV_FREEZE)
+
+
+def _no_counts(rows: int, device) -> torch.Tensor:
+    return torch.zeros((rows, N_TRACE_KINDS), dtype=I32, device=device)
+
+
+def _trace_counts(rows: int, *pairs) -> torch.Tensor:
+    """``(rows, N_TRACE_KINDS)`` int32 counts from ``(kind, mask)`` pairs:
+    each mask ``(rows * N,)`` summed over each row's N connections.  Every
+    mask must already be gated on the site's event mask."""
+    kinds = [k for k, _ in pairs]
+    masks = torch.stack([m for _, m in pairs])
+    out = _no_counts(rows, masks.device)
+    out[:, kinds] = masks.view(len(pairs), rows, -1).sum(dim=-1, dtype=I32).T
+    return out
 
 
 class LoadBalancer:
@@ -97,14 +141,47 @@ class LoadBalancer:
     def on_timeout(self, state, mask, now, draw):
         return state
 
-    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+    trace_sites: frozenset = frozenset()  # the sites whose trace can be nonzero
+
+    def trace(self, site, prev, new, mask, rows: int = 1):
+        """Optional observation-only trace port (flight recorder).
+
+        ``site`` names the call just made (``"choose"`` | ``"ack"`` |
+        ``"timeout"``), ``prev`` / ``new`` are the state before and after it
+        and ``mask`` the event mask it received.  Returns ``(rows,
+        N_TRACE_KINDS)`` int32 decision counts, each row's sum over its
+        connections; pure state-diff observation, every count gated on
+        ``mask``."""
+        return _no_counts(rows, mask.device)
+
+    def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
         """One tick: ``on_ack`` per round of ``acks``, ``on_timeout``,
         ``choose_ev``; ``draws`` is ``(timeout_draw, send_draw)``.  Returns
-        ``(evs, state)``."""
+        ``(evs, state)``, and with ``rows`` (the rows the connections split
+        into) ``(evs, state, counts)``: the sum of the three sites'
+        ``trace`` counts."""
+        if rows is None:
+            for mask, ev, ecn, draw in acks:
+                state = self.on_ack(state, mask, ev, ecn, now, draw)
+            state = self.on_timeout(state, timeout_mask, now, draws[0])
+            return self.choose_ev(state, send_mask, draws[1], now)
+        sites = self.trace_sites
+        counts = []
         for mask, ev, ecn, draw in acks:
-            state = self.on_ack(state, mask, ev, ecn, now, draw)
-        state = self.on_timeout(state, timeout_mask, now, draws[0])
-        return self.choose_ev(state, send_mask, draws[1], now)
+            prev, state = state, self.on_ack(state, mask, ev, ecn, now, draw)
+            if "ack" in sites:
+                counts.append(self.trace("ack", prev, state, mask, rows))
+        prev, state = state, self.on_timeout(state, timeout_mask, now, draws[0])
+        if "timeout" in sites:
+            counts.append(self.trace("timeout", prev, state, timeout_mask, rows))
+        prev = state
+        evs, state = self.choose_ev(state, send_mask, draws[1], now)
+        if "choose" in sites:
+            counts.append(self.trace("choose", prev, state, send_mask, rows))
+        total = counts[0] if counts else _no_counts(rows, send_mask.device)
+        for c in counts[1:]:
+            total = total + c
+        return evs, state, total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,20 +299,39 @@ class RepsLB(LoadBalancer):
         return reps_core.draw_evs(self.cfg, keys, n_conns)
 
     def _tick(self, state, now, ack_mask=None, ack_ev=None, ack_ecn=None,
-              timeout_mask=None, send_mask=None, rand_ev=None):
+              timeout_mask=None, send_mask=None, rand_ev=None, trace_rows=None):
         """One fused Algorithm 1+2 launch; event classes left out are
-        no-ops, and the ACK classes may be sequences of rounds."""
+        no-ops, and the ACK classes may be sequences of rounds.  With
+        ``trace_rows`` the launch also counts the rows' decisions."""
         out = kernel_ops.reps_tick(
             state.buf_ev, state.buf_valid, state.head, state.num_valid,
             state.explore_counter, state.is_freezing, state.exit_freezing,
             state.n_cached, ack_mask, ack_ev, ack_ecn, timeout_mask, send_mask,
             rand_ev, now, self.cfg.num_pkts_bdp, self.cfg.freezing_timeout,
+            trace_rows=trace_rows,
         )
-        return reps_core.REPSState(*out[:8]), out[8]
+        return reps_core.REPSState(*out[:8]), out[8], *out[9:]
 
     def choose_ev(self, state, mask, draw, now):
         state, evs = self._tick(state, now, send_mask=mask, rand_ev=draw)
         return evs, state
+
+    trace_sites = frozenset({"choose", "timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        # pure REPSState diffs: choose_ev changes num_valid only by popping
+        # the oldest valid EV (hit) and head only by freezing-mode reuse
+        # (recycle); everything else under the mask explored
+        if site == "choose":
+            hit = mask & (new.num_valid < prev.num_valid)
+            recycle = mask & (new.head != prev.head)
+            miss = mask & ~hit & ~recycle
+            return _trace_counts(rows, (TR_EV_HIT, hit), (TR_EV_RECYCLE, recycle),
+                                 (TR_EV_MISS, miss))
+        if site == "timeout":
+            freeze = mask & new.is_freezing & ~prev.is_freezing
+            return _trace_counts(rows, (TR_EV_FREEZE, freeze))
+        return _no_counts(rows, mask.device)
 
     def on_ack(self, state, mask, ev, ecn, now, draw):
         return self._tick(state, now, ack_mask=mask, ack_ev=ev, ack_ecn=ecn)[0]
@@ -245,19 +341,20 @@ class RepsLB(LoadBalancer):
             return state
         return self._tick(state, now, timeout_mask=mask)[0]
 
-    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+    def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
         rounds = [tuple(a[:3]) for a in acks]
-        # more rounds than one launch takes: ACK-only launches first
+        # more rounds than one launch takes: ACK-only launches first (the
+        # ACK site counts nothing)
         while len(rounds) > MAX_ROUNDS:
             head, rounds = rounds[:MAX_ROUNDS], rounds[MAX_ROUNDS:]
             state = self._tick(state, now, *zip(*head))[0]
         masks, ack_evs, ecns = zip(*rounds) if rounds else ((), (), ())
-        state, evs = self._tick(
+        state, evs, *counts = self._tick(
             state, now, masks, ack_evs, ecns,
             timeout_mask=timeout_mask if self.enable_freezing else None,
-            send_mask=send_mask, rand_ev=draws[1],
+            send_mask=send_mask, rand_ev=draws[1], trace_rows=rows,
         )
-        return evs, state
+        return (evs, state) if rows is None else (evs, state, counts[0])
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +428,17 @@ class PlbLB(LoadBalancer):
     def on_timeout(self, state, mask, now, draw):
         return state.replace(ev=torch.where(mask, draw, state.ev))
 
+    trace_sites = frozenset({"ack", "timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        # the mask gate drops a repath on a round where the connection's own
+        # ACK mask is false, so idle-tick epoch rollovers emit nothing
+        if site == "ack":
+            return _trace_counts(rows, (TR_REPATH_ACK_ECN, mask & (new.ev != prev.ev)))
+        if site == "timeout":
+            return _trace_counts(rows, (TR_REPATH_RTO, mask))
+        return _no_counts(rows, mask.device)
+
 
 # ---------------------------------------------------------------------------
 # Flowlet switching: new random EV whenever the inter-send gap exceeds the
@@ -362,6 +470,13 @@ class FlowletLB(LoadBalancer):
         new_flowlet = mask & ((now - state.last_send) > self.gap_ticks)
         ev = torch.where(new_flowlet, draw, state.ev)
         return ev, FlowletState(ev=ev, last_send=torch.where(mask, now, state.last_send))
+
+    trace_sites = frozenset({"choose"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        if site == "choose":
+            return _trace_counts(rows, (TR_REPATH_FLOWLET, mask & (new.ev != prev.ev)))
+        return _no_counts(rows, mask.device)
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +514,13 @@ class MptcpLB(LoadBalancer):
         # re-hash the subflow at the cursor for timed-out connections
         sel = mask[:, None] & _slot(state.rr % self.n_subflows, self.n_subflows)
         return state.replace(sub_evs=torch.where(sel, draw, state.sub_evs))
+
+    trace_sites = frozenset({"timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        if site == "timeout":
+            return _trace_counts(rows, (TR_REPATH_RTO, mask))
+        return _no_counts(rows, mask.device)
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +649,15 @@ class PrimeLB(LoadBalancer):
     def on_timeout(self, state, mask, now, draw):
         return state.replace(base=torch.where(mask, draw, state.base))
 
+    trace_sites = frozenset({"ack", "timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        if site == "ack":  # ECN-skip advances the sub-entropy rotation
+            return _trace_counts(rows, (TR_REPATH_ACK_ECN, mask & (new.ctr != prev.ctr)))
+        if site == "timeout":  # flow-part re-hash moves the whole window
+            return _trace_counts(rows, (TR_REPATH_RTO, mask))
+        return _no_counts(rows, mask.device)
+
 
 # ---------------------------------------------------------------------------
 # SeqBalance-like: reorder-free congestion-aware re-pathing.  One EV per
@@ -586,6 +717,15 @@ class SeqBalanceLB(LoadBalancer):
             marked=torch.where(mask, 0, state.marked),
         )
 
+    trace_sites = frozenset({"choose", "timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        if site == "choose":  # congestion-triggered message-boundary repath
+            return _trace_counts(rows, (TR_REPATH_EPOCH, mask & (new.ev != prev.ev)))
+        if site == "timeout":
+            return _trace_counts(rows, (TR_REPATH_RTO, mask))
+        return _no_counts(rows, mask.device)
+
 
 # ---------------------------------------------------------------------------
 # CONGA-style flowlet table: a small per-connection table of candidate EVs
@@ -640,6 +780,15 @@ class FlowletTableLB(LoadBalancer):
             cand=torch.where(sel, draw, state.cand),
             score=torch.where(sel, 0, state.score),
         )
+
+    trace_sites = frozenset({"choose", "timeout"})
+
+    def trace(self, site, prev, new, mask, rows=1):
+        if site == "choose":  # flowlet gap switched to another candidate
+            return _trace_counts(rows, (TR_REPATH_FLOWLET, mask & (new.cur != prev.cur)))
+        if site == "timeout":  # active candidate re-hashed + score cleared
+            return _trace_counts(rows, (TR_REPATH_RTO, mask))
+        return _no_counts(rows, mask.device)
 
 
 # ---------------------------------------------------------------------------
@@ -755,10 +904,41 @@ class SwitchLB(LoadBalancer):
     def on_timeout(self, state, mask, now, draw):
         return self._dispatch(state, lambda i, v, s: (None, v.on_timeout(s, mask, now, draw[i])))[1]
 
-    def step(self, state, acks, timeout_mask, send_mask, draws, now):
-        return self._dispatch(state, lambda i, v, s: v.step(
-            s, [(m, e, c, d[i]) for m, e, c, d in acks], timeout_mask, send_mask,
-            (draws[0][i], draws[1][i]), now))
+    def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
+        def call(i, v, s):
+            return v.step(s, [(m, e, c, d[i]) for m, e, c, d in acks], timeout_mask, send_mask,
+                          (draws[0][i], draws[1][i]), now, rows)
+
+        if rows is None:
+            return self._dispatch(state, call)
+        counts = []
+
+        def traced(i, v, s):
+            evs, new, c = call(i, v, s)
+            counts.append(c)
+            return evs, new
+
+        evs, new = self._dispatch(state, traced)
+        return evs, new, self._by_branch(state[0], counts)
+
+    @property
+    def trace_sites(self):
+        return frozenset().union(*(v.trace_sites for v in self.variants))
+
+    def trace(self, site, prev, new, mask, rows=1):
+        # only a row's own variant changed its slot of that row, so each
+        # row keeps its own variant's counts
+        return self._by_branch(new[0], [
+            v.trace(site, p, n, mask, rows) for v, p, n in zip(self.variants, prev[1], new[1])])
+
+    @staticmethod
+    def _by_branch(bidx: torch.Tensor, counts: list) -> torch.Tensor:
+        """Variant i's ``(rows, N_TRACE_KINDS)`` counts on the rows whose
+        branch index is i."""
+        out = counts[0]
+        for i, c in enumerate(counts[1:], start=1):
+            out = torch.where((bidx == i).reshape(-1, 1), c, out)
+        return out
 
 
 # ---------------------------------------------------------------------------

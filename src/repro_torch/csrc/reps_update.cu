@@ -26,6 +26,19 @@
 // The rounds' event pointers travel by value in the kernel's parameters (no
 // device-side pointer table, no copy to the device); a null pointer is an
 // all-zero event class, whose algorithm is then a no-op.
+//
+// Traced form (the flight recorder's REPS decision counts): with a non-null
+// `trace` (rows, kTraceKinds) int32 and `per_row` connections per row, the
+// same launch also counts, per row, the connections whose getNextEV popped
+// a valid cached EV (hit), explored (miss) or reused a slot in freezing
+// mode (recycle), and whose onFailureDetection entered freezing (freeze) --
+// the reference's `RepsLB.trace` diffs around on_timeout and choose_ev,
+// read here from the flags that decide them, which exist only in
+// registers.  A warp groups its lanes by row (__match_any_sync) and adds
+// each group's ballot count into a per-block shared table; the block then
+// adds its rows' nonzero counts with one global atomic each.  Integer sums
+// are exact in any order.  The untraced form is a separate instantiation
+// and does exactly what it did before.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -34,6 +47,7 @@ namespace {
 constexpr int kBuf = 8;  // paper buffer depth
 constexpr int kMaxRounds = 4;
 constexpr int kThreads = 128;
+constexpr int kTraceKinds = 8;  // N_TRACE_KINDS: hit 0, miss 1, recycle 2, freeze 3, repaths 4-7
 
 struct AckRounds {
   const uint8_t* mask[kMaxRounds];
@@ -70,6 +84,7 @@ __device__ __forceinline__ int pick_slot(const int (&ev)[kBuf], int off) {
   return slot_bit(off) ? (lo ? b1 : b0) : 0;
 }
 
+template <bool kTrace>
 __global__ void __launch_bounds__(kThreads) reps_tick_kernel(
     const int32_t* __restrict__ buf_ev, const uint8_t* __restrict__ buf_valid,
     const int32_t* __restrict__ head, const int32_t* __restrict__ num_valid,
@@ -81,9 +96,16 @@ __global__ void __launch_bounds__(kThreads) reps_tick_kernel(
     uint8_t* __restrict__ o_buf_valid, int32_t* __restrict__ o_head,
     int32_t* __restrict__ o_num_valid, int32_t* __restrict__ o_explore,
     uint8_t* __restrict__ o_freezing, int32_t* __restrict__ o_exit_freeze,
-    int32_t* __restrict__ o_n_cached, int32_t* __restrict__ o_ev) {
+    int32_t* __restrict__ o_n_cached, int32_t* __restrict__ o_ev, int32_t* __restrict__ trace,
+    int64_t per_row) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
+  if constexpr (!kTrace) {
+    if (i >= n) return;
+  }
+  // the decisions the traced form counts (every lane of a warp reaches the
+  // count, so an idle lane past n only skips the update)
+  bool enter = false, explore_now = false, pop_valid = false, reuse = false;
+  if (!kTrace || i < n) {
 
   // ---- every load first ---------------------------------------------------
   const int4* ring4 = reinterpret_cast<const int4*>(buf_ev) + 2 * i;
@@ -134,17 +156,17 @@ __global__ void __launch_bounds__(kThreads) reps_tick_kernel(
   }
 
   // ---- Algorithm 1: onFailureDetection -----------------------------------
-  const bool enter = timeout && !fr && ex == 0;
+  enter = timeout && !fr && ex == 0;
   fr = fr || enter;
   // int32 wraparound add, as the reference's jnp int32 arithmetic
   ef = enter ? static_cast<int>(static_cast<unsigned>(now) + static_cast<unsigned>(freeze_to))
              : ef;
 
   // ---- Algorithm 2: onSend / getNextEV ------------------------------------
-  const bool explore_now = send && (nc == 0 || (nv == 0 && !fr) || ex > 0);
+  explore_now = send && (nc == 0 || (nv == 0 && !fr) || ex > 0);
   const bool recycle = send && !explore_now;
-  const bool pop_valid = recycle && nv > 0;
-  const bool reuse = recycle && nv == 0;
+  pop_valid = recycle && nv > 0;
+  reuse = recycle && nv == 0;
   const int off = pop_valid ? floor_mod(h - nv, kBuf) : h;
   const int picked = pick_slot(ev, off);
   valid &= pop_valid ? ~slot_bit(off) : ~0u;
@@ -171,6 +193,34 @@ __global__ void __launch_bounds__(kThreads) reps_tick_kernel(
   o_exit_freeze[i] = ef;
   o_n_cached[i] = nc;
   o_ev[i] = recycle ? picked : rev;
+  }  // i < n
+
+  if constexpr (kTrace) {
+    __shared__ int s_cnt[kThreads][4];
+    const int t = threadIdx.x;
+    const int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x);
+    const int64_t row0 = first / per_row;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s_cnt[t][k] = 0;
+    __syncthreads();
+    const int local = i < n ? static_cast<int>(i / per_row - row0) : -1;
+    const unsigned grp = __match_any_sync(0xffffffffu, local);
+    const bool leader = __ffs(grp) - 1 == (t & 31);
+    const bool f[4] = {pop_valid, explore_now, reuse, enter};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = __popc(__ballot_sync(0xffffffffu, f[k]) & grp);
+      if (leader && local >= 0 && c != 0) atomicAdd_block(&s_cnt[local][k], c);
+    }
+    __syncthreads();
+    const int64_t last = min(first + static_cast<int64_t>(blockDim.x), n) - 1;
+    const int rows_here = first < n ? static_cast<int>(last / per_row - row0 + 1) : 0;
+    if (t < rows_here) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (s_cnt[t][k] != 0) atomicAdd(&trace[(row0 + t) * kTraceKinds + k], s_cnt[t][k]);
+    }
+  }
 }
 
 }  // namespace
@@ -182,16 +232,22 @@ __global__ void __launch_bounds__(kThreads) reps_tick_kernel(
 // the ECN flags (bool), of rounds 0 .. rounds-1 — copied into the launch's
 // parameters.  Every event pointer may be null (an all-zero class); the
 // timeout and send masks are bool, rand_ev int32.  Outputs mirror the state
-// (same alignment), then ev (n,).  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for rounds outside [0, kMaxRounds].
+// (same alignment), then ev (n,).  `trace` null: the untraced kernel; else
+// (n / per_row, kTraceKinds) int32 counts, zeroed here and filled by the
+// traced kernel.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for rounds outside [0, kMaxRounds] or a per_row
+// that does not divide n.
 extern "C" int repro_reps_tick(
     const void* buf_ev, const void* buf_valid, const void* head, const void* num_valid,
     const void* explore, const void* freezing, const void* exit_freeze, const void* n_cached,
     const void* const* ack_ptrs, int rounds, const void* timeout_mask, const void* send_mask,
     const void* rand_ev, int now, int bdp, int freeze_to, long long n, void* o_buf_ev,
     void* o_buf_valid, void* o_head, void* o_num_valid, void* o_explore, void* o_freezing,
-    void* o_exit_freeze, void* o_n_cached, void* o_ev, void* stream) {
+    void* o_exit_freeze, void* o_n_cached, void* o_ev, void* trace, long long per_row,
+    void* stream) {
   if (rounds < 0 || rounds > kMaxRounds) return static_cast<int>(cudaErrorInvalidValue);
+  if (trace != nullptr && (per_row <= 0 || n % per_row != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   AckRounds acks{};
   acks.n = rounds;
   for (int r = 0; r < rounds; ++r) {
@@ -201,8 +257,14 @@ extern "C" int repro_reps_tick(
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (trace != nullptr) {
+    const size_t bytes = static_cast<size_t>(n / per_row) * kTraceKinds * sizeof(int32_t);
+    const cudaError_t e = cudaMemsetAsync(trace, 0, bytes, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  reps_tick_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+  auto kernel = trace != nullptr ? reps_tick_kernel<true> : reps_tick_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const int32_t*>(buf_ev), static_cast<const uint8_t*>(buf_valid),
       static_cast<const int32_t*>(head), static_cast<const int32_t*>(num_valid),
       static_cast<const int32_t*>(explore), static_cast<const uint8_t*>(freezing),
@@ -213,6 +275,6 @@ extern "C" int repro_reps_tick(
       static_cast<int32_t*>(o_head), static_cast<int32_t*>(o_num_valid),
       static_cast<int32_t*>(o_explore), static_cast<uint8_t*>(o_freezing),
       static_cast<int32_t*>(o_exit_freeze), static_cast<int32_t*>(o_n_cached),
-      static_cast<int32_t*>(o_ev));
+      static_cast<int32_t*>(o_ev), static_cast<int32_t*>(trace), static_cast<int64_t>(per_row));
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,12 +52,13 @@ def seg_rank(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
     return ref.seg_rank_ref(seg, n_segments)
 
 
-def reps_tick(*args):
+def reps_tick(*args, trace_rows=None):
     """Fused REPS per-tick update (R ACK rounds, timeout, send); arguments
-    as ``ref.reps_tick_ref``."""
+    as ``ref.reps_tick_ref``; ``trace_rows`` B adds the rows' decision
+    counts as a last output (the traced form, still one launch)."""
     if _on_cuda(args[2], "reps_tick"):
-        return _ru.reps_tick_cuda(*args)
-    return ref.reps_tick_ref(*args)
+        return _ru.reps_tick_cuda(*args, trace_rows=trace_rows)
+    return ref.reps_tick_ref(*args, trace_rows=trace_rows)
 
 
 def queue_tick(target, u, qlen, serve, capacity, kmin, kmax, red_rcp=None, pmax=1.0,

@@ -243,14 +243,17 @@ def seg_rank_ref(seg: torch.Tensor, n_segments: int) -> torch.Tensor:
 def reps_tick_ref(
     buf_ev, buf_valid, head, num_valid, explore, freezing, exit_freeze,
     n_cached, ack_mask, ack_ev, ack_ecn, timeout_mask, send_mask, rand_ev,
-    now, num_pkts_bdp, freezing_timeout,
+    now, num_pkts_bdp, freezing_timeout, trace_rows=None,
 ):
     """Fused tick = on_ack per ACK round -> on_failure_detection ->
     choose_ev, through ``repro_torch.core.reps``.  Masks and flags are bool
     tensors; an event class passed as ``None`` is all-zero, which makes its
     algorithm a no-op.  The ACK classes are one round's tensors or
     sequences of R rounds (``reps_update.ack_rounds``).  Returns the new
-    state fields and the chosen EVs, shaped like the inputs."""
+    state fields and the chosen EVs, shaped like the inputs; with
+    ``trace_rows`` B also the ``(B, N_TRACE_KINDS)`` int32 decision counts
+    of each row's connections, from the states around on_failure_detection
+    and choose_ev (the reference's ``RepsLB.trace`` diffs)."""
     cfg = reps_core.REPSConfig(
         buffer_size=buf_ev.shape[-1],
         evs_size=2**31 - 1,  # rand_ev supplied externally
@@ -272,17 +275,32 @@ def reps_tick_ref(
     pick = lambda t, z: z if t is None else flat(t)
     for mask, ev, ecn in ack_rounds(ack_mask, ack_ev, ack_ecn):
         state = reps_core.on_ack(cfg, state, pick(mask, no), pick(ev, zi), pick(ecn, no), now)
-    state = reps_core.on_failure_detection(cfg, state, pick(timeout_mask, no), now)
-    ev, state = reps_core.choose_ev(
-        cfg, state, pick(send_mask, no), rand_ev=pick(rand_ev, zi)
-    )
+    acked = state
+    timeout, send = pick(timeout_mask, no), pick(send_mask, no)
+    state = reps_core.on_failure_detection(cfg, state, timeout, now)
+    timed = state
+    ev, state = reps_core.choose_ev(cfg, state, send, rand_ev=pick(rand_ev, zi))
     b2 = lambda t: t.reshape(*shape, cfg.buffer_size)
     b1 = lambda t: t.reshape(shape)
-    return (
+    outs = (
         b2(state.buf_ev), b2(state.buf_valid), b1(state.head),
         b1(state.num_valid), b1(state.explore_counter), b1(state.is_freezing),
         b1(state.exit_freezing), b1(state.n_cached), b1(ev),
     )
+    if trace_rows is None:
+        return outs
+    rows = int(trace_rows)
+    if rows < 1 or n % rows:
+        raise ValueError(f"reps_tick: {n} connections do not split into {rows} rows")
+    hit = send & (state.num_valid < timed.num_valid)
+    recycle = send & (state.head != timed.head)
+    flags = torch.stack([
+        hit, send & ~hit & ~recycle, recycle,
+        timeout & timed.is_freezing & ~acked.is_freezing,
+    ])  # hit, miss, recycle, freeze: kinds 0-3
+    counts = torch.zeros((rows, 8), dtype=torch.int32, device=head.device)
+    counts[:, :4] = flags.view(4, rows, n // rows).sum(dim=-1, dtype=torch.int32).T
+    return (*outs, counts)
 
 
 # ---------------------------------------------------------------------------

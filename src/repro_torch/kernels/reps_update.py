@@ -4,6 +4,10 @@ One launch applies, per connection, R rounds of Algorithm 1 onAck, then
 onFailureDetection, then Algorithm 2 getNextEV over the 8-deep EV ring.
 Replaces the Pallas kernel ``repro.kernels.reps_update`` (which is the
 case R = 1); the plain version is ``repro_torch.kernels.ref.reps_tick_ref``.
+With ``trace_rows=B`` the same launch also returns the flight recorder's
+REPS decision counts per row, ``(B, N_TRACE_KINDS)`` int32 (``TR_EV_HIT``,
+``TR_EV_MISS``, ``TR_EV_RECYCLE``, ``TR_EV_FREEZE``; the repath kinds stay
+0), the connections being B rows of equal length, row-major.
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ from repro_torch.kernels._checks import check, stream_ptr
 
 BUF = 8  # paper buffer depth, compiled into the kernel
 MAX_ROUNDS = 4  # ACK rounds one launch takes, compiled into the kernel
+# the trace kinds the traced form counts, numbered as the load balancers' TR_*
+N_TRACE_KINDS = 8
+TR_EV_HIT, TR_EV_MISS, TR_EV_RECYCLE, TR_EV_FREEZE = 0, 1, 2, 3
 launches = 0  # incremented once per kernel launch, nowhere else
 
 _ACK_PTRS = ctypes.c_void_p * (3 * MAX_ROUNDS)
@@ -43,12 +50,14 @@ def ack_rounds(ack_mask, ack_ev, ack_ecn) -> tuple:
 def reps_tick_cuda(
     buf_ev, buf_valid, head, num_valid, explore, freezing, exit_freeze,
     n_cached, ack_mask, ack_ev, ack_ecn, timeout_mask, send_mask, rand_ev,
-    now, num_pkts_bdp, freezing_timeout,
+    now, num_pkts_bdp, freezing_timeout, trace_rows=None,
 ):
     """State ``(..., 8)`` int32/bool rings and ``(...)`` int32/bool scalars,
     events ``(...)`` (``None`` = all-zero; the ACK classes per round, see
     ``ack_rounds``, at most ``MAX_ROUNDS``) -> new state fields and EVs,
-    same shapes.  A leading row axis is just more connections here."""
+    same shapes, and with ``trace_rows`` the ``(trace_rows,
+    N_TRACE_KINDS)`` counts.  A leading row axis is just more connections
+    here."""
     global launches
     rounds = ack_rounds(ack_mask, ack_ev, ack_ecn)
     if len(rounds) > MAX_ROUNDS:
@@ -82,12 +91,19 @@ def reps_tick_cuda(
     outs = (o_ring.view(ring), o_valid.view(ring), o_head, o_nv, o_ex, o_fr, o_ef, o_nc, o_ev)
     if len(shape) != 1:
         outs = outs[:2] + tuple(o.view(shape) for o in outs[2:])
+    counts = None
+    if trace_rows is not None:
+        rows = int(trace_rows)
+        if rows < 1 or n % rows:
+            raise ValueError(f"reps_tick: {n} connections do not split into {rows} rows")
+        counts = torch.empty((rows, N_TRACE_KINDS), dtype=i32, device=dev)  # zeroed by the call
     p = lambda t: None if t is None else t.data_ptr()
     rc = build.library().repro_reps_tick(
         *(t.data_ptr() for t in state), _ACK_PTRS(*ptrs), len(rounds), p(timeout_mask),
         p(send_mask), p(rand_ev), int(now), int(num_pkts_bdp), int(freezing_timeout), n,
-        *(o.data_ptr() for o in outs), stream_ptr(dev),
+        *(o.data_ptr() for o in outs), p(counts), n // rows if counts is not None else 0,
+        stream_ptr(dev),
     )
     build.check(rc, "reps_tick")
     launches += 1
-    return outs
+    return outs if counts is None else (*outs, counts)

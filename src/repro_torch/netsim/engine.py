@@ -88,9 +88,16 @@ gets there with PyTorch:
         scn = stack_scenarios([Simulator(cfg, w, lb, failures=f).scn for w, f in rows])
         states, tel = fleet.run_summary(4000, scn=scn)   # one scenario per row
 
-Not ported yet: the conn-axis mesh (``conn_axis``, several cards) and the
-flight recorder's events (``emit_events``); each raises
-``NotImplementedError``.
+  * Events.  ``step_rows(..., events=True)`` (``step_scenario(...,
+    emit_events=True)``, ``step_events``, ``step_events_rows``) also returns
+    the tick's ``TickEvents`` for the flight recorder
+    (``repro_torch.netsim.tracer``): each row's load-balancer decision
+    counts from the traced ``LoadBalancer.step`` and the failure windows
+    that open this tick.  Observation only: the state and the probe are
+    bit-identical with events on or off.
+
+Not ported yet: the conn-axis mesh (``conn_axis``, several cards); it
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -445,6 +452,16 @@ class Probe(NamedTuple):
     fct: torch.Tensor  # (B, NC) int32: done tick - start where done_now, else 0
 
 
+class TickEvents(NamedTuple):
+    """A tick's decision-event counts for the flight recorder
+    (``repro_torch.netsim.tracer``), fields as the reference's
+    ``TickEvents`` with a leading row axis B.  Observation only, and
+    all-zero on a quiescent tick, like ``Probe``."""
+
+    lb: torch.Tensor  # (B, N_TRACE_KINDS) int32 LB decision counts this tick
+    fail_start: torch.Tensor  # (B,) int32: queues whose failure window opens now
+
+
 class TickDraws(NamedTuple):
     """Every random input of a run of ticks, drawn from the tick keys ahead
     of the ticks (leading axis T; a fleet's draws have the row axis after it,
@@ -633,6 +650,7 @@ class _Tables:
     has_gray: bool  # some row has a gray-loss window
     fault_key: bytes | None = None
     faults: tuple | None = None
+    fail_starts: dict | None = None  # tick -> (n,) int32 windows opening then, per row
 
     @staticmethod
     def make(scn: "ScenarioArrays", f: tuple) -> "_Tables":
@@ -653,7 +671,7 @@ class _Tables:
         cache of its own."""
         ex = lambda t: t.expand(B, *t.shape[1:])
         return dataclasses.replace(
-            self, B=B, fault_key=None, faults=None,
+            self, B=B, fault_key=None, faults=None, fail_starts=None,
             **{k: ex(getattr(self, k)) for k in (
                 "src", "dst", "msg", "start", "no_dep", "dep", "hc", "hc_safe",
                 "hc_valid", "watch")})
@@ -781,6 +799,7 @@ class Simulator:
         self._red_rcp = _f32(np.float32(1.0) / np.float32(cfg.kmax - cfg.kmin))
 
         self._row_consts: dict[int, _Rows] = {}  # B -> the tick's row indices
+        self._event_zero: dict[int, torch.Tensor] = {}  # B -> (B,) int32 zeros
 
         self.base_key = rng.PRNGKey(seed, device=dev)
 
@@ -977,6 +996,29 @@ class Simulator:
             tab.fault_key = key
         return tab.faults
 
+    def _fail_start(self, now: int, tab: _Tables) -> torch.Tensor:
+        """``TickEvents.fail_start``: per row, the queues whose failure
+        window opens at ``now`` (any kind), each queue counted once, as the
+        reference's scatter-max over the queue axis.  Computed from the host
+        schedule once per scenario; a tick that opens none reads a zero
+        tensor kept on the device."""
+        if tab.fail_starts is None:
+            queue, start, end, _, _ = tab.f
+            live = (end > start) & (queue >= 0) & (queue < self.NQ)
+            tab.fail_starts = {
+                int(t): np.asarray([np.unique(q[on]).size for q, on in
+                                    zip(queue, live & (start == t))], np.int32)
+                for t in np.unique(start[live])
+            }
+        counts = tab.fail_starts.get(int(now))
+        if counts is None:
+            zero = self._event_zero.get(tab.B)
+            if zero is None:
+                zero = self._event_zero[tab.B] = torch.zeros((tab.B,), dtype=I32,
+                                                            device=self.device)
+            return zero
+        return torch.as_tensor(counts, device=self.device).expand(tab.B)
+
     def _rows(self, B: int) -> _Rows:
         rows = self._row_consts.get(B)
         if rows is None:
@@ -1025,34 +1067,41 @@ class Simulator:
         emit_events: bool = False,
         conn_axis: str | None = None,
         scn: ScenarioArrays | None = None,
-    ) -> tuple[SimState, TickTrace]:
-        """One tick of one run: returns the next state and the tick's trace;
-        ``state`` is left unchanged.  ``draws`` is this tick's row of
-        ``tick_draws(base_key, ...)`` (drawn here when omitted); ``scn`` one
-        scenario at this simulator's shapes (its own by default).  The tick
-        is ``step_rows`` on one row, added and dropped as views."""
-        if emit_events:
-            raise NotImplementedError("tick events (flight recorder) are not ported yet")
+    ):
+        """One tick of one run: returns the next state and the tick's trace,
+        and with ``emit_events`` also its ``TickEvents`` (fields without the
+        row axis); ``state`` is left unchanged.  ``draws`` is this tick's
+        row of ``tick_draws(base_key, ...)`` (drawn here when omitted);
+        ``scn`` one scenario at this simulator's shapes (its own by
+        default).  The tick is ``step_rows`` on one row, added and dropped
+        as views."""
         if conn_axis is not None:
-            raise NotImplementedError("the conn-axis mesh is not ported yet")
+            raise NotImplementedError(
+                "the conn-axis mesh (several cards) is not ported yet: multi-GPU, "
+                "ROADMAP.md queue 1 item 12")
         now = int(tick)
         rows = (self.tick_draws(base_key[None], now, 1, scn).row(0) if draws is None
                 else draws._rows_in())
-        new_state, trace = self.step_rows(add_rows(state), now, rows, scn)
-        return drop_rows(new_state), drop_rows(trace)
+        out = self.step_rows(add_rows(state), now, rows, scn, events=emit_events)
+        new_state, trace = drop_rows(out[0]), drop_rows(out[1])
+        if not emit_events:
+            return new_state, trace
+        return new_state, trace, TickEvents(*drop_rows(tuple(out[2])))
 
     def step_rows(
         self, state: SimState, tick: int, draws: TickDraws,
-        scn: ScenarioArrays | None = None, trace: bool = True,
-    ) -> tuple[SimState, TickTrace | None]:
+        scn: ScenarioArrays | None = None, trace: bool = True, events: bool = False,
+    ):
         """One tick of B runs at once: ``state`` has a leading row axis B on
         every leaf (its load balancer's included), ``draws`` is one tick of
         ``tick_draws`` with B base keys.  ``scn`` None: every row runs this
         simulator's scenario; else a ``ScenarioArrays`` with a leading row
         axis B, one scenario per row (``stack_scenarios``).  Every kernel is
         one launch whatever B is; ``now`` is shared.  Returns the next rows'
-        state and their trace ``(B, ...)`` (None when ``trace`` is False).
-        ``state`` is left unchanged."""
+        state and their trace ``(B, ...)`` (None when ``trace`` is False),
+        and with ``events`` a third element, the rows' ``TickEvents`` (the
+        load balancer's traced ``step``; nothing else changes).  ``state``
+        is left unchanged."""
         now = int(tick)
         cfg, topo = self.cfg, self.topo
         NP, NQ, NH, NC = self.NP, self.NQ, self.NH, self.wl.n_conns
@@ -1348,10 +1397,11 @@ class Simulator:
         # connection, so the rows are just more connections: (B, NC, ...)
         # leaves are handed over as (B * NC, ...) and taken back as they were
         conns = lambda x: _conn_rows(x, B * NC)
-        evs, lb_flat = self.lb.step(
+        evs, lb_flat, *lb_counts = self.lb.step(
             conns(lb_state),
             [(conns(m), conns(e), conns(c), conns(d)) for m, e, c, d in acks],
             conns(timed_out), conns(send_mask), (conns(draws.lb_timeout), conns(draws.lb)), now,
+            rows=B if events else None,
         )
         lb_state = tree_map(lambda new, old: new.reshape(old.shape), lb_flat, lb_state)
         flying, zero, minus1 = R.inject
@@ -1412,19 +1462,22 @@ class Simulator:
             c_alpha=c_alpha, h_rr=h_rr, lb_state=lb_state, fl=fl, fl_head=fl_head,
             fl_count=fl_count, s_stats=s_stats, as_idx=as_idx_new, as_count=as_count,
         )
-        if not trace:
-            return new_state, None
-        watched = lambda x: x.gather(1, T.watch)  # each row's watched queues
-        return new_state, TickTrace(
-            max_qlen=q_len.amax(dim=-1),
-            sum_qlen=q_len.sum(dim=-1, dtype=I32),
-            drops=s_stats[:, ST_DROPS_CONG] + s_stats[:, ST_DROPS_FAIL],
-            timeouts=s_stats[:, ST_TIMEOUTS],
-            delivered=s_stats[:, ST_DELIVERED],
-            injected=s_stats[:, ST_INJECTED],
-            watch_qlen=watched(q_len),
-            watch_served=watched(serve).to(I32),
-        )
+        out = (new_state, None)
+        if trace:
+            watched = lambda x: x.gather(1, T.watch)  # each row's watched queues
+            out = (new_state, TickTrace(
+                max_qlen=q_len.amax(dim=-1),
+                sum_qlen=q_len.sum(dim=-1, dtype=I32),
+                drops=s_stats[:, ST_DROPS_CONG] + s_stats[:, ST_DROPS_FAIL],
+                timeouts=s_stats[:, ST_TIMEOUTS],
+                delivered=s_stats[:, ST_DELIVERED],
+                injected=s_stats[:, ST_INJECTED],
+                watch_qlen=watched(q_len),
+                watch_served=watched(serve).to(I32),
+            ))
+        if events:
+            out += (TickEvents(lb=lb_counts[0], fail_start=self._fail_start(now, T)),)
+        return out
 
     # ------------------------------------------------------------------
     def probe(self, prev: SimState, new: SimState, tick: int,
@@ -1468,6 +1521,24 @@ class Simulator:
                 else draws._rows_in())
         new, probe = self.step_probe_rows(add_rows(state), now, rows, scn)
         return drop_rows(new), Probe(now, *drop_rows(tuple(probe[1:])))
+
+    def step_events_rows(self, states: SimState, tick: int, draws: TickDraws,
+                         scn: ScenarioArrays | None = None):
+        """``step_probe_rows`` plus the tick's ``TickEvents`` of B rows: the
+        tick body of a traced sweep.  Returns ``(states, probe, events)``."""
+        new, _, events = self.step_rows(states, tick, draws, scn, trace=False, events=True)
+        return new, self.probe(states, new, tick, scn), events
+
+    def step_events(self, state: SimState, tick: int, base_key: torch.Tensor,
+                    scn: ScenarioArrays | None = None, draws: TickDraws | None = None):
+        """``step_probe`` plus the flight recorder's ``TickEvents``, for one
+        run (the tensors without the row axis)."""
+        now = int(tick)
+        rows = (self.tick_draws(base_key[None], now, 1, scn).row(0) if draws is None
+                else draws._rows_in())
+        new, probe, events = self.step_events_rows(add_rows(state), now, rows, scn)
+        return (drop_rows(new), Probe(now, *drop_rows(tuple(probe[1:]))),
+                TickEvents(*drop_rows(tuple(events))))
 
     # ------------------------------------------------------------------
     def run_rows(self, n_ticks: int, states: SimState, base_keys: torch.Tensor,

@@ -87,17 +87,27 @@ class MixedLB(LoadBalancer):
         sb = self.lb_b.on_timeout(sb, mask & bm, now, draw[1])
         return (sa, sb, bm)
 
-    def step(self, state, acks, timeout_mask, send_mask, draws, now):
+    @property
+    def trace_sites(self):
+        return self.lb_a.trace_sites | self.lb_b.trace_sites
+
+    def trace(self, site, prev, new, mask, rows=1):
+        bm = new[2]
+        return (self.lb_a.trace(site, prev[0], new[0], mask & ~bm, rows)
+                + self.lb_b.trace(site, prev[1], new[1], mask & bm, rows))
+
+    def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
         sa, sb, bm = state
         am = ~bm
         td, sd = draws
-        ev_a, sa = self.lb_a.step(
+        ev_a, sa, *ca = self.lb_a.step(
             sa, [(m & am, ev, ecn, d[0]) for m, ev, ecn, d in acks], timeout_mask & am,
-            send_mask & am, (td[0], sd[0]), now)
-        ev_b, sb = self.lb_b.step(
+            send_mask & am, (td[0], sd[0]), now, rows)
+        ev_b, sb, *cb = self.lb_b.step(
             sb, [(m & bm, ev, ecn, d[1]) for m, ev, ecn, d in acks], timeout_mask & bm,
-            send_mask & bm, (td[1], sd[1]), now)
-        return torch.where(bm, ev_b, ev_a), (sa, sb, bm)
+            send_mask & bm, (td[1], sd[1]), now, rows)
+        out = torch.where(bm, ev_b, ev_a), (sa, sb, bm)
+        return out if rows is None else (*out, ca[0] + cb[0])
 
 
 def _make_mixed(

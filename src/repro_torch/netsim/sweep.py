@@ -47,7 +47,11 @@ reference does:
      (``repro_torch.netsim.telemetry``); the quiescence early exit stops a
      bucket at the first chunk boundary where every row has reached its
      fixed point (one device-to-host read per chunk, never per tick),
-     without changing any reported metric.
+     without changing any reported metric.  ``trace=TraceSpec(...)``
+     (summary mode) also carries the flight recorder's ring per row
+     (``repro_torch.netsim.tracer``), stepped through ``step_events_rows``
+     and frozen with the telemetry carry; ``SweepResult.flight_for``
+     decodes a row's events.  Tracing is observation-only.
   7. **Resumable chunks** — ``bucket_carry``, ``chunk_runner``,
      ``run_chunk`` and ``finalize_bucket`` are the building blocks ``run``
      drives: any chunking of ``[0, ticks)`` gives the same result.
@@ -55,9 +59,9 @@ reference does:
 Scale mode (``SimConfig(conn_sharding=True)``: the sparse active set and
 the lifetime-sized packet table) runs through the same buckets on the one
 card (``conn_devices=1``).  Not ported yet: the row-sharded device mesh
-(``devices`` other than one card), the connection axis sharded over
-several cards (``conn_devices > 1``) and the flight recorder (``trace=``,
-``SweepResult.flight_for``); each raises ``NotImplementedError``.
+(``devices`` other than one card) and the connection axis sharded over
+several cards (``conn_devices > 1``), both multi-GPU; each raises
+``NotImplementedError``.
 
 Example (on the card; pass ``device="cpu"`` for the plain versions):
 
@@ -88,6 +92,7 @@ from repro_torch.netsim.engine import (
 from repro_torch.netsim.failures import truncate_dead
 from repro_torch.netsim.metrics import RunSummary, summarize, summarize_sketch
 from repro_torch.netsim.telemetry import SUMMARY_CHANNEL_KEYS, TelemetrySpec
+from repro_torch.netsim.tracer import TraceSpec
 
 # padded conns start here: far beyond any sweep horizon, still well inside
 # int32 so `now >= start` arithmetic cannot wrap.
@@ -684,8 +689,9 @@ class _Program:
     masked: bool  # rows carry heterogeneous horizons
     variant_order: list  # one (lb, kwargs) key per SwitchLB branch
     padded_wls: dict  # cell name -> group-padded Workload
-    chunk_fns: dict = dataclasses.field(default_factory=dict)  # (n, collect, spec) -> fn
+    chunk_fns: dict = dataclasses.field(default_factory=dict)  # (n, collect, spec, trace) -> fn
     tel_progs: dict = dataclasses.field(default_factory=dict)  # spec -> prog
+    trc_progs: dict = dataclasses.field(default_factory=dict)  # TraceSpec -> prog
 
 
 @dataclasses.dataclass
@@ -705,6 +711,8 @@ class _Bucket:
     traces: Any = None  # TickTrace of CPU tensors (ticks, n_rows, ...) or None
     telemetry: Any = None  # (n_rows, size) int32 numpy sketch carries or None
     tel_prog: Any = None  # TelemetryProgram that owns `telemetry`'s layout
+    trace_rows: Any = None  # (n_rows, size) int32 numpy flight-ring carries or None
+    trc_prog: Any = None  # TracerProgram that owns `trace_rows`'s layout
     exec_wall_s: float = 0.0
     compile_wall_s: float = 0.0  # set-up: the t=0 carry (nothing is compiled)
     ticks_run: int = 0  # == ticks unless early exit fired sooner
@@ -728,14 +736,6 @@ class _Bucket:
     @property
     def sim(self) -> Simulator:
         return self.program.sim
-
-
-def _no_tracer(trace) -> None:
-    if trace is not None:
-        raise NotImplementedError(
-            "the flight recorder (trace=TraceSpec(...)) is not ported yet; see "
-            "ROADMAP.md, queue 1 item 11"
-        )
 
 
 class SweepResult:
@@ -771,9 +771,17 @@ class SweepResult:
         return TickTrace(*(f[: c.case.ticks, row] for f in b.traces))
 
     def flight_for(self, name: str, seed_idx: int = 0, since: int = 0) -> dict:
-        """The flight recorder's events of one cell row: not ported yet."""
-        self._find(name)
-        _no_tracer(True)
+        """Decoded flight-recorder events of one cell row (run with a
+        ``trace=TraceSpec(...)``): ``{seq, tick, code, value, cursor, lost,
+        first_drop_tick, first_redeliver_tick}``, see
+        ``tracer.TracerProgram.decode_row``."""
+        b, c = self._find(name)
+        if b.trace_rows is None:
+            raise ValueError(
+                "no flight-recorder events were collected for this sweep; "
+                "run with trace=TraceSpec(...)"
+            )
+        return b.trc_prog.decode_row(b.trace_rows[c.rows[seed_idx]], since)
 
     def telemetry_for(self, name: str, seed_idx: int = 0) -> dict:
         """Finalized sketch channels for one cell row.
@@ -1100,15 +1108,25 @@ class SweepEngine:
             prog.tel_progs[spec] = spec.build(prog.sim, prog.sim_ticks)
         return prog.tel_progs[spec]
 
-    def _make_chunk_fn(self, prog: _Program, n: int, collect: str, spec):
+    def _trc_prog(self, prog: _Program, trace: TraceSpec):
+        """The program's TracerProgram for a TraceSpec (built once)."""
+        if trace not in prog.trc_progs:
+            prog.trc_progs[trace] = trace.build(prog.sim, prog.sim_ticks)
+        return prog.trc_progs[trace]
+
+    def _make_chunk_fn(self, prog: _Program, n: int, collect: str, spec,
+                       trace: TraceSpec | None = None):
         """The runner of one chunk of ``n`` ticks: ``(carry, keys, scn,
         horizons, t0) -> (carry, traces or None)``, shared by every bucket of
         the program's split group.  Rows whose horizon falls before the
-        chunk's end are frozen there (see the module docstring, item 4)."""
+        chunk's end are frozen there (see the module docstring, item 4);
+        the telemetry carry and, when tracing, the flight-ring carry are
+        updated in place and frozen with them."""
         sim = prog.sim
         full = collect == "full"
         summary = collect == "summary"
         tel_prog = self._tel_prog(prog, spec) if summary else None
+        trc_prog = self._trc_prog(prog, trace) if trace is not None else None
         dev = sim.device
         row_sets: dict = {}  # (horizons, from, to) -> (row ids, row mask) on the device
 
@@ -1123,7 +1141,7 @@ class SweepEngine:
         def fn(carry, keys, scn, horizons, t0):
             t0 = int(t0)
             end = t0 + n
-            states, tel = carry if summary else (carry, None)
+            states, tel, trc = (carry + (None,))[:3] if summary else (carry, None, None)
             hz = np.asarray(horizons, np.int64)
             if not full and hz.max() <= t0:
                 return carry, None  # every row is past its horizon: nothing to run
@@ -1136,7 +1154,8 @@ class SweepEngine:
             def keep(s):
                 idx, mask = sets[s]
                 if idx.numel():
-                    kept[s] = (states, tel.index_select(0, idx) if summary else None, idx, mask)
+                    kept[s] = (states, tel.index_select(0, idx) if summary else None,
+                               trc.index_select(0, idx) if trc is not None else None, idx, mask)
 
             if t0 in sets:
                 keep(t0)
@@ -1147,7 +1166,11 @@ class SweepEngine:
                 draws = sim.tick_draws(keys, c0, m, scn)
                 for i in range(m):
                     t = c0 + i
-                    if summary:
+                    if trc is not None:
+                        states, probe, events = sim.step_events_rows(states, t, draws.row(i), scn)
+                        tel_prog.update(tel, probe)
+                        trc_prog.update(trc, probe, events)
+                    elif summary:
                         states, probe = sim.step_probe_rows(states, t, draws.row(i), scn)
                         tel_prog.update(tel, probe)
                     elif full:
@@ -1157,12 +1180,16 @@ class SweepEngine:
                         states, _ = sim.step_rows(states, t, draws.row(i), scn, trace=False)
                     if t + 1 in sets and t + 1 < end:
                         keep(t + 1)
-            for old, tel_rows, idx, mask in kept.values():  # copy the frozen rows back
+            for old, tel_rows, trc_rows, idx, mask in kept.values():  # copy the frozen rows back
                 states = tree_map(lambda new, o, m=mask: _rows_from(m, o, new), states, old)
                 if summary:
                     tel.index_copy_(0, idx, tel_rows)
+                if trc is not None:
+                    trc.index_copy_(0, idx, trc_rows)
             traces = TickTrace(*(torch.stack(f) for f in zip(*trs))) if full else None
-            return ((states, tel) if summary else states), traces
+            if not summary:
+                return states, traces
+            return ((states, tel) if trc is None else (states, tel, trc)), traces
 
         return fn
 
@@ -1196,7 +1223,7 @@ class SweepEngine:
         chunk: int | None = None,
         early_exit: bool = False,
         telemetry: TelemetrySpec | None = None,
-        trace=None,
+        trace: TraceSpec | None = None,
     ) -> SweepResult:
         """Execute every bucket.  The three-mode ``collect`` contract:
 
@@ -1215,15 +1242,15 @@ class SweepEngine:
         with ``early_exit``).  ``early_exit`` stops a bucket at the first
         chunk boundary where every row has reached its fixed point; all
         reported metrics are bit-identical to running the full horizon.
-        ``trace`` (the flight recorder) is not ported yet and raises.
+
+        ``trace`` (a ``tracer.TraceSpec``, summary mode only) also carries
+        the flight-recorder ring per row; decoded events come back via
+        ``SweepResult.flight_for``.  Tracing is observation-only: every
+        state and telemetry array is bit-identical with it on or off.
         """
         if collect not in ("none", "summary", "full"):
             raise ValueError(f"collect must be 'none', 'summary' or 'full', got {collect!r}")
-        if trace is not None and collect != "summary":
-            raise ValueError(
-                "trace=TraceSpec(...) requires collect='summary' (the "
-                "flight recorder rides the telemetry carry contract)"
-            )
+        _check_trace(collect, trace)
         if early_exit and collect == "full":
             raise ValueError(
                 "early_exit=True cannot be combined with collect='full': "
@@ -1235,10 +1262,9 @@ class SweepEngine:
             )
         if telemetry is not None and collect != "summary":
             raise ValueError("a telemetry spec only applies to collect='summary'")
-        _no_tracer(trace)
         spec = self._spec(collect, telemetry)
         for bucket in self.buckets:
-            self._run_bucket(bucket, collect, chunk, early_exit, spec)
+            self._run_bucket(bucket, collect, chunk, early_exit, spec, trace)
         return SweepResult(self)
 
     # ------------------------------------------------------------------
@@ -1249,38 +1275,43 @@ class SweepEngine:
     # cut, which is what lets a saved carry resume at any chunk boundary.
     # ------------------------------------------------------------------
     def bucket_carry(self, bucket: _Bucket, collect: str = "none",
-                     spec: TelemetrySpec | None = None, trace=None):
+                     spec: TelemetrySpec | None = None, trace: TraceSpec | None = None):
         """The bucket's t=0 carry: per-row init states (leaves ``(R, ...)``),
-        plus, in summary mode, the ``(R, size)`` int32 telemetry carry."""
-        _no_tracer(trace)
+        plus, in summary mode, the ``(R, size)`` int32 telemetry carry, plus,
+        when tracing, the ``(R, size)`` int32 flight-ring carry."""
+        _check_trace(collect, trace)
         spec = self._spec(collect, spec)
         carry = self._init_states(bucket)
         if collect == "summary":
-            tel0 = self._tel_prog(bucket.program, spec).init_rows(bucket.plan.n_padded_rows)
+            rows = bucket.plan.n_padded_rows
+            tel0 = self._tel_prog(bucket.program, spec).init_rows(rows)
             carry = (carry, tel0)
+            if trace is not None:
+                carry += (self._trc_prog(bucket.program, trace).init_rows(rows),)
         return carry
 
     def chunk_runner(self, bucket: _Bucket, n: int, collect: str = "none",
-                     spec: TelemetrySpec | None = None, trace=None):
+                     spec: TelemetrySpec | None = None, trace: TraceSpec | None = None):
         """The ``(carry, keys, scn, horizons, t0) -> (carry, traces)`` runner
         of an ``n``-tick chunk: a plain callable (nothing is compiled, so the
         reference's ``example_carry`` has no counterpart), made once per
-        ``(n, collect, spec)`` and shared by every sub-bucket of the
+        ``(n, collect, spec, trace)`` and shared by every sub-bucket of the
         program's split group."""
-        _no_tracer(trace)
+        _check_trace(collect, trace)
         spec = self._spec(collect, spec)
         prog = bucket.program
-        ck = (int(n), collect, spec)
+        ck = (int(n), collect, spec, trace)
         if ck not in prog.chunk_fns:
-            prog.chunk_fns[ck] = self._make_chunk_fn(prog, int(n), collect, spec)
+            prog.chunk_fns[ck] = self._make_chunk_fn(prog, int(n), collect, spec, trace)
         return prog.chunk_fns[ck]
 
     def run_chunk(self, bucket: _Bucket, carry, t0: int, n: int, collect: str = "none",
-                  spec: TelemetrySpec | None = None, trace=None):
+                  spec: TelemetrySpec | None = None, trace: TraceSpec | None = None):
         """Advance one bucket's carry over ticks ``[t0, t0 + n)``.  Returns
         ``(carry, traces)``.  The states passed in are left unchanged; the
-        telemetry carry (summary mode) is updated in place and returned, so
-        copy it to the host *before* the call to keep it.  Rows whose own
+        telemetry carry (summary mode) and the flight-ring carry (tracing)
+        are updated in place and returned, so copy them to the host
+        *before* the call to keep them.  Rows whose own
         horizon lies inside the window freeze bit-exactly there, so driving
         a bucket to its horizon in any chunking yields identical results.
         The draws are made ``sim.draw_chunk(rows)`` ticks at a time."""
@@ -1288,11 +1319,12 @@ class SweepEngine:
         return fn(carry, bucket.keys, bucket.scn, bucket.horizons, t0)
 
     def finalize_bucket(self, bucket: _Bucket, carry, collect: str, ticks_run: int,
-                        trace_chunks=None, spec: TelemetrySpec | None = None, trace=None):
+                        trace_chunks=None, spec: TelemetrySpec | None = None,
+                        trace: TraceSpec | None = None):
         """Publish a finished carry onto the bucket (one host copy per
-        leaf): ``final_state`` / ``telemetry`` / ``traces`` as
-        ``SweepResult`` expects, pad rows dropped."""
-        _no_tracer(trace)
+        leaf): ``final_state`` / ``telemetry`` / ``traces`` / ``trace_rows``
+        as ``SweepResult`` expects, pad rows dropped."""
+        _check_trace(collect, trace)
         summary = collect == "summary"
         keep = bucket.n_rows
         states = carry[0] if summary else carry
@@ -1301,11 +1333,15 @@ class SweepEngine:
         if summary:
             bucket.telemetry = carry[1][:keep].cpu().numpy().copy()
             bucket.tel_prog = self._tel_prog(bucket.program, self._spec(collect, spec))
+            if trace is not None:
+                bucket.trace_rows = carry[2][:keep].cpu().numpy().copy()
+                bucket.trc_prog = self._trc_prog(bucket.program, trace)
         if collect == "full" and trace_chunks:
             bucket.traces = TickTrace(*(torch.cat(f)[:, :keep] for f in zip(*trace_chunks)))
 
     def _run_bucket(self, bucket: _Bucket, collect: str, chunk: int | None,
-                    early_exit: bool = False, spec: TelemetrySpec | None = None):
+                    early_exit: bool = False, spec: TelemetrySpec | None = None,
+                    trace: TraceSpec | None = None):
         ticks = bucket.ticks
         summary = collect == "summary"
         if chunk is None:
@@ -1317,7 +1353,7 @@ class SweepEngine:
             sizes.append(ticks % chunk)
 
         t_c0 = time.perf_counter()
-        carry = self.bucket_carry(bucket, collect, spec)
+        carry = self.bucket_carry(bucket, collect, spec, trace)
         quiescent = self._quiescent(bucket.program) if early_exit else None
         _sync(self.device)
         bucket.compile_wall_s = time.perf_counter() - t_c0
@@ -1326,7 +1362,7 @@ class SweepEngine:
         offset = 0
         t_e0 = time.perf_counter()
         for n in sizes:
-            carry, traces = self.run_chunk(bucket, carry, offset, n, collect, spec)
+            carry, traces = self.run_chunk(bucket, carry, offset, n, collect, spec, trace)
             offset += n
             if collect == "full":
                 # to the host chunk by chunk: the device never holds more
@@ -1338,7 +1374,15 @@ class SweepEngine:
                 break
         _sync(self.device)
         bucket.exec_wall_s = time.perf_counter() - t_e0
-        self.finalize_bucket(bucket, carry, collect, offset, trace_chunks, spec)
+        self.finalize_bucket(bucket, carry, collect, offset, trace_chunks, spec, trace)
+
+
+def _check_trace(collect: str, trace) -> None:
+    if trace is not None and collect != "summary":
+        raise ValueError(
+            "trace=TraceSpec(...) requires collect='summary' (the "
+            "flight recorder rides the telemetry carry contract)"
+        )
 
 
 def _rows_from(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

@@ -127,3 +127,11 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(f, min=0.0)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` (the
+    ``"low"`` mode): a float32 ``uniform`` draw compared ``< p`` with ``p``
+    rounded to float32, as JAX converts it to the draw's dtype."""
+    p32 = torch.tensor(float(p), dtype=torch.float32).item()
+    return uniform(key, shape) < p32

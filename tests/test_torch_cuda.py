@@ -776,3 +776,85 @@ def test_scale_mode_card_run_equals_cpu_run(dev):
             finals.append(sim_state_to_numpy(state))
         for k in finals[0]:
             assert finals[0][k].tobytes() == finals[1][k].tobytes(), (active, k)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 7])
+def test_traced_reps_tick_matches_plain_version(dev, rows):
+    """The traced form (``trace_rows``): the same state outputs as the
+    untraced launch and as the plain version, and per-row counts equal to
+    the plain version's; rows of 1, 20 and 128 connections (rows sharing a
+    warp and a block), every event class, and without the timeout class."""
+    rs = np.random.RandomState(11 + rows)
+    for per_row, timeout in [(128, True), (20, True), (1, True), (300, False)]:
+        n = rows * per_row
+        b = lambda p: _on(dev, rs.rand(n) < p)
+        i = lambda hi: _on(dev, rs.randint(0, hi, size=n).astype(np.int32))
+        state = [_on(dev, rs.randint(0, 65536, size=(n, 8)).astype(np.int32)),
+                 _on(dev, rs.rand(n, 8) < 0.5), i(8), i(9), i(3), b(0.3), i(3000), i(3)]
+        args = state + [(b(0.6), b(0.5)), (i(65536), i(65536)), (b(0.3), b(0.3)),
+                        b(0.4) if timeout else None, b(0.7), i(65536), 1500, 32, 800]
+        untraced = ops.reps_tick(*args)
+        traced = ops.reps_tick(*args, trace_rows=rows)
+        plain = ref.reps_tick_ref(*[a.cpu() if isinstance(a, torch.Tensor) else
+                                    tuple(x.cpu() for x in a) if isinstance(a, tuple) else a
+                                    for a in args], trace_rows=rows)
+        assert len(traced) == len(untraced) + 1 == len(plain)
+        for x, y, z in zip(untraced, traced, plain):
+            assert torch.equal(x, y) and torch.equal(y.cpu(), z)
+        assert torch.equal(traced[-1].cpu(), plain[-1])
+        assert int(plain[-1][:, :3].sum()) > 0
+    with pytest.raises(ValueError, match="rows"):
+        ops.reps_tick(*args, trace_rows=7 * n + 1)
+
+
+def test_traced_sweep_card_equals_cpu_one_reps_launch_per_tick(dev):
+    """A traced sweep bucket (SwitchLB ECMP/OPS/REPS, a failure, a
+    horizon-merged row): every ring, state and telemetry carry equals the
+    CPU sweep's, and ``reps_tick`` stays one launch per tick."""
+    from repro_torch.netsim import SweepCase, SweepEngine
+    from repro_torch.netsim.tracer import TraceSpec
+
+    cfg = FATTREE_32_CI
+    ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
+    fs = failures.link_down(ups, 40, failures.FOREVER)
+    wl = workloads.permutation(32, 40, seed=2)
+    kw = dict(evs_size=cfg.evs_size)
+    cases = [SweepCase("e", wl, "ecmp", 300, kw, fs), SweepCase("o", wl, "ops", 200, kw, fs),
+             SweepCase("r", wl, "reps", 300, dict(kw, freezing_timeout=100), fs)]
+    out = {}
+    for d in (dev, "cpu"):
+        eng = SweepEngine(cfg, cases, device=d)
+        if d == dev:
+            ops.reset_launch_counts()
+        out[d] = eng.run(collect="summary", chunk=150, trace=TraceSpec(ring=512))
+        if d == dev:
+            counts = ops.launch_counts()
+    assert counts["reps_tick"] == 300, counts
+    g, c = out[dev].buckets[0], out["cpu"].buckets[0]
+    assert np.array_equal(g.trace_rows, c.trace_rows)
+    assert np.array_equal(g.telemetry, c.telemetry)
+    for name in ("e", "o", "r"):
+        a, b = sim_state_to_numpy(out[dev].state_for(name)), sim_state_to_numpy(
+            out["cpu"].state_for(name))
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a), name
+    assert out[dev].flight_for("r")["cursor"] > 0
+
+
+def test_balls_bins_card_equals_cpu(dev):
+    """The three balls-into-bins models on the card (seg_rank / seg_sum
+    kernels) against the CPU (their plain versions), every output."""
+    from repro_torch import rng
+    from repro_torch.core import balls_bins as bb
+
+    key = lambda d: rng.PRNGKey(3, d)
+    for n, b, tau, steps, cap, co in [(8, 5, 8, 300, 0, 1), (32, 9, 13, 400, 16, 2),
+                                      (128, 12, 19, 200, 0, 1)]:
+        g = bb.simulate_recycled_bins(key(dev), n, b, tau, steps, cap, co)
+        c = bb.simulate_recycled_bins(key("cpu"), n, b, tau, steps, cap, co, device="cpu")
+        for x, y in zip(g, c):
+            assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+    for n, lam in [(8, 0.99), (128, 0.5)]:
+        assert torch.equal(bb.simulate_ops_bins(key(dev), n, lam, 500).cpu(),
+                           bb.simulate_ops_bins(key("cpu"), n, lam, 500, device="cpu"))
+    assert torch.equal(bb.evs_load_imbalance(key(dev), 32, 2**12, 32, 5).cpu(),
+                       bb.evs_load_imbalance(key("cpu"), 32, 2**12, 32, 5, device="cpu"))

@@ -45,8 +45,10 @@ def test_sweep_collect_contract():
     """The reference's ValueErrors for an unknown mode, full traces with
     early exit and a telemetry spec outside summary mode; a custom spec
     without the RunSummary channels runs and ``summaries()`` falls back to
-    the state path (equal to the reference's); what is not ported raises
-    NotImplementedError: the flight recorder, conn-sharding, a row mesh."""
+    the state path (equal to the reference's); ``flight_for`` of a run
+    without ``trace=`` raises the reference's ValueError and a traced run
+    decodes; what is not ported raises NotImplementedError: conn-sharding,
+    a row mesh."""
     def cases(m):
         return [case(m, "x", m.net.workloads.permutation(32, 32, seed=4), "ops", 100)]
 
@@ -62,10 +64,11 @@ def test_sweep_collect_contract():
     res = te.run(collect="summary", telemetry=spec)
     assert "windows" in res.telemetry_for("x")
     assert res.summaries()["x"][0].n_conns == 32  # the state path
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        te.run(collect="summary", trace=object())
-    with pytest.raises(NotImplementedError, match="flight recorder"):
+    with pytest.raises(ValueError, match="flight-recorder"):
         tres.flight_for("x")
+    from repro_torch.netsim import TraceSpec
+
+    assert te.run(collect="summary", trace=TraceSpec()).flight_for("x")["cursor"] > 0
     with pytest.raises(ValueError, match="telemetry"):
         SweepEngine(T.cfg, cases(T), device="cpu").run(collect="none").telemetry_for("x")
     with pytest.raises(KeyError):
