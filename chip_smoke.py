@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full check (one card, ~minutes)
-    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 1100 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 1500 --scale-row6-ticks 300 --bins-steps 4000
+    python3 chip_smoke.py --ticks 500 --arena-ticks 300 --check-ticks 300 --zoo-check-ticks 200 --fig18-ticks 300 --fig18-check-ticks 200 --fleet-ticks 300 --fleet-check-ticks 200 --fleet-bench-ticks 100 --tel-ticks 600 --tel-check-ticks 300 --tel-bench-ticks 60 --tel-rounds 1 --sweep-fig06-ticks 1500 --scale-row6-ticks 300 --bins-steps 4000
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -66,18 +66,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      a shorter horizon;
   6. arena — the LB arena's failure block at full width: FATTREE_128, a
      permutation of 1024-packet messages and 5 % of the ToR uplinks down
-     from tick 150 on (``benchmarks/arena.py``), 400 ticks (past the first
-     failure), for each of the nine zoo
+     from tick 150 on (``benchmarks/arena.py``), 300 ticks (past the first
+     failure; the first cell, PLB, 100 ticks past 150 + the RTO, where it
+     must have timed out), for each of the nine zoo
      load balancers beyond ECMP/OPS/REPS, plus ``mixed`` (REPS foreground,
      ECMP background) on fig05's background cohort; exact launch counts
      per load balancer (``next_queue`` once per tick for every LB, adaptive
      RoCE included; ``reps_tick`` 1 per tick where REPS runs (reps, mixed));
   7. card vs CPU — the REPS fig06 cell for a shorter horizon (past the
      first failure and REPS freezing), then every zoo load balancer on
-     FATTREE_32_CI through a ToR-uplink failure (its timeouts are held card
-     == CPU by the sweep phase's traced zoo grid), each on the
-     card with the kernels and on the CPU through the plain versions;
-     every ``SimState`` leaf must be equal;
+     FATTREE_32_CI through a ToR-uplink failure (past the RTO they are held
+     card == CPU by the sweep phase's traced zoo grid), each on the
+     card with the kernels and on the CPU through the plain versions (in
+     two helper processes while the card runs); every ``SimState`` leaf
+     must be equal;
   8. fleet — the fig06/reps cell under many seeds (``FleetRunner``, one
      tick over a row axis): B = 4 rows equal four serial card runs on every
      leaf and trace field; a small fleet (FATTREE_32_CI, B = 3) equals its
@@ -89,7 +91,7 @@ Phases, in order; any failure exits non-zero and prints no result:
   9. telemetry — the summary path (``FleetRunner.run_summary``, the default
      ``TelemetrySpec``): four FATTREE_128 REPS rows with their own
      scenarios (fig08's 12.5, 25 and 50 % uplinks down, and fig06) equal
-     their serial card runs on every leaf and carry slot after 1100 ticks;
+     their serial card runs on every leaf and carry slot after 600 ticks;
      three FATTREE_32_CI rows with their own scenarios and cohort channels,
      card == CPU; the telemetry's device launches per tick by name at B = 1
      and 64 (the same; no device-to-host copy or synchronize inside a
@@ -112,9 +114,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      that its bucket merges horizons; ECMP, OPS and REPS) and fig07
      (permutation and ring-AllReduce blocks) smoke grids at FATTREE_32_CI,
      shrunk as tests/test_figure_parity.py shrinks them: card == CPU on every
-     leaf and carry slot; (b') nine LBs of the zoo (``mixed`` among them)
-     as one traced FATTREE_32_CI grid under two ToR-0 uplinks down, card ==
-     CPU on every ring carry, telemetry carry and leaf; (c) device launches
+     leaf and carry slot; (b') every zoo LB, REPS and ``mixed`` as one
+     traced FATTREE_32_CI grid under two ToR-0 uplinks down, past the RTO,
+     card == CPU on every ring carry, telemetry carry and leaf; (c) device launches
      per tick by name of (a)'s bucket against a B = 2 fig06/reps
      ``run_summary`` fleet and against itself traced (the tracer's added
      launches by name), and of (b)'s horizon-merged bucket against the same
@@ -122,7 +124,7 @@ Phases, in order; any failure exits non-zero and prints no result:
  11. generated fabrics — the clos3 table form of FATTREE_128_3T equals the
      fig18 phase's arithmetic card run on every leaf; rail (16 rails) and
      mesh (2 planes) at 128 hosts, REPS and adaptive RoCE, ToR-0's first two
-     up queues down from tick 100, card == CPU after 300 ticks; the table
+     up queues down from tick 100, card == CPU after 200 ticks; the table
      form launches once per tick, ``next_queue`` and ``ecmp_hash`` never;
  12. scale mode — fig06/reps with ``conn_sharding=True`` equals phase 7's
      dense card run of the cell on every leaf but ``as_idx`` / ``as_count``, its
@@ -159,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -173,10 +176,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # must touch (per valid event-field for seg_sum), over the CUDA-core rate.
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core float32 peak; int32 work counted against it
-# the traced zoo grid of the sweep phase: the LBs whose trace port counts
-# decisions, and one that counts none (mprdma), as one SwitchLB bucket
+# the traced zoo grid of the sweep phase: every zoo LB (those whose trace
+# port counts decisions, and mprdma, bitmap and adaptive_roce, which count
+# none), REPS and mixed, run past the RTO
 ZOO_TRACED = (("reps", {"freezing_timeout": 200}), ("plb", {}), ("flowlet", {}), ("mptcp", {}),
               ("prime", {}), ("seqbalance", {}), ("flowlet_table", {}), ("mprdma", {}),
+              ("bitmap", {}), ("adaptive_roce", {}),
               ("mixed", {"fg": "reps", "bg": "plb", "bg_conns": (1, 3, 5, 8)}))
 # the load balancers of the zoo beyond ECMP / OPS / REPS, in registry order
 ZOO = ("plb", "flowlet", "mptcp", "mprdma", "bitmap", "adaptive_roce", "prime",
@@ -1233,7 +1238,21 @@ def active_set_invariant(what: str, NP: int, state) -> None:
                              f"fl_count={int(state.fl_count)}, NP={NP})")
 
 
-def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: int) -> dict:
+def scale_row_cpu(n: int, ticks: int) -> tuple:
+    """``bench/scale_smoke.py``'s row of ``n`` connections for ``ticks`` on
+    the CPU, for a helper process: ``(SimState leaves, run_row's info)``."""
+    import torch
+
+    from repro_torch.bench.scale_smoke import run_row
+    from repro_torch.netsim import sim_state_to_numpy
+
+    torch.set_num_threads(2)
+    eng, res, info = run_row(n, ticks, device="cpu")
+    return sim_state_to_numpy(res.state_for(eng.cases[0].name)), info
+
+
+def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: int,
+                cpu_row5) -> dict:
     """Scale mode on the card: (a) fig06/reps with ``conn_sharding=True``
     (A == NP) equals the dense card run ``dense_reps`` (the card-vs-CPU
     phase's run of the main path's cell: ``(simulator, state, ticks)``) on
@@ -1241,7 +1260,9 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
     non-FREE slots, and device launches per tick of the sparse tick against
     the dense one from there; (b) a
     small cell with ``active_slots`` binding, card == CPU; (c) the 10**5 row
-    (``bench/scale_smoke.py``'s, 150 ticks by default) card == CPU; (d) the 10**6 row
+    (``bench/scale_smoke.py``'s, 150 ticks by default) card == CPU, the
+    CPU's run ``cpu_row5`` (the pending result of ``scale_row_cpu`` in a
+    helper process); (d) the 10**6 row
     through ``SweepEngine(collect="none")`` with exact launch counts: done >
     0, NP = A by the lifetime bound, ticks/s, peak memory, and a profiled
     window (device busy share, launches per tick); its live REPS state packs
@@ -1310,11 +1331,16 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
         f"{len(finals[0])} SimState leaves bit-equal; alloc failures {fails}")
     step_done("(b) binding active set")
 
-    # (c) the 10**5 row, card == CPU
+    # (c) the 10**5 row, card == CPU (the CPU's run in a helper process,
+    # started with the phase)
     finals = []
     for d in (dev, "cpu"):
-        eng, res, info = run_row(10**5, row5_ticks, device=d)
-        finals.append(sim_state_to_numpy(res.state_for(eng.cases[0].name)))
+        if d == dev:
+            eng, res, info = run_row(10**5, row5_ticks, device=d)
+            finals.append(sim_state_to_numpy(res.state_for(eng.cases[0].name)))
+        else:
+            leaves, info = cpu_row5.get(timeout=900)
+            finals.append(leaves)
         log(f"scale row 10**5 on {d}: {row5_ticks} ticks, exec {info['exec_wall_s']:.3f} s = "
             f"{info['ticks_per_sec']:.1f} ticks/s; done={info['done']} NP={info['NP']} "
             f"A={info['A']} NC padded {info['NC_padded']}")
@@ -1617,7 +1643,9 @@ def three_tier_cell(dev, ticks: int, check_ticks: int) -> tuple[dict, dict]:
 def arena_cells(dev, ticks: int) -> dict:
     """The arena's failure block at FATTREE_128 for every zoo load balancer
     beyond ECMP/OPS/REPS, and mixed(REPS + ECMP) on fig05's cohort, each
-    with exact launch counts; returns the launches per kernel."""
+    with exact launch counts, ``ticks`` each but the first (PLB), which runs
+    100 ticks past 150 + the RTO so that its timeouts are asserted; returns
+    the launches per kernel."""
     import numpy as np
     import torch
 
@@ -1635,21 +1663,22 @@ def arena_cells(dev, ticks: int) -> dict:
     cells.append(("mixed", wl05, dict(fg="reps", bg="ecmp", bg_conns=bg_conns)))
     assert set(ZOO) | {"ecmp", "ops", "reps", "mixed"} == set(REGISTRY), sorted(REGISTRY)
     totals = {k: 0 for k in ops.KERNEL_MODULES}
-    for lbn, w, kw in cells:
+    for i, (lbn, w, kw) in enumerate(cells):
         sim = Simulator(cfg, w, make_lb(lbn, evs_size=cfg.evs_size, **kw), failures=fs,
                         device=dev)
+        n_t = max(ticks, 150 + cfg.rto_ticks + 100) if i == 0 else ticks
         state = sim.init_state()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, _ = sim.run(ticks, state)
+        state, _ = sim.run(n_t, state)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
         s = summarize(sim, state)
         check_invariants(sim, state)
-        log(f"arena failure/{sim.lb.name}: {ticks} ticks in {secs:.3f} s = "
-            f"{ticks / secs:.1f} ticks/s; completed={s.completed}/{s.n_conns} "
+        log(f"arena failure/{sim.lb.name}: {n_t} ticks in {secs:.3f} s = "
+            f"{n_t / secs:.1f} ticks/s; completed={s.completed}/{s.n_conns} "
             f"runtime_ticks={s.runtime_ticks} drops_cong={s.drops_cong} "
             f"drops_fail={s.drops_fail} timeouts={s.timeouts} launches={counts}")
         want = {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1,
@@ -1658,13 +1687,13 @@ def arena_cells(dev, ticks: int) -> dict:
                 "next_queue": 1, "ecmp_hash": 0,
                 "reps_tick": 1 if lbn == "mixed" else 0}
         for k, n in want.items():
-            if counts[k] != n * ticks:
+            if counts[k] != n * n_t:
                 raise AssertionError(
-                    f"arena/{lbn}: {k} launched {counts[k]} times, expected {n} x {ticks}")
+                    f"arena/{lbn}: {k} launched {counts[k]} times, expected {n} x {n_t}")
             totals[k] += counts[k]
         # uplinks go down at tick 150: past 150 + RTO a hashing LB must have timed out
-        if ticks > 150 + cfg.rto_ticks and s.timeouts == 0 and not sim.lb.switch_adaptive:
-            raise AssertionError(f"arena/{lbn}: no timeout fired in {ticks} ticks")
+        if n_t > 150 + cfg.rto_ticks and s.timeouts == 0 and not sim.lb.switch_adaptive:
+            raise AssertionError(f"arena/{lbn}: no timeout fired in {n_t} ticks")
     return totals
 
 
@@ -2257,7 +2286,57 @@ def sweep_rows_vs_serial(eng, res, name: str, ref) -> None:
         f"from the sketch, {state.p99_fct_ticks} exact)")
 
 
-def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: int) -> dict:
+def sweep_small_grids() -> dict:
+    """The sweep phase's FATTREE_32_CI grids, ``{label: (cases, run
+    keywords)}``: the fig04 (with a 200-tick cell, so that its bucket merges
+    horizons) and fig07 smoke grids shrunk 32x (floor 300 ticks), and the
+    traced zoo grid (``ZOO_TRACED`` under two ToR-0 uplinks down from tick
+    30, 460 ticks, past the RTO)."""
+    import dataclasses
+
+    from repro_torch.bench import fig04_asym_macro as fig04
+    from repro_torch.bench import fig07_failures_macro as fig07
+    from repro_torch.configs import FATTREE_32_CI as small
+    from repro_torch.netsim import SweepCase, Topology, failures, workloads
+    from repro_torch.netsim import tracer as tr
+
+    shrink = lambda cs: [dataclasses.replace(c, ticks=max(300, c.ticks // 32), seeds=(0,))
+                         for c in cs]
+    g04 = shrink(fig04.cases(small, smoke=True, full=False))
+    g04.append(dataclasses.replace(g04[1], name="fig04/permutation/ops@200", ticks=200))
+    g07 = shrink(fig07.cases(small, smoke=True, full=False))
+    ups = [int(q) for q in Topology.build(small).t0_up_queues(0)[:2]]
+    fs = failures.link_down(ups, 30, failures.FOREVER)
+    wl = workloads.permutation(32, 64, seed=3)
+    zoo = [SweepCase(f"zoo/{lb}", wl, lb, 460, dict(evs_size=small.evs_size, **kw), fs)
+           for lb, kw in ZOO_TRACED]
+    summary = dict(collect="summary", early_exit=True)
+    return {"fig04": (g04, summary), "fig07": (g07, summary),
+            "zoo": (zoo, dict(collect="summary", trace=tr.TraceSpec(ring=4096)))}
+
+
+def sweep_cpu_runs(label: str) -> dict:
+    """The CPU side of the sweep phase's grid ``label``, for a helper
+    process: each bucket's ``(ticks_run, telemetry carry, ring carry or
+    None)``, every cell's SimState leaves, and the seconds."""
+    import torch
+
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.netsim import SweepEngine, sim_state_to_numpy
+
+    torch.set_num_threads(2)
+    grid, kw = sweep_small_grids()[label]
+    e = SweepEngine(FATTREE_32_CI, grid, device="cpu")
+    t0 = time.perf_counter()
+    r = e.run(**kw)
+    secs = time.perf_counter() - t0
+    return {"buckets": [(b.ticks_run, b.telemetry, b.trace_rows) for b in r.buckets],
+            "leaves": {c.name: sim_state_to_numpy(r.state_for(c.name)) for c in grid},
+            "secs": secs}
+
+
+def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: int,
+                cpu_grids: dict) -> dict:
     """The sweep engine on the card: (a) the fig06 grid through the port's
     ``figure_grid`` at the BENCH_FULL config (FATTREE_128's fabric), its
     two cells one SwitchLB(ops, reps) bucket, ``collect="summary"`` with
@@ -2265,7 +2344,9 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
     when its scenario is the serial reference's, continued to
     ``ticks_run``); (b) the fig04 and fig07 smoke grids at FATTREE_32_CI,
     shrunk (fig04 with one shorter cell, so that its bucket merges
-    horizons), card == CPU on every leaf and carry slot; (c) launches per
+    horizons), and (b') the traced zoo grid, card == CPU on every leaf and
+    carry slot, the CPU's runs ``cpu_grids`` (pending results of
+    ``sweep_cpu_runs`` in helper processes, by label); (c) launches per
     tick by name of (a)'s bucket against a B = 2 ``run_summary`` fleet, and
     of (b)'s horizon-merged bucket against the same bucket unmasked.
     Returns the launches per kernel."""
@@ -2275,9 +2356,7 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
     import torch
 
     from repro_torch.bench import common as bc
-    from repro_torch.bench import fig04_asym_macro as fig04
     from repro_torch.bench import fig06_failures_micro as fig06
-    from repro_torch.bench import fig07_failures_macro as fig07
     from repro_torch.configs import FATTREE_32_CI
     from repro_torch.kernels import ops
     from repro_torch.netsim import SweepEngine, sim_state_to_numpy
@@ -2387,39 +2466,34 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
         main_refs[lbn] = (sim, st, ticks_run)
     step_done("(a) rows == serial")
 
-    # (b) heterogeneous horizons and three variants: card == CPU
-    small = FATTREE_32_CI
-    shrink = lambda cs: [dataclasses.replace(c, ticks=max(300, c.ticks // 32), seeds=(0,))
-                         for c in cs]
-    g04 = shrink(fig04.cases(small, smoke=True, full=False))
-    g04.append(dataclasses.replace(g04[1], name="fig04/permutation/ops@200", ticks=200))
-    g07 = shrink(fig07.cases(small, smoke=True, full=False))
+    # (b) heterogeneous horizons and three variants: card == CPU (the CPU
+    # runs in helper processes, started while (a) ran)
+    grids = sweep_small_grids()
     merged = None
-    for label, grid in (("fig04", g04), ("fig07", g07)):
-        out = {}
-        for d in (dev, "cpu"):
-            e = SweepEngine(small, grid, device=d)
-            r, secs, counts = counted(
-                f"sweep {label} on {d}", lambda: e.run(collect="summary", early_exit=True),
-                ticks=(lambda r: sum(b.ticks_run for b in r.buckets)) if d == dev else None)
-            out[d] = (e, r)
-            log(f"sweep {label} on {d}: {secs:.3f} s, ticks_run "
-                f"{[b.ticks_run for b in r.buckets]}, masked "
-                f"{[b.program.masked for b in r.buckets]}, variants "
-                f"{[b.lb.name for b in r.buckets]}" + (f"; launches={counts}" if d == dev else ""))
-        (eg, rg), (_, rc) = out[dev], out["cpu"]
-        log(f"sweep {label} plan:\n" + eg.plan.describe())
+    for label in ("fig04", "fig07"):
+        grid, kw = grids[label]
+        e = SweepEngine(FATTREE_32_CI, grid, device=dev)
+        rg, secs, counts = counted(f"sweep {label} on {dev}", lambda: e.run(**kw),
+                                   ticks=lambda r: sum(b.ticks_run for b in r.buckets))
+        log(f"sweep {label} on {dev}: {secs:.3f} s, ticks_run "
+            f"{[b.ticks_run for b in rg.buckets]}, masked "
+            f"{[b.program.masked for b in rg.buckets]}, variants "
+            f"{[b.lb.name for b in rg.buckets]}; launches={counts}")
+        rc = cpu_grids[label].get(timeout=900)
+        log(f"sweep {label} on cpu: {rc['secs']:.3f} s (a helper process), ticks_run "
+            f"{[t for t, _, _ in rc['buckets']]}")
+        log(f"sweep {label} plan:\n" + e.plan.describe())
         n_slots = 0
-        for bg, bc_ in zip(rg.buckets, rc.buckets):
-            if bg.ticks_run != bc_.ticks_run or bg.telemetry.tobytes() != bc_.telemetry.tobytes():
+        for bg, (t_c, tel_c, _) in zip(rg.buckets, rc["buckets"], strict=True):
+            if bg.ticks_run != t_c or bg.telemetry.tobytes() != tel_c.tobytes():
                 raise AssertionError(f"sweep {label}: card and CPU differ in ticks_run or the "
                                      "telemetry carry")
             n_slots += bg.telemetry.size
             if bg.program.masked:
-                merged = (eg, bg)
+                merged = (e, bg)
         for c in grid:
-            same_leaves(sim_state_to_numpy(rg.state_for(c.name)),
-                        sim_state_to_numpy(rc.state_for(c.name)), f"sweep {label} {c.name}")
+            same_leaves(sim_state_to_numpy(rg.state_for(c.name)), rc["leaves"][c.name],
+                        f"sweep {label} {c.name}")
         log(f"card vs CPU: sweep {label}: every SimState leaf of all {len(grid)} rows and all "
             f"{n_slots} telemetry carry slots bit-equal")
     if merged is None:
@@ -2428,35 +2502,28 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
 
     # (b') the load-balancer zoo as one traced grid (two ToR-0 uplinks down
     # from tick 30, past the RTO): card == CPU on every ring carry
-    from repro_torch.netsim import SweepCase, Topology, failures, workloads
-
-    ups = [int(q) for q in Topology.build(small).t0_up_queues(0)[:2]]
-    fs = failures.link_down(ups, 30, failures.FOREVER)
-    wl = workloads.permutation(32, 64, seed=3)
-    zoo = [SweepCase(f"zoo/{lb}", wl, lb, 460, dict(evs_size=small.evs_size, **kw), fs)
-           for lb, kw in ZOO_TRACED]
-    out = {}
-    for d in (dev, "cpu"):
-        e = SweepEngine(small, zoo, device=d)
-        out[d], secs, counts = counted(
-            f"sweep zoo traced on {d}",
-            lambda: e.run(collect="summary", trace=tr.TraceSpec(ring=4096)))
-        n_run = sum(b.ticks_run for b in out[d].buckets)
-        if d == dev and counts["reps_tick"] != 2 * n_run:  # the reps variant and mixed's
-            raise AssertionError(f"sweep zoo traced: reps_tick launched {counts['reps_tick']} "
-                                 f"times in {n_run} ticks, expected 2 per tick")
-        log(f"sweep zoo traced on {d}: {len(e.buckets)} bucket(s) {[b.lb.name for b in e.buckets]},"
-            f" {secs:.3f} s" + (f"; launches={counts}" if d == dev else ""))
+    zoo, kw = grids["zoo"]
+    e = SweepEngine(FATTREE_32_CI, zoo, device=dev)
+    rg, secs, counts = counted(f"sweep zoo traced on {dev}", lambda: e.run(**kw))
+    # the reps variant and mixed's, in the bucket that holds them
+    n_run = sum(r.ticks_run for b, r in zip(e.buckets, rg.buckets) if "reps" in b.lb.name)
+    if counts["reps_tick"] != 2 * n_run:
+        raise AssertionError(f"sweep zoo traced: reps_tick launched {counts['reps_tick']} "
+                             f"times in {n_run} ticks, expected 2 per tick")
+    log(f"sweep zoo traced on {dev}: {len(e.buckets)} bucket(s) {[b.lb.name for b in e.buckets]},"
+        f" {secs:.3f} s; launches={counts}")
+    rc = cpu_grids["zoo"].get(timeout=900)
+    log(f"sweep zoo traced on cpu: {rc['secs']:.3f} s (a helper process)")
     n_slots, events = 0, collections.Counter()
-    for bg, bc_ in zip(out[dev].buckets, out["cpu"].buckets):
-        if (bg.trace_rows.tobytes() != bc_.trace_rows.tobytes()
-                or bg.telemetry.tobytes() != bc_.telemetry.tobytes()):
+    for bg, (_, tel_c, trc_c) in zip(rg.buckets, rc["buckets"], strict=True):
+        if (bg.trace_rows.tobytes() != trc_c.tobytes()
+                or bg.telemetry.tobytes() != tel_c.tobytes()):
             raise AssertionError("sweep zoo traced: card and CPU rings or carries differ")
         n_slots += bg.trace_rows.size
     for c in zoo:
-        same_leaves(sim_state_to_numpy(out[dev].state_for(c.name)),
-                    sim_state_to_numpy(out["cpu"].state_for(c.name)), f"sweep {c.name}")
-        ev = out[dev].flight_for(c.name)
+        same_leaves(sim_state_to_numpy(rg.state_for(c.name)), rc["leaves"][c.name],
+                    f"sweep {c.name}")
+        ev = rg.flight_for(c.name)
         events.update(tr.CODE_NAMES[int(k)] for k in ev["code"])
     log(f"card vs CPU: sweep zoo traced ({len(zoo)} LBs): all {n_slots} ring carry slots, the "
         f"telemetry carries and every SimState leaf bit-equal; events {dict(events)}")
@@ -2503,8 +2570,8 @@ def sweep_phase(dev, fig06_ticks: int, main_refs: dict, warm: int, prof_ticks: i
         if v:
             log(f"sweep launches vs fleet: {v:+g} per tick  {k[:100]}")
     e_m, b_m = merged
-    unmasked = SweepEngine(small, [dataclasses.replace(c, ticks=b_m.ticks) for c in g04],
-                           device=dev)
+    unmasked = SweepEngine(FATTREE_32_CI, [dataclasses.replace(c, ticks=b_m.ticks)
+                                           for c in grids["fig04"][0]], device=dev)
     b_u = unmasked.buckets[0]
     if b_u.program.masked or b_u.plan.key != b_m.plan.key:
         raise AssertionError("sweep (c): the unmasked twin bucket has other shapes")
@@ -2560,11 +2627,6 @@ def exact_launches(what: str, counts: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-BINS_N = (8, 32, 128)
-BINS_FIG17 = (32, 4000, (1, 2, 4, 8))  # n, steps, coalescing ratios
-FIG16 = [(flows, bits) for flows in (1, 32) for bits in (4, 8, 12, 16)]
-
-
 def fig16_cpu_trials(m: int) -> int:
     """Trials of a fig16 cell held on the CPU: all 64, or the first 4 where
     m = flows x EVS > 2**17 (a CPU run of 64 would take minutes; the trials'
@@ -2572,25 +2634,21 @@ def fig16_cpu_trials(m: int) -> int:
     return 64 if m <= 2**17 else 4
 
 
-BINS_PARTS = ("fig13", "fig17", "fig16")
-
-
-def bins_runs(dev, steps: int, parts=BINS_PARTS) -> dict:
-    """The balls-into-bins outputs of ``bins_phase`` on ``dev`` for the
-    figures in ``parts``, as numpy arrays keyed by cell (the card's in the
-    phase, the CPU's in helper processes beside it, one per figure), with
-    each cell's seconds under ``("secs", key)``."""
+def bins_runs(dev, steps: int, parts=None) -> dict:
+    """The outputs of ``bench/bins.py``'s cells (the figures in ``parts``,
+    all by default) on ``dev``, as numpy arrays keyed by cell (the card's in
+    ``bins_phase``, the CPU's in helper processes beside it, one per figure,
+    fig16 on ``fig16_cpu_trials``), with each cell's seconds under
+    ``("secs", key)``."""
     import torch
 
-    from repro_torch import rng
-    from repro_torch.bench.bins import params
-    from repro_torch.core import balls_bins as bb
+    from repro_torch.bench import bins
 
     torch.set_num_threads(2)
     on_card = torch.device(dev).type == "cuda"
     out = {}
-
-    def run(k, fn):
+    trials = (lambda m: bins.FIG16_TRIALS) if on_card else fig16_cpu_trials
+    for k, fn in bins.cells(dev, steps, parts or bins.PARTS, trials):
         if on_card:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2599,23 +2657,6 @@ def bins_runs(dev, steps: int, parts=BINS_PARTS) -> dict:
             torch.cuda.synchronize()
         out[("secs", k)] = time.perf_counter() - t0
         out[k] = [x.cpu().numpy() for x in (r if isinstance(r, tuple) else (r,))]
-
-    key = rng.PRNGKey(0, dev)
-    for n in BINS_N if "fig13" in parts else ():
-        b, tau = params(n)
-        run(("ops", n), lambda: bb.simulate_ops_bins(key, n, 0.99, steps, device=dev))
-        run(("rec", n), lambda: bb.simulate_recycled_bins(key, n, b, tau, steps, device=dev))
-    n, s17, ratios = BINS_FIG17
-    b, tau = params(n)
-    for ratio in ratios if "fig17" in parts else ():
-        run(("c", ratio), lambda: bb.simulate_recycled_bins(key, n, b, tau, s17, coalesce=ratio,
-                                                            device=dev))
-    if "fig17" in parts:
-        run(("ops17", n), lambda: bb.simulate_ops_bins(key, n, 1.0, s17, device=dev))
-    for flows, bits in FIG16 if "fig16" in parts else ():
-        trials = 64 if on_card else fig16_cpu_trials(flows * 2**bits)
-        run(("evs", flows, bits), lambda: bb.evs_load_imbalance(key, 32, 2**bits, flows, trials,
-                                                                device=dev))
     return out
 
 
@@ -2630,24 +2671,24 @@ def bins_phase(dev, steps: int) -> dict:
     Theorem 5.1's assertions (tests/test_property_reps.py) at n = 128 on the
     card's 4000-step prefix; exact ``seg_rank`` / ``seg_sum`` launches per
     run and steps/s.  Returns the launches per kernel."""
-    import multiprocessing
-
     import numpy as np
 
+    from repro_torch.bench import bins
     from repro_torch.bench.bins import params
     from repro_torch.core import balls_bins as bb
     from repro_torch.kernels import ops
 
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     counted = _counting(totals)
-    with multiprocessing.get_context("spawn").Pool(len(BINS_PARTS)) as pool:
-        pending = [pool.apply_async(bins_runs, ("cpu", steps, (p,))) for p in BINS_PARTS]
+    with multiprocessing.get_context("spawn").Pool(len(bins.PARTS)) as pool:
+        pending = [pool.apply_async(bins_runs, ("cpu", steps, (p,))) for p in bins.PARTS]
         card, secs, counts = counted(lambda: bins_runs(dev, steps))
         cpu = {k: v for p in pending for k, v in p.get(timeout=900).items()}
-    n17, s17, ratios = BINS_FIG17
-    want = {"seg_rank": len(BINS_N) * steps + len(ratios) * s17,
-            "seg_sum": len(BINS_N) * (1 + steps) + len(ratios) * s17 + 1 + sum(
-                -(-64 // max(1, bb.TRIAL_DRAWS // (f * 2**b))) for f, b in FIG16)}
+    n17, s17, ratios = bins.FIG17_N, bins.FIG17_STEPS, bins.FIG17_RATIOS
+    tr16 = bins.FIG16_TRIALS
+    want = {"seg_rank": len(bins.NS) * steps + len(ratios) * s17,
+            "seg_sum": len(bins.NS) * (1 + steps) + len(ratios) * s17 + 1 + sum(
+                -(-tr16 // max(1, bb.TRIAL_DRAWS // (f * 2**b))) for f, b in bins.FIG16)}
     exact_launches("balls into bins", counts, want)
     for k, outs in cpu.items():
         if k[0] == "secs":
@@ -2660,7 +2701,7 @@ def bins_phase(dev, steps: int) -> dict:
     log(f"bins: card == CPU on every output of {len(cpu) // 2} cells in {secs:.1f} s; launches "
         f"{ {k: v for k, v in counts.items() if v} } == expected (seg_rank 1 and seg_sum 1 per "
         f"recycled step, seg_sum 1 per OPS run, 1 per fig16 chunk of trials)")
-    for n in BINS_N:
+    for n in bins.NS:
         b, tau = params(n)
         ml, = card[("ops", n)]
         mx, frac, _ = card[("rec", n)]
@@ -2673,7 +2714,7 @@ def bins_phase(dev, steps: int) -> dict:
         mx = card[("c", ratio)][0]
         log(f"bins fig17/recycled_c{ratio}: max_load_end={mx[-1]} tau={params(n17)[1]}, "
             f"{s17 / card[('secs', ('c', ratio))]:.1f} steps/s; card == CPU")
-    for flows, bits in FIG16:
+    for flows, bits in bins.FIG16:
         lam = card[("evs", flows, bits)][0]
         n_cpu = fig16_cpu_trials(flows * 2**bits)
         log(f"bins fig16/flows{flows}/evs2^{bits}: 64 trials of m={flows * 2**bits} draws in "
@@ -2697,18 +2738,26 @@ def bins_phase(dev, steps: int) -> dict:
     return totals
 
 
-def soak_phase(dev, ticks: int, chunk: int, kill_at: int, ring: int) -> dict:
+# the soak phase: the grid's permutation horizon (AllReduce 2x), its chunk
+# (the checkpoint cadence), the preemption tick (a chunk boundary), the
+# flight ring, and the spine injected at a tick inside the first chunk
+SOAK_TICKS, SOAK_CHUNK, SOAK_KILL_AT, SOAK_RING = 480, 120, 240, 2048
+SOAK_SPINE, SOAK_INJECT_AT = 0, 40
+
+
+def soak_phase(dev) -> dict:
     """The soak runtime at full width: ``bench/soak_fig07``'s grid
     (permutation and ring-AllReduce blocks x OPS / REPS under 5 % of the
-    uplinks down) on FATTREE_128's fabric, ``ticks`` (AllReduce 2x), chunk
-    ``chunk``, traced, checkpointing to a temporary directory: straight
-    through; killed at ``kill_at`` (the runner abandoned, a fresh engine and
-    runner resumed); a spine injected at the first boundary through
-    ``inject`` at tick 40 against the same spine declared statically.  The records of
-    straight and resumed runs are equal, their flight parts array by array,
-    and the injected and static records are equal.  Snapshot bytes and save
-    seconds, synchronous and asynchronous.  Returns the launches per
-    kernel."""
+    uplinks down) on FATTREE_128's fabric, ``SOAK_TICKS`` (AllReduce 2x),
+    chunk ``SOAK_CHUNK``, traced, checkpointing to a temporary directory:
+    straight through; killed at ``SOAK_KILL_AT`` (the runner abandoned, a
+    fresh engine and runner resumed); a spine injected through ``inject`` at
+    ``SOAK_INJECT_AT`` (the run advanced to it, injected, and advanced back
+    onto the chunk grid) against the same spine declared statically.  The
+    records of straight and resumed runs are equal, their flight parts array
+    by array, and the injected and static records are equal.  Snapshot
+    bytes and save seconds, synchronous and asynchronous.  Returns the
+    launches per kernel."""
     import dataclasses
     import json as _json
     import os
@@ -2726,6 +2775,7 @@ def soak_phase(dev, ticks: int, chunk: int, kill_at: int, ring: int) -> dict:
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     counted = _counting(totals)
     cfg = FATTREE_128
+    ticks, chunk, kill_at, ring = SOAK_TICKS, SOAK_CHUNK, SOAK_KILL_AT, SOAK_RING
     base = tempfile.mkdtemp(prefix="chip_smoke_soak_")
     t_start = time.perf_counter()
 
@@ -2790,10 +2840,17 @@ def soak_phase(dev, ticks: int, chunk: int, kill_at: int, ring: int) -> dict:
         # injected at tick 40, while the permutation's messages are in
         # flight (its random uplink failures start at 60; by the first
         # boundary, 120, its traffic has drained but for stalled packets)
-        spine, at = 0, 40
+        spine, at = SOAK_SPINE, SOAK_INJECT_AT
         delta = failures.spine_down(cfg, spine, start=at)
         inj = sf.build(cfg, ticks, chunk, os.path.join(base, "injected"), ring, dev)
-        _, s3, _ = counted(lambda: sf.drive(inj, chunk, inject_spine=spine, inject_at=at, cfg=cfg))
+
+        def inject_and_drive():
+            inj.advance(at)
+            inj.inject(delta)
+            inj.advance(chunk - at)  # back onto the chunk grid
+            sf.drive(inj, chunk)
+
+        _, s3, _ = counted(inject_and_drive)
         injected = sf.record(inj)
         cases = [dataclasses.replace(c, failures=FailureSchedule.concat(c.failures, delta))
                  for c in sf.cases(cfg, ticks)]
@@ -2829,62 +2886,80 @@ def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
             raise AssertionError(f"{what}: card and CPU differ in SimState leaf {k} at {bad}")
 
 
-def card_vs_cpu(dev, ticks: int) -> tuple:
-    """The fig06/reps cell for ``ticks`` on the card and on the CPU: every
-    leaf equal.  Returns the card run ``(simulator, state, ticks)``."""
-    from repro_torch.netsim import sim_state_to_numpy
-    from repro_torch.netsim.engine import ST_TIMEOUTS
-
-    finals, card = [], None
-    for d in (dev, "cpu"):
-        sim = fig06_cell("reps", d)
-        t0 = time.perf_counter()
-        state, _ = sim.run(ticks)
-        finals.append(sim_state_to_numpy(state))
-        card = card or (sim, state, ticks)
-        log(f"card vs CPU: REPS {ticks} ticks on {d} in {time.perf_counter() - t0:.3f} s")
-    gpu, cpu = finals
-    same_leaves(gpu, cpu, "fig06/reps")
-    froze = int((gpu["lb_state.exit_freezing"] > 0).sum())  # set only on entering freezing
-    log(f"card vs CPU: all {len(gpu)} SimState leaves bit-equal after {ticks} ticks "
-        f"(timeouts={int(gpu['s_stats'][ST_TIMEOUTS])}, REPS conns that entered freezing={froze})")
-    return card
-
-
-def zoo_card_vs_cpu(dev, ticks: int) -> None:
-    """Every zoo load balancer (and mixed) on FATTREE_32_CI with 16-packet
-    queues (so ECN reaches every LB's ACK path) and two ToR-0 uplinks down
-    over ticks 30-300, past the 400-tick RTO: card == CPU."""
+def card_vs_cpu_leaves(what: str, dev, ticks: int):
+    """``(SimState leaves as numpy, seconds)`` after ``ticks`` on ``dev``:
+    of the fig06/reps cell (``what == "reps"``, the card run's
+    ``(simulator, state)`` too on the card), or ``{name: (LB name, leaves,
+    seconds)}`` of every zoo load balancer (and mixed) on FATTREE_32_CI with
+    16-packet queues (so ECN reaches every LB's ACK path) and two ToR-0
+    uplinks down over ticks 30-300 (``"zoo"``).  On the CPU it runs in a
+    helper process beside the card's run."""
     import numpy as np
+    import torch
 
     from repro_torch.configs import FATTREE_32_CI
     from repro_torch.core import make_lb
     from repro_torch.netsim import Simulator, Topology, failures, sim_state_to_numpy, workloads
-    from repro_torch.netsim.engine import ST_ECN, ST_TIMEOUTS
 
+    on_card = torch.device(dev).type == "cuda"
+    if not on_card:
+        torch.set_num_threads(2)
+    if what == "reps":
+        sim = fig06_cell("reps", dev)
+        t0 = time.perf_counter()
+        state, _ = sim.run(ticks)
+        out = sim_state_to_numpy(state)
+        secs = time.perf_counter() - t0
+        return (out, secs, (sim, state)) if on_card else (out, secs)
     cfg = FATTREE_32_CI.replace(queue_capacity=16)
     ups = [int(q) for q in Topology.build(cfg).t0_up_queues(0)[:2]]
     wl, bg = workloads.permutation_with_background(32, 48, 0.25, seed=3)
     bg_conns = tuple(int(i) for i in np.nonzero(bg)[0])
+    out = {}
     for lbn in (*ZOO, "mixed"):
         kw = dict(fg="reps", bg="ecmp", bg_conns=bg_conns) if lbn == "mixed" else {}
-        finals = []
-        for d in (dev, "cpu"):
-            sim = Simulator(cfg, wl, make_lb(lbn, evs_size=cfg.evs_size, **kw),
-                            failures=failures.link_down(ups, 30, 300), device=d)
-            state, _ = sim.run(ticks)
-            finals.append(sim_state_to_numpy(state))
-        same_leaves(*finals, f"zoo/{lbn}")
-        st = finals[0]["s_stats"]
-        log(f"card vs CPU: {sim.lb.name}: all {len(finals[0])} SimState leaves bit-equal after "
-            f"{ticks} ticks (timeouts={int(st[ST_TIMEOUTS])}, ecn_marks={int(st[ST_ECN])})")
+        sim = Simulator(cfg, wl, make_lb(lbn, evs_size=cfg.evs_size, **kw),
+                        failures=failures.link_down(ups, 30, 300), device=dev)
+        t0 = time.perf_counter()
+        state, _ = sim.run(ticks)
+        out[lbn] = (sim.lb.name, sim_state_to_numpy(state), time.perf_counter() - t0)
+    return out
+
+
+def card_vs_cpu(dev, ticks: int, zoo_ticks: int) -> tuple:
+    """The fig06/reps cell for ``ticks``, then every zoo load balancer for
+    ``zoo_ticks`` (past the 400-tick RTO they are held by the sweep phase's
+    traced zoo grid), on the card and on the CPU, the CPU runs in two helper
+    processes while the card runs: every leaf equal.  Returns the card run
+    ``(simulator, state, ticks)``."""
+    from repro_torch.netsim.engine import ST_ECN, ST_TIMEOUTS
+
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        pending = [pool.apply_async(card_vs_cpu_leaves, ("reps", "cpu", ticks)),
+                   pool.apply_async(card_vs_cpu_leaves, ("zoo", "cpu", zoo_ticks))]
+        gpu, g_secs, (sim, state) = card_vs_cpu_leaves("reps", dev, ticks)
+        log(f"card vs CPU: REPS {ticks} ticks on {dev} in {g_secs:.3f} s")
+        zoo_gpu = card_vs_cpu_leaves("zoo", dev, zoo_ticks)
+        (cpu, c_secs), zoo_cpu = (p.get(timeout=900) for p in pending)
+    log(f"card vs CPU: REPS {ticks} ticks on cpu in {c_secs:.3f} s (a helper process)")
+    same_leaves(gpu, cpu, "fig06/reps")
+    froze = int((gpu["lb_state.exit_freezing"] > 0).sum())  # set only on entering freezing
+    log(f"card vs CPU: all {len(gpu)} SimState leaves bit-equal after {ticks} ticks "
+        f"(timeouts={int(gpu['s_stats'][ST_TIMEOUTS])}, REPS conns that entered freezing={froze})")
+    for lbn, (name, leaves, secs) in zoo_gpu.items():
+        same_leaves(leaves, zoo_cpu[lbn][1], f"zoo/{lbn}")
+        st = leaves["s_stats"]
+        log(f"card vs CPU: {name}: all {len(leaves)} SimState leaves bit-equal after "
+            f"{zoo_ticks} ticks (timeouts={int(st[ST_TIMEOUTS])}, ecn_marks={int(st[ST_ECN])}; "
+            f"card {secs:.3f} s, CPU {zoo_cpu[lbn][2]:.3f} s)")
+    return sim, state, ticks
 
 
 # ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ticks", type=int, default=3000, help="main-path ticks per cell")
-    ap.add_argument("--arena-ticks", type=int, default=400,
+    ap.add_argument("--arena-ticks", type=int, default=300,
                     help="arena ticks per cell (past the failures at 150)")
     ap.add_argument("--check-ticks", type=int, default=1200, help="REPS card-vs-CPU horizon")
     ap.add_argument("--zoo-check-ticks", type=int, default=300,
@@ -2899,7 +2974,7 @@ def main() -> int:
     ap.add_argument("--fleet-bench-ticks", type=int, default=100,
                     help="timed ticks per fleet per round")
     ap.add_argument("--fleet-rounds", type=int, default=2, help="interleaved rounds over B")
-    ap.add_argument("--tel-ticks", type=int, default=1100,
+    ap.add_argument("--tel-ticks", type=int, default=600,
                     help="ticks of the four full-width telemetry rows held against serial runs")
     ap.add_argument("--tel-check-ticks", type=int, default=600,
                     help="card-vs-CPU horizon of the small telemetry fleet")
@@ -2908,7 +2983,7 @@ def main() -> int:
     ap.add_argument("--tel-rounds", type=int, default=2, help="interleaved telemetry rounds")
     ap.add_argument("--sweep-fig06-ticks", type=int, default=8000,
                     help="the sweep's fig06 horizon (8000: the figure's own)")
-    ap.add_argument("--fabric-check-ticks", type=int, default=300,
+    ap.add_argument("--fabric-check-ticks", type=int, default=200,
                     help="card-vs-CPU horizon of the rail and mesh cells")
     ap.add_argument("--scale-row5-ticks", type=int, default=150,
                     help="ticks of the 10**5-connection row (card vs CPU)")
@@ -2919,11 +2994,6 @@ def main() -> int:
     ap.add_argument("--bins-steps", type=int, default=10000,
                     help="fig13/14 steps (10000: the paper scale; the Theorem 5.1 checks need "
                          ">= 4000)")
-    ap.add_argument("--soak-ticks", type=int, default=480,
-                    help="the soak grid's permutation horizon (AllReduce 2x)")
-    ap.add_argument("--soak-chunk", type=int, default=120, help="soak chunk = checkpoint cadence")
-    ap.add_argument("--soak-kill-at", type=int, default=240, help="soak preemption tick")
-    ap.add_argument("--soak-ring", type=int, default=2048, help="soak flight-ring size")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2986,17 +3056,18 @@ def main() -> int:
     for k, n in arena_cells(dev, args.arena_ticks).items():
         totals[k] += n
     phase_done("arena")
-    dense_reps = card_vs_cpu(dev, args.check_ticks)
-    zoo_card_vs_cpu(dev, args.zoo_check_ticks)
+    dense_reps = card_vs_cpu(dev, args.check_ticks, args.zoo_check_ticks)
     phase_done("card vs CPU")
     for k, n in fabric_phase(dev, fig18_card, args.fig18_check_ticks,
                              args.fabric_check_ticks).items():
         totals[k] += n
     del fig18_card
     phase_done("generated fabrics")
-    for k, n in scale_phase(dev, dense_reps, args.scale_row5_ticks, args.scale_row6_ticks,
-                            args.scale_prof_ticks).items():
-        totals[k] += n
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu_row5 = pool.apply_async(scale_row_cpu, (10**5, args.scale_row5_ticks))
+        for k, n in scale_phase(dev, dense_reps, args.scale_row5_ticks, args.scale_row6_ticks,
+                                args.scale_prof_ticks, cpu_row5).items():
+            totals[k] += n
     del dense_reps
     phase_done("scale mode")
     fleet_totals, warmed = fleet_phase(dev, args.fleet_ticks, args.fleet_check_ticks,
@@ -3010,16 +3081,17 @@ def main() -> int:
         totals[k] += n
     del warmed
     phase_done("telemetry")
-    for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=100,
-                            prof_ticks=20).items():
-        totals[k] += n
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        cpu_grids = {g: pool.apply_async(sweep_cpu_runs, (g,)) for g in ("fig04", "fig07", "zoo")}
+        for k, n in sweep_phase(dev, args.sweep_fig06_ticks, main_refs, warm=100,
+                                prof_ticks=20, cpu_grids=cpu_grids).items():
+            totals[k] += n
     del main_refs
     phase_done("sweep")
     for k, n in bins_phase(dev, args.bins_steps).items():
         totals[k] += n
     phase_done("balls into bins")
-    for k, n in soak_phase(dev, args.soak_ticks, args.soak_chunk, args.soak_kill_at,
-                           args.soak_ring).items():
+    for k, n in soak_phase(dev).items():
         totals[k] += n
     phase_done("soak")
 

@@ -16,6 +16,7 @@ Each cell's ``us_per_call`` is its wall time on the device, synchronized.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -26,7 +27,11 @@ from repro_torch.bench.common import Rows
 from repro_torch.core.balls_bins import evs_load_imbalance, simulate_ops_bins, simulate_recycled_bins
 from repro_torch.device import resolve_device
 
-NS = (8, 32, 128)
+NS = (8, 32, 128)  # fig13 / fig14 bins
+FIG16 = tuple((flows, bits) for flows in (1, 32) for bits in (4, 8, 12, 16))  # flows x EVS 2^bits
+FIG16_PORTS, FIG16_TRIALS = 32, 64
+FIG17_N, FIG17_STEPS, FIG17_RATIOS = 32, 4000, (1, 2, 4, 8)
+PARTS = ("fig13", "fig16", "fig17")
 
 
 def _timed(dev, fn):
@@ -42,46 +47,58 @@ def params(n: int) -> tuple[int, int]:
     return int(np.ceil(2.4 * np.log(n))), int(4 * np.log(n))
 
 
-def fig13(rows, steps: int, dev) -> None:
+def cells(dev, steps: int, parts=PARTS, fig16_trials=lambda m: FIG16_TRIALS) -> list:
+    """The cells of the figures in ``parts`` as ``(key, run)`` pairs, in
+    order; ``run()`` computes the cell on ``dev`` from key 0.  Keys:
+    ``("ops", n)`` and ``("rec", n)`` (fig13 / fig14, ``steps`` steps),
+    ``("evs", flows, bits)`` (fig16, ``fig16_trials(flows * 2**bits)``
+    trials), ``("c", ratio)`` and ``("ops17", n)`` (fig17)."""
     key = rng.PRNGKey(0, dev)
-    for n in NS:
-        ml, us = _timed(dev, lambda: simulate_ops_bins(key, n, 0.99, steps, device=dev))
-        ml = ml.cpu().numpy()
-        rows.add(f"fig13/ops/n{n}", us, f"max_load_end={ml[-1]};peak={ml.max()};steps={steps}")
-    for n in NS:
-        b, tau = params(n)
-        tr, us = _timed(dev, lambda: simulate_recycled_bins(key, n, b, tau, steps, device=dev))
-        rows.add(f"fig14/recycled/n{n}", us,
-                 f"max_load_end={int(tr.max_load[-1])};tau={tau};"
-                 f"frac_remember={float(tr.frac_remember[-1]):.3f}")
+    out = []
+    if "fig13" in parts:
+        out += [(("ops", n), functools.partial(simulate_ops_bins, key, n, 0.99, steps, device=dev))
+                for n in NS]
+        out += [(("rec", n), functools.partial(simulate_recycled_bins, key, n, *params(n), steps,
+                                               device=dev)) for n in NS]
+    if "fig16" in parts:
+        out += [(("evs", flows, bits), functools.partial(
+            evs_load_imbalance, key, FIG16_PORTS, 2**bits, flows, fig16_trials(flows * 2**bits),
+            device=dev)) for flows, bits in FIG16]
+    if "fig17" in parts:
+        n = FIG17_N
+        out += [(("c", ratio), functools.partial(simulate_recycled_bins, key, n, *params(n),
+                                                 FIG17_STEPS, coalesce=ratio, device=dev))
+                for ratio in FIG17_RATIOS]
+        out.append((("ops17", n), functools.partial(simulate_ops_bins, key, n, 1.0, FIG17_STEPS,
+                                                    device=dev)))
+    return out
 
 
-def fig16(rows, dev, trials: int = 64) -> None:
-    key = rng.PRNGKey(0, dev)
-    for flows in (1, 32):
-        for bits in (4, 8, 12, 16):
-            lam, us = _timed(dev, lambda: evs_load_imbalance(key, 32, 2**bits, flows, trials,
-                                                             device=dev))
-            lam = lam.cpu().numpy()
-            rows.add(f"fig16/flows{flows}/evs2^{bits}", us,
-                     f"mean_imbalance={lam.mean():.4f};p95={np.percentile(lam, 95):.4f}")
-
-
-def fig17(rows, dev, n: int = 32, steps: int = 4000) -> None:
-    key = rng.PRNGKey(0, dev)
-    b, tau = params(n)
-    for ratio in (1, 2, 4, 8):
-        tr, us = _timed(dev, lambda: simulate_recycled_bins(key, n, b, tau, steps,
-                                                            coalesce=ratio, device=dev))
-        rows.add(f"fig17/recycled_c{ratio}", us, f"max_load_end={int(tr.max_load[-1])};tau={tau}")
-    ml, us = _timed(dev, lambda: simulate_ops_bins(key, n, 1.0, steps, device=dev))
-    rows.add("fig17/ops_reference", us, f"max_load_end={int(ml[-1])}")
+def _row(key, out, steps: int) -> tuple[str, str]:
+    """A cell's row name and derived fields."""
+    kind = key[0]
+    if kind == "ops":
+        ml = out.cpu().numpy()
+        return f"fig13/ops/n{key[1]}", f"max_load_end={ml[-1]};peak={ml.max()};steps={steps}"
+    if kind == "rec":
+        return (f"fig14/recycled/n{key[1]}", f"max_load_end={int(out.max_load[-1])};"
+                f"tau={params(key[1])[1]};frac_remember={float(out.frac_remember[-1]):.3f}")
+    if kind == "evs":
+        lam = out.cpu().numpy()
+        return (f"fig16/flows{key[1]}/evs2^{key[2]}",
+                f"mean_imbalance={lam.mean():.4f};p95={np.percentile(lam, 95):.4f}")
+    if kind == "c":
+        return (f"fig17/recycled_c{key[1]}",
+                f"max_load_end={int(out.max_load[-1])};tau={params(FIG17_N)[1]}")
+    return "fig17/ops_reference", f"max_load_end={int(out[-1])}"
 
 
 def main(rows=None, full=None, smoke=None, collect=None, device=None):
     rows = rows or Rows()
     dev = resolve_device(device)
-    fig13(rows, 10000 if full else 4000, dev)
-    fig16(rows, dev)
-    fig17(rows, dev)
+    steps = 10000 if full else 4000
+    for key, run in cells(dev, steps):
+        out, us = _timed(dev, run)
+        name, derived = _row(key, out, steps)
+        rows.add(name, us, derived)
     return rows

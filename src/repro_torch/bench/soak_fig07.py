@@ -88,18 +88,15 @@ def build(cfg, ticks: int, chunk: int, ckpt_dir: str, trace: int = 0,
 
 def drive(soak: SoakRunner, chunk: int, kill_at=None, inject_spine=None, inject_at=None,
           cfg=None) -> bool:
-    """Advance to the horizon in chunks, injecting a spine failure at
-    ``inject_at`` (the run first advances to that tick, which then is a
-    chunk boundary); returns False where ``kill_at`` stopped the run (the
-    caller exits)."""
+    """Advance to the horizon in chunks, injecting a spine failure when the
+    cursor stands at ``inject_at`` (a tick that is no chunk boundary is never
+    reached, and nothing is injected, as in the reference CLI); returns False
+    where ``kill_at`` stopped the run (the caller exits)."""
     while not soak.done:
-        pending = inject_spine is not None and not soak.injections
-        if pending and soak.cursor == inject_at:
+        if inject_spine is not None and soak.cursor == inject_at and not soak.injections:
             soak.inject(failures.spine_down(cfg, inject_spine, start=inject_at))
             print(f"injected spine_down({inject_spine}) at {inject_at}")
-            pending = False
-        step = min(chunk, inject_at - soak.cursor) if pending and soak.cursor < inject_at else chunk
-        soak.advance(step)
+        soak.advance(chunk)
         if kill_at is not None and soak.cursor >= kill_at:
             return False
     return True
@@ -119,8 +116,8 @@ def main(argv=None):
     ap.add_argument("--inject-spine", type=int, default=None,
                     help="inject a spine_down delta mid-run")
     ap.add_argument("--inject-at", type=int, default=None,
-                    help="cursor tick for --inject-spine (defaults to one chunk in; the run "
-                         "advances to it first)")
+                    help="cursor tick for --inject-spine (defaults to one chunk in; must be "
+                         "a boundary the run reaches)")
     ap.add_argument("--trace", type=int, default=0,
                     help="flight-recorder ring size (0 = off): stream flight_*.npz parts "
                          "under <ckpt>/flight; the record is the same traced or not")

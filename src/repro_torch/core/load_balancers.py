@@ -905,7 +905,7 @@ class SwitchLB(LoadBalancer):
         return self._dispatch(state, lambda i, v, s: (None, v.on_timeout(s, mask, now, draw[i])))[1]
 
     def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
-        def call(i, v, s):
+        def call(i, v, s, rows=None):
             return v.step(s, [(m, e, c, d[i]) for m, e, c, d in acks], timeout_mask, send_mask,
                           (draws[0][i], draws[1][i]), now, rows)
 
@@ -914,12 +914,14 @@ class SwitchLB(LoadBalancer):
         counts = []
 
         def traced(i, v, s):
-            evs, new, c = call(i, v, s)
-            counts.append(c)
+            if not v.trace_sites:  # counts nothing: stepped untraced
+                return call(i, v, s)
+            evs, new, c = call(i, v, s, rows)
+            counts.append((i, c))
             return evs, new
 
         evs, new = self._dispatch(state, traced)
-        return evs, new, self._by_branch(state[0], counts)
+        return evs, new, self._by_branch(state[0], counts, rows, len(self.variants))
 
     @property
     def trace_sites(self):
@@ -929,14 +931,21 @@ class SwitchLB(LoadBalancer):
         # only a row's own variant changed its slot of that row, so each
         # row keeps its own variant's counts
         return self._by_branch(new[0], [
-            v.trace(site, p, n, mask, rows) for v, p, n in zip(self.variants, prev[1], new[1])])
+            (i, v.trace(site, p, n, mask, rows))
+            for i, (v, p, n) in enumerate(zip(self.variants, prev[1], new[1]))], rows,
+            len(self.variants))
 
     @staticmethod
-    def _by_branch(bidx: torch.Tensor, counts: list) -> torch.Tensor:
-        """Variant i's ``(rows, N_TRACE_KINDS)`` counts on the rows whose
-        branch index is i."""
-        out = counts[0]
-        for i, c in enumerate(counts[1:], start=1):
+    def _by_branch(bidx: torch.Tensor, counts: list, rows: int, n_variants: int) -> torch.Tensor:
+        """``(rows, N_TRACE_KINDS)`` counts: variant i's, from the ``(i,
+        counts)`` pairs, on the rows whose branch index is i, and zero on
+        the rows of a variant without a pair (one that counts nothing)."""
+        if not counts:
+            return _no_counts(rows, bidx.device)
+        (i0, out), *rest = counts
+        if len(counts) < n_variants:
+            out = out.masked_fill((bidx != i0).reshape(-1, 1), 0)
+        for i, c in rest:
             out = torch.where((bidx == i).reshape(-1, 1), c, out)
         return out
 

@@ -19,12 +19,11 @@ so a decoded recovery span equals the tracker's ``recovery_ticks``.
 
 The reference makes up to 12 conditional pushes in sequence, each a few
 ``where``s over the ring.  Here the 12 conditions of a tick are one ``(B,
-12)`` matrix; since ``ring >= 16 > 12`` no two pushes of one tick share a
-slot, so an exclusive cumsum along it gives every push its slot, and one
-``scatter_`` writes the tick, the code and the value of every push and the
-three header words.  A push that does not happen is aimed at the cursor
-word with the new cursor as its value, so every write to a repeated index
-carries the same value.  Event codes and ``CODE_NAMES`` are the
+12)`` matrix, the comparison of one ``(B, 3 * 12)`` block of every push's
+tick, code and value; since ``ring >= 16 > 12`` no two pushes of one tick
+share a slot, so a cumsum along it gives every push its slot, and one
+``scatter_`` writes the block.  A push that does not happen is aimed at the
+cursor word, which is written after it, and then the two first-edge words.  Event codes and ``CODE_NAMES`` are the
 reference's: they are serialised into flight part files.
 
     prog = TraceSpec().build(sim, ticks)
@@ -92,6 +91,8 @@ _LB_CODES = (
 assert len(_LB_CODES) == N_TRACE_KINDS
 # every push of a tick, in order: the LB kinds, then the failure edges, then MARK
 PUSH_CODES = tuple(c for _, c in _LB_CODES) + (FAIL_ACTIVE, FAIL_FIRST_DROP, FAIL_REROUTED, MARK)
+_EDGES = slice(N_TRACE_KINDS + 1, N_TRACE_KINDS + 3)  # the first-drop and re-routed pushes
+assert PUSH_CODES[_EDGES] == (FAIL_FIRST_DROP, FAIL_REROUTED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,49 +164,43 @@ class TracerProgram:
         if self._consts is None or self._consts[0].device != flat.device:
             dev = flat.device
             self._consts = (
-                # per push: the flat offsets of its tick, code and value fields
-                torch.tensor([3, 3 + R, 3 + 2 * R], dtype=torch.int64, device=dev),
-                torch.tensor(PUSH_CODES, dtype=I32, device=dev),
-                torch.arange(3, dtype=torch.int64, device=dev),
+                # (1, 3, 1): the flat offsets of the tick, code and value fields
+                torch.tensor([3, 3 + R, 3 + 2 * R], dtype=torch.int64, device=dev).view(1, 3, 1),
+                torch.tensor(PUSH_CODES, dtype=I32, device=dev)[None],
             )
-        field_base, codes, header = self._consts
-        cursor, first_drop, first_red = flat[:, 0], flat[:, 1], flat[:, 2]
+        field_base, codes = self._consts
+        marker = now % self.spec.marker_every == 0
+        P = len(PUSH_CODES) - (not marker)  # MARK, last, pushes only on marker ticks
         sd = probe.stats_delta
-        drops, deliv = sd[:, ST_DROPS_FAIL], sd[:, ST_DELIVERED]
-        dropped = drops > 0
-        # RecoveryTracker's order: this tick's first drop first, then the
-        # strict `now > first_drop` (deliveries of the drop's tick excluded)
-        new_first_drop = torch.where(dropped, first_drop.clamp(max=now), first_drop)
-        after = (deliv > 0) & (new_first_drop < now)
-        new_first_red = torch.where(after, first_red.clamp(max=now), first_red)
-        cols = [events.lb, events.fail_start[:, None], drops[:, None],
-                (now - new_first_drop)[:, None]]
-        conds = [events.lb > 0, (events.fail_start > 0)[:, None],
-                 (dropped & (first_drop >= BIG))[:, None], (after & (first_red >= BIG))[:, None]]
-        if now % self.spec.marker_every == 0:
+        # every push's tick, code and value, as one (B, 3 * P) block laid
+        # out (field, push); the values: the LB counts, the failure windows,
+        # the drops, the recovery span, and the backlog on marker ticks
+        vals = torch.cat([
+            torch.full((B, P), now, dtype=I32, device=flat.device), codes[:, :P].expand(B, P),
+            events.lb, events.fail_start[:, None], sd[:, ST_DROPS_FAIL, None],
+            now - flat[:, 1:2],
+        ] + ([probe.q_len.sum(dim=1, dtype=I32)[:, None]] if marker else []), dim=1)
+        cond = vals[:, 2 * P:] > 0
+        # RecoveryTracker's order: this tick's first drop first, then a
+        # delivery strictly after it.  A first drop of an earlier tick is
+        # < now, so `now - first_drop > 0` says it was set before this tick.
+        # First drop: a drop while none is recorded; re-routed: a delivery
+        # after it while none is recorded.
+        cond[:, _EDGES] &= flat[:, 1:3] >= BIG
+        cond[:, _EDGES] &= sd[:, ST_DROPS_FAIL:ST_DELIVERED + 1:ST_DELIVERED - ST_DROPS_FAIL] > 0
+        if marker:
             # heartbeat: only on active ticks, spaced on the absolute tick
-            active = ((sd != 0).any(dim=1) | (probe.q_len > 0).any(dim=1)
-                      | (events.lb != 0).any(dim=1))
-            cols.append(probe.q_len.sum(dim=1, dtype=I32)[:, None])
-            conds.append(active[:, None])
-        cond = torch.cat(conds, dim=1)  # (B, P): P = 12, or 11 off the marker ticks
-        value = torch.cat(cols, dim=1)
-        P = cond.shape[1]
-        c32 = cond.to(I32)
-        pos = cursor[:, None] + torch.cumsum(c32, dim=1, dtype=I32) - c32
-        new_cursor = cursor + c32.sum(dim=1, dtype=I32)
-        # (B, P, 3) flat indices of each push's tick / code / value, or 0
-        # (the cursor word, written with the new cursor) for no push
-        idx = torch.where(cond[..., None], (pos % R).long()[..., None] + field_base, 0)
-        val = torch.stack([
-            torch.full((B, P), now, dtype=I32, device=flat.device),
-            codes[:P].expand(B, P), value,
-        ], dim=-1)
-        val = torch.where(cond[..., None], val, new_cursor[:, None, None])
-        idx = torch.cat([header.expand(B, 3), idx.view(B, 3 * P)], dim=1)
-        val = torch.cat([torch.stack([new_cursor, new_first_drop, new_first_red], dim=1),
-                         val.view(B, 3 * P)], dim=1)
-        flat.scatter_(1, idx, val)
+            cond[:, P - 1] = ((sd != 0).any(dim=1) | (probe.q_len > 0).any(dim=1)
+                              | (events.lb != 0).any(dim=1))
+        # cursor + the pushes up to and including each: the new cursor last
+        ends = torch.cumsum(cond, dim=1, dtype=torch.int64) + flat[:, :1]
+        slot = (ends + (R - 1)) % R  # (cursor + the pushes before it) % R
+        # (B, 3, P) flat indices; a push that does not happen is aimed at
+        # the cursor word, which is written after the scatter
+        idx = torch.where(cond[:, None], slot[:, None] + field_base, 0)
+        flat.scatter_(1, idx.view(B, 3 * P), vals)
+        flat[:, 0] = ends[:, -1]
+        flat[:, 1:3].masked_fill_(cond[:, _EDGES], now)
         return flat
 
     # -- host side ----------------------------------------------------------
