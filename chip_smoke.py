@@ -148,12 +148,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      runner (records equal, flight parts equal array by array); a spine
      injected at 40 through ``inject`` against the same spine declared
      statically (records equal); snapshot bytes and save seconds,
-     synchronous and asynchronous.
+     synchronous and asynchronous;
+ 15. chaos — ``repro_torch.netsim.chaos`` through ``ChaosCampaign(seed=11,
+     device=cuda)`` on FATTREE_32_CI: the known-bad fixture (ECMP, half
+     the spines down for good) at 640 ticks, link flapping with a degraded
+     link (``generate(2)``) and gray loss at 0.2424 (``generate(3)``) at
+     1280 ticks, a ``SoakRunner`` each with the invariants checked at every
+     160-tick boundary; card == CPU (helper processes) on the violation
+     lists and record digests, known-bad ``{"completion"}`` exactly, exact
+     launches per scenario;
+ 16. fig15 hook — ``ForcedFreezeReps(force_at=200)`` (``RepsLB``'s
+     ``after_acks`` hook) on FATTREE_32_CI tornado traffic for 300 ticks:
+     card == CPU on every leaf before F, after F and at the horizon; every
+     connection that could enter freezing at F froze; ``reps_tick`` 300 + 1
+     launches (the ACK-only launch at F).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
-the telemetry, the sweep, the fabric, the scale, the balls-into-bins and
-the soak phases' runs; the flat
+the telemetry, the sweep, the fabric, the scale, the balls-into-bins, the
+soak, the chaos and the fig15-hook phases' runs; the flat
 ``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -2875,6 +2888,162 @@ def soak_phase(dev) -> dict:
     return totals
 
 
+# the chaos phase: tests/test_chaos.py's campaign seed (11) and three of
+# its scenarios on FATTREE_32_CI: the known-bad fixture (24-packet messages)
+# at the 640 ticks it needs to violate, link flapping with a degraded link
+# (generate(2)) and gray loss at rate 0.2424 (generate(3)), 1280 ticks each
+# at the campaign's own 64-packet messages (at the tests' 24 the traffic has
+# drained before the flapping link first goes down: no drop to recover from)
+CHAOS_SEED = 11
+CHAOS_LABELS = ("known_bad", "generate(2)", "generate(3)")
+
+
+def chaos_scenarios() -> dict:
+    from repro_torch.netsim import chaos
+
+    c = chaos.ChaosCampaign(seed=CHAOS_SEED, device="cpu")  # generate draws on the host
+    return {"known_bad": chaos.known_bad_scenario(ticks=640, chunk=160),
+            "generate(2)": c.generate(2), "generate(3)": c.generate(3)}
+
+
+def chaos_run(label: str, dev) -> dict:
+    """One chaos scenario through ``ChaosCampaign.run_scenario`` on ``dev``
+    (the CPU side in a helper process): its violations as dicts, its record,
+    the record's digest and the seconds."""
+    import torch
+
+    from repro_torch.netsim import chaos
+
+    if torch.device(dev).type == "cpu":
+        torch.set_num_threads(2)
+    c = chaos.ChaosCampaign(seed=CHAOS_SEED, device=dev)
+    t0 = time.perf_counter()
+    violations, record = c.run_scenario(chaos_scenarios()[label])
+    return {"violations": [v.to_dict() for v in violations], "record": record,
+            "digest": chaos.record_digest(record), "secs": time.perf_counter() - t0}
+
+
+def chaos_phase(dev, cpu_runs: dict) -> dict:
+    """The chaos engine (``repro_torch.netsim.chaos``) on the card: the three
+    ``CHAOS_LABELS`` scenarios through ``ChaosCampaign(device=cuda)`` (a
+    ``SoakRunner`` per scenario, invariants checked at every 160-tick chunk
+    boundary and post hoc), each against the same scenario on the CPU (in
+    helper processes beside the card): the violation lists and the record
+    digests equal; the known-bad fixture under ECMP violates with
+    ``{"completion"}`` exactly, the other two pass.  Exact kernel launches
+    per scenario (a summary sweep's per-tick counts; ``reps_tick`` only
+    where REPS runs).  Returns the launches per kernel."""
+    from repro_torch.kernels import ops
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    t_start = time.perf_counter()
+    scenarios = chaos_scenarios()
+    got = {}
+    for label in CHAOS_LABELS:
+        s = scenarios[label]
+        card, secs, counts = counted(lambda: chaos_run(label, "cuda"))
+        want = {k: n * s.ticks for k, n in SWEEP_PER_TICK.items()}
+        want["reps_tick"] = s.ticks if s.lb == "reps" else 0
+        exact_launches(f"chaos {label}", counts, want)
+        cpu = cpu_runs[label].get(timeout=900)
+        if card["violations"] != cpu["violations"]:
+            raise AssertionError(f"chaos {label}: card violations {card['violations']} != CPU "
+                                 f"{cpu['violations']}")
+        if card["digest"] != cpu["digest"] or json.dumps(card["record"], sort_keys=True) != \
+                json.dumps(cpu["record"], sort_keys=True):
+            raise AssertionError(f"chaos {label}: card record {card['digest'][:12]} != CPU "
+                                 f"{cpu['digest'][:12]}")
+        got[label] = card
+        summ = card["record"]["summaries"][s.name][0]
+        log(f"chaos {label} ({s.lb}, {s.ticks} ticks, faults "
+            f"{[(f.archetype, f.start, f.end, f.rate) for f in s.faults]}): violations "
+            f"{sorted({v['invariant'] for v in card['violations']})}; completed="
+            f"{summ['completed']}/{summ['n_conns']} drops_fail={summ['drops_fail']} "
+            f"timeouts={summ['timeouts']}; card {secs:.3f} s ({s.ticks / secs:.1f} ticks/s), CPU "
+            f"{cpu['secs']:.3f} s; card == CPU: violations and record digest "
+            f"{card['digest'][:12]}; launches={ {k: v for k, v in counts.items() if v} }")
+    bad = {v["invariant"] for v in got["known_bad"]["violations"]}
+    if bad != {"completion"}:
+        raise AssertionError(f"chaos known_bad: violations {bad}, expected {{'completion'}}")
+    for label in ("generate(2)", "generate(3)"):
+        if got[label]["violations"]:
+            raise AssertionError(f"chaos {label}: REPS violated {got[label]['violations']}")
+    log(f"chaos phase: {time.perf_counter() - t_start:.1f} s")
+    return totals
+
+
+# the fig15 hook phase: ForcedFreezeReps on FATTREE_32_CI tornado traffic
+# (96-packet messages, in flight past F), forced at F inside the horizon
+FIG15_FORCE_AT, FIG15_TICKS, FIG15_MSG_PKTS = 200, 300, 96
+
+
+def fig15_run(dev) -> dict:
+    """``ForcedFreezeReps(force_at=F)`` (``bench/fig15_forced_freezing``) on
+    ``dev``: ticks ``[0, F)``, tick F, then the rest to ``FIG15_TICKS``;
+    the SimState leaves after each part, as numpy, and the seconds."""
+    import torch
+
+    from repro_torch.bench.fig15_forced_freezing import ForcedFreezeReps
+    from repro_torch.configs import FATTREE_32_CI
+    from repro_torch.netsim import Simulator, sim_state_to_numpy, workloads
+    from repro_torch.netsim.engine import add_rows, drop_rows
+
+    on_card = torch.device(dev).type == "cuda"
+    if not on_card:
+        torch.set_num_threads(2)
+    cfg, F = FATTREE_32_CI, FIG15_FORCE_AT
+    sim = Simulator(cfg, workloads.tornado(cfg.n_hosts, FIG15_MSG_PKTS),
+                    ForcedFreezeReps(force_at=F, evs_size=cfg.evs_size), device=dev)
+    out, st, t0 = {}, sim.init_state(), time.perf_counter()
+    for part, (start, n) in (("before", (0, F)), ("at", (F, 1)),
+                             ("final", (F + 1, FIG15_TICKS - F - 1))):
+        st = drop_rows(sim.run_rows(n, add_rows(st), sim.base_key[None], t0=start)[0])
+        out[part] = sim_state_to_numpy(st)
+    out["secs"] = time.perf_counter() - t0
+    out["freezing_timeout"] = sim.lb.cfg.freezing_timeout
+    return out
+
+
+def fig15_phase(dev, cpu_run) -> dict:
+    """fig15's forced freeze through ``RepsLB``'s ``after_acks`` hook on the
+    card: card == CPU on every SimState leaf before F, after F and at the
+    horizon; every connection with ``explore_counter == 0`` before F (and
+    not leaving an earlier freeze at F) is freezing after F, until
+    ``F + freezing_timeout``; ``reps_tick`` launches once per tick and once
+    more at F (the ACK-only launch before the hook), the other kernels as
+    on any REPS tick.  Returns the launches per kernel."""
+    from repro_torch.kernels import ops
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    t_start = time.perf_counter()
+    card, secs, counts = counted(lambda: fig15_run("cuda"))
+    T, F = FIG15_TICKS, FIG15_FORCE_AT
+    want = {k: n * T for k, n in FLEET_PER_TICK.items()}
+    want["reps_tick"] = T + 1
+    exact_launches("fig15 hook", counts, want)
+    cpu = cpu_run.get(timeout=900)
+    for part in ("before", "at", "final"):
+        same_leaves(card[part], cpu[part], f"fig15 hook ({part})")
+    b, a = card["before"], card["at"]
+    leaving = b["lb_state.is_freezing"] & (F > b["lb_state.exit_freezing"])
+    can = (b["lb_state.explore_counter"] == 0) & ~leaving
+    entered = can & ~b["lb_state.is_freezing"]
+    if not entered.any() or not a["lb_state.is_freezing"][can].all() or not (
+            a["lb_state.exit_freezing"][entered] == F + card["freezing_timeout"]).all():
+        raise AssertionError(f"fig15 hook: at F={F}, {int(can.sum())} connections could freeze, "
+                             f"{int(a['lb_state.is_freezing'][can].sum())} froze")
+    log(f"fig15 hook: ForcedFreezeReps(force_at={F}) on FATTREE_32_CI tornado, {T} ticks in "
+        f"{secs:.3f} s on the card (CPU {cpu['secs']:.3f} s): card == CPU on all "
+        f"{len(card['final'])} SimState leaves before F, after F and at {T}; "
+        f"{int(can.sum())} connections with explore_counter 0 all freezing after F "
+        f"({int(entered.sum())} newly); launches={ {k: v for k, v in counts.items() if v} } "
+        f"(reps_tick {T} + 1 at F)")
+    log(f"fig15 hook phase: {time.perf_counter() - t_start:.1f} s")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -3094,6 +3263,15 @@ def main() -> int:
     for k, n in soak_phase(dev).items():
         totals[k] += n
     phase_done("soak")
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        cpu_chaos = {lbl: pool.apply_async(chaos_run, (lbl, "cpu")) for lbl in CHAOS_LABELS}
+        cpu_fig15 = pool.apply_async(fig15_run, ("cpu",))
+        for k, n in chaos_phase(dev, cpu_chaos).items():
+            totals[k] += n
+        phase_done("chaos")
+        for k, n in fig15_phase(dev, cpu_fig15).items():
+            totals[k] += n
+        phase_done("fig15 hook")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,7 @@
 """Shared helpers of the port's figure grids (counterpart of the
 reference's ``benchmarks/common.py``): ``Rows``, ``ci_cfg``, ``msg``,
-``sweep_case``, ``run_sweep``, ``sweep_rows`` and ``figure_grid``.
+``lb_for``, ``run_one``, ``sweep_case``, ``run_sweep``, ``sweep_rows``,
+``figure_grid``, ``completion_row`` and ``throughput_extra``.
 
 Rows are ``(name, us_per_call, derived)`` plus a structured record per row
 (``Rows.records``) that ``repro_torch.bench.run`` writes to its BENCH file.
@@ -19,8 +20,13 @@ fabric and MiB messages), ``BENCH_SEEDS`` (seeds per cell), ``BENCH_SMOKE``
 from __future__ import annotations
 
 import os
+import time
 
-from repro_torch.netsim import SimConfig, SweepCase, SweepEngine
+import torch
+
+from repro_torch.core import make_lb
+from repro_torch.device import resolve_device
+from repro_torch.netsim import SimConfig, Simulator, SweepCase, SweepEngine, summarize
 from repro_torch.netsim.sweep import measured_costs_from_bench
 
 COLLECTS = ("none", "summary", "full")
@@ -67,6 +73,33 @@ def ci_cfg(full: bool | None = None, **kw) -> SimConfig:
 
 def msg(pkts_ci: int, pkts_full: int, full: bool | None = None) -> int:
     return pkts_full if (full_scale() if full is None else full) else pkts_ci
+
+
+def lb_for(cfg: SimConfig, name: str, **kw):
+    return make_lb(name, evs_size=kw.pop("evs_size", cfg.evs_size), **kw)
+
+
+def run_one(cfg, wl, lb, ticks, failures=None, watch=None, seed=0, device=None):
+    """Run one scenario on one ``Simulator`` (on the card unless ``device``
+    says otherwise) and time execution only: the kernels are built, and the
+    simulator and its initial state made, before the clock starts.
+
+    Returns ``(sim, final_state, trace, summary, wall_seconds)``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+
+        build.library()
+    sim = Simulator(cfg, wl, lb, failures=failures, watch_queues=watch, seed=seed, device=dev)
+    state = sim.init_state()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()
+    st, tr = sim.run(ticks, state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    return sim, st, tr, summarize(sim, st), wall
 
 
 def sweep_case(name, wl, lbn, ticks, cfg, failures=None, watch=None, seeds=None,
@@ -210,3 +243,16 @@ class Rows:
         self.records.append({"name": name, "us_per_call": us, "derived": derived,
                              **self.context, **extra})
         print(f"{name},{us:.0f},{derived}", flush=True)
+
+
+def throughput_extra(ticks: int | None, n_runs: int, wall: float) -> dict:
+    """Structured throughput fields of a row (the one definition of
+    ticks_per_sec: ticks of every run over the execution wall)."""
+    if not ticks:
+        return {}
+    return {"ticks": ticks, "n_runs": n_runs, "ticks_per_sec": (ticks * n_runs) / max(wall, 1e-9)}
+
+
+def completion_row(rows: Rows, tag: str, s, wall: float, ticks: int | None = None,
+                   n_runs: int = 1):
+    rows.add(tag, wall * 1e6, completion_fmt(s), **throughput_extra(ticks, n_runs, wall))

@@ -5,6 +5,7 @@
     python -m repro_torch.bench.run --only fig06 --full            # paper scale
     python -m repro_torch.bench.run --only scale --scale-conns 1000000 --scale-ticks 1000
     python -m repro_torch.bench.run --only bins --full             # fig13/14, fig16, fig17
+    python -m repro_torch.bench.run --only fig18 --full            # one Simulator per cell
 
 Prints ``name,us_per_call,derived`` CSV rows and merges them into
 ``build/repro_torch/BENCH_torch.json`` (``--out`` to write elsewhere): the
@@ -28,15 +29,23 @@ import time
 
 from repro_torch.bench import common
 
-MODULES = [
+MODULES = [  # the reference's order (benchmarks/run.py); bins holds its fig13, fig16, fig17
+    "bins",
+    "fig01_tornado_micro",
     "fig03_asym_micro",
     "fig05_background",
     "fig06_failures_micro",
+    "fig09_fpga_analogue",
+    "fig15_forced_freezing",
+    "fig18_three_tier",
+    "fig11_ack_coalescing",
+    "fig12_evs_cc",
     "fig04_asym_macro",
     "fig07_failures_macro",
     "fig08_extreme",
+    "fig19_incremental",
     "fig02_symmetric",
-    "bins",
+    "arena",
 ]
 SCALE_MODULES = ["scale_smoke", "table1_footprint"]  # run only when --only names them
 

@@ -258,9 +258,20 @@ class RepsLB(LoadBalancer):
     ``choose_ev`` called alone, on a CUDA device; the kernel's plain
     version on the CPU.  The state's device alone decides.  The kernel is
     compiled for the paper's 8-deep ring, so on a CUDA device another
-    ``buffer_size`` raises."""
+    ``buffer_size`` raises.
+
+    ``step`` never calls ``on_ack``, so a subclass changes what happens
+    after the ACKs through a hook instead: ``after_acks(state, now) ->
+    state`` runs once after the tick's ACK rounds and before its timeouts
+    and sends, at the ticks where ``after_acks_at(now)`` holds (every tick
+    by default).  Such a tick takes an ACK-only launch, the hook, and the
+    launch of the timeouts and sends; every other tick stays one launch.
+    A subclass that overrides ``on_ack`` without defining the hook raises
+    ``TypeError`` at construction, since the override would be silently
+    ignored."""
 
     name = "reps"
+    after_acks = None  # subclass hook: (state, now) -> state, see above
 
     def __init__(
         self,
@@ -270,6 +281,13 @@ class RepsLB(LoadBalancer):
         freezing_timeout: int = 1024,
         enable_freezing: bool = True,
     ):
+        cls = type(self)
+        if cls.on_ack is not RepsLB.on_ack and cls.after_acks is None:
+            raise TypeError(
+                f"{cls.__name__} overrides on_ack, which RepsLB.step (one fused "
+                "reps_tick launch per tick) never calls; define the hook "
+                "after_acks(state, now) (and after_acks_at(now)) instead"
+            )
         super().__init__(evs_size)
         self.cfg = reps_core.REPSConfig(
             buffer_size=buffer_size,
@@ -341,13 +359,20 @@ class RepsLB(LoadBalancer):
             return state
         return self._tick(state, now, timeout_mask=mask)[0]
 
+    def after_acks_at(self, now: int) -> bool:
+        """Whether the ``after_acks`` hook acts at tick ``now``."""
+        return True
+
     def step(self, state, acks, timeout_mask, send_mask, draws, now, rows=None):
         rounds = [tuple(a[:3]) for a in acks]
-        # more rounds than one launch takes: ACK-only launches first (the
-        # ACK site counts nothing)
-        while len(rounds) > MAX_ROUNDS:
+        hooked = self.after_acks is not None and self.after_acks_at(now)
+        # more rounds than one launch takes, or a hook between the ACKs and
+        # the rest: ACK-only launches first (the ACK site counts nothing)
+        while len(rounds) > (0 if hooked else MAX_ROUNDS):
             head, rounds = rounds[:MAX_ROUNDS], rounds[MAX_ROUNDS:]
             state = self._tick(state, now, *zip(*head))[0]
+        if hooked:
+            state = self.after_acks(state, now)
         masks, ack_evs, ecns = zip(*rounds) if rounds else ((), (), ())
         state, evs, *counts = self._tick(
             state, now, masks, ack_evs, ecns,

@@ -1,5 +1,9 @@
 from repro_torch.netsim import (
-    failures, interop, metrics, soak, sweep, telemetry, tracer, workloads,
+    chaos, failures, interop, metrics, soak, sweep, telemetry, tracer, workloads,
+)
+from repro_torch.netsim.chaos import (
+    ARCHETYPES, ChaosCampaign, ChaosFault, ChaosInvariants, ChaosScenario, InvariantMonitor,
+    Violation, known_bad_scenario, record_digest, scenario_record,
 )
 from repro_torch.netsim.config import TICK_NS, SimConfig, ns_to_ticks, us_to_ticks
 from repro_torch.netsim.engine import (
@@ -23,7 +27,7 @@ from repro_torch.netsim.topology import Topology, ecmp_hash, ecmp_hash_np, mix32
 from repro_torch.netsim.tracer import TracerProgram, TraceSpec
 
 __all__ = [
-    "failures", "interop", "metrics", "soak", "sweep", "telemetry", "tracer", "workloads",
+    "chaos", "failures", "interop", "metrics", "soak", "sweep", "telemetry", "tracer", "workloads",
     "TICK_NS", "SimConfig", "ns_to_ticks", "us_to_ticks",
     "FailureSchedule", "Probe", "ScenarioArrays", "SimState", "Simulator", "TickDraws",
     "TickEvents", "TickTrace", "Workload", "stack_scenarios",
@@ -36,5 +40,7 @@ __all__ = [
     "CounterTotals", "Histogram", "RecoveryTracker", "RunningScalars",
     "TelemetryProgram", "TelemetrySpec", "WindowedSeries",
     "sketch_bin_index", "sketch_percentile",
+    "ARCHETYPES", "ChaosCampaign", "ChaosFault", "ChaosInvariants", "ChaosScenario",
+    "InvariantMonitor", "Violation", "known_bad_scenario", "record_digest", "scenario_record",
     "Topology", "ecmp_hash", "ecmp_hash_np", "mix32", "TracerProgram", "TraceSpec",
 ]
