@@ -161,12 +161,30 @@ Phases, in order; any failure exits non-zero and prints no result:
      ``after_acks`` hook) on FATTREE_32_CI tornado traffic for 300 ticks:
      card == CPU on every leaf before F, after F and at the horizon; every
      connection that could enter freezing at F froze; ``reps_tick`` 300 + 1
-     launches (the ACK-only launch at F).
+     launches (the ACK-only launch at F);
+ 17. channels — ``repro_torch.ft``'s REPS channel scheduler (its state and
+     key on the card) through ``bench/reps_channels_bench``'s three
+     scenarios (healthy, 6 of 16 channels failed, 4 degraded; 256 chunks in
+     rounds of 32), card == CPU (a helper process) on every ``ReduceReport``
+     field, state leaf and the key; no kernel launched;
+ 18. serve — the transformer serving path (``repro_torch.launch.serve``,
+     ``make_serve_steps`` over ``repro_torch.models``): gemma3-4b at full
+     width and depth (34 layers, d_model 2560, vocab 262144, bf16) through
+     the serve CLI's defaults (init, 4 x 32 prefill, 16 greedy steps), then
+     warm prefill at 4 x 32 and 1 x 2304 (past the 1024 window and chunk)
+     and decode tokens/s, decode against the full forward at both (rel <
+     0.03 in float32 over a float32 cache; logged over the bf16 cache),
+     every logit finite, profiled prefill and decode windows, the prompts
+     and the embedding's chunked draw against the CPU's, peak memory; then
+     the six reduced transformer archs card vs CPU (init, forward, float32
+     and bfloat16 prefill and decode steps, within the tests' tolerances);
+     no kernel launched.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
 the telemetry, the sweep, the fabric, the scale, the balls-into-bins, the
-soak, the chaos and the fig15-hook phases' runs; the flat
+soak, the chaos and the fig15-hook phases' runs, and the channels and
+serve phases', which launch none; the flat
 ``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -1539,10 +1557,11 @@ KERNEL_KEYS = (("seg_sum", "seg_sum"), ("seg_rank_", "seg_rank"),
                ("ecmp_hash_kernel", "ecmp_hash"), ("next_queue_kernel", "next_queue"))
 
 
-def profile_ticks(label: str, step, ticks: int) -> None:
+def profile_ticks(label: str, step, ticks: int, unit: str = "tick") -> None:
     """``step(i)`` for ``i < ticks`` under ``torch.profiler``: wall time per
-    tick, the device's busy share, device launches per tick, and the port's
-    kernels' device time per launch inside the real tick."""
+    tick (or other ``unit`` of work), the device's busy share, device
+    launches per tick, and the port's kernels' device time per launch inside
+    the real tick."""
     import collections
 
     import torch
@@ -1571,16 +1590,16 @@ def profile_ticks(label: str, step, ticks: int) -> None:
         if durs:
             ours[tag] = (len(durs) / ticks, statistics.median(durs), sum(durs) / ticks)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
-    log(f"profile ({label}): {wall_us / ticks:.1f} us wall per tick "
-        f"(profiler on), device busy {busy_us / ticks:.1f} us per tick = "
+    log(f"profile ({label}): {wall_us / ticks:.1f} us wall per {unit} "
+        f"(profiler on), device busy {busy_us / ticks:.1f} us per {unit} = "
         f"{100 * busy_us / wall_us:.2f} % busy, {len(dev_events) / ticks:.1f} device "
-        f"launches per tick")
+        f"launches per {unit}")
     for tag, (per_tick, med, tot) in ours.items():
-        log(f"profile ({label}): {tag}: {per_tick:.1f} launches per tick, median {med:.2f} us "
-            f"device per launch, {tot:.2f} us per tick")
+        log(f"profile ({label}): {tag}: {per_tick:.1f} launches per {unit}, median {med:.2f} us "
+            f"device per launch, {tot:.2f} us per {unit}")
     for name, durs in top:
-        log(f"profile top ({label}): {sum(durs) / ticks:8.2f} us/tick {len(durs) / ticks:5.1f}x  "
-            f"{name[:90]}")
+        log(f"profile top ({label}): {sum(durs) / ticks:8.2f} us/{unit} "
+            f"{len(durs) / ticks:5.1f}x  {name[:90]}")
 
 
 def fig18_cell(device):
@@ -1962,6 +1981,7 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
     ``run_summary`` against ``run_rows`` (``run``'s body) at B = 1 and 64,
     both resumed at the fleet phase's warmed rows, interleaved rounds.
     Returns the launches per kernel."""
+    import bisect
     import collections
 
     import torch
@@ -2080,21 +2100,41 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
                 bench(B, summary, prof_ticks, carry)
                 torch.cuda.synchronize()
             per = collections.Counter()
-            d2h = syncs = ends = 0
-            for e in prof.events():
+            cpu = torch.autograd.DeviceType.CPU
+            d2h = ends = 0
+            inside = []
+            events = prof.events()
+            ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                            if e.name == TICK_RANGE and e.device_type == cpu)
+            starts_at = [lo for lo, _ in ranges]
+
+            def in_tick(t):
+                i = bisect.bisect_right(starts_at, t) - 1
+                return i >= 0 and t < ranges[i][1]
+
+            for e in events:
                 d2h += "DtoH" in e.name or "DeviceToHost" in e.name
                 if "Synchronize" in e.name:
                     # the window's closing synchronize and the profiler's own
-                    # are top-level device synchronizes; a tick's would be a
-                    # stream synchronize inside an op (a blocking copy)
-                    top = e.cpu_parent is None and e.name == "cudaDeviceSynchronize"
-                    ends += top
-                    syncs += not top
+                    # are device synchronizes that begin after the last tick's
+                    # range; a tick's would be a stream synchronize (a blocking
+                    # copy) or any synchronize begun inside a tick's range.
+                    # Placed on the host's timeline: the profiler's nesting of
+                    # runtime calls under other events is not reliable
+                    if e.name == "cudaDeviceSynchronize" and not in_tick(e.time_range.start):
+                        ends += 1
+                    else:
+                        inside.append(e)
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name != TICK_RANGE:
                     per[e.name] += 1
-            if d2h or syncs:
+            if d2h or inside:
+                last = ranges[-1][1] if ranges else 0.0
+                seen = "; ".join(
+                    f"{e.name} at {e.time_range.start - last:+.1f} us from the last tick's end "
+                    f"(parent {e.cpu_parent.name if e.cpu_parent is not None else None})"
+                    for e in inside)
                 raise AssertionError(f"B={B} summary={summary}: {d2h} device-to-host copies and "
-                                     f"{syncs} synchronizes inside ops in {prof_ticks} ticks")
+                                     f"{len(inside)} synchronizes in {prof_ticks} ticks: {seen}")
             rows = launches_per_tick(prof)
             total, held = collections.Counter(r.total() for r in rows).most_common(1)[0]
             if len(rows) != prof_ticks or not total or 2 * held <= prof_ticks:
@@ -2108,8 +2148,9 @@ def telemetry_phase(dev, ticks: int, check_ticks: int, bench_ticks: int, rounds:
             log(f"launches B={B} {'run_summary' if summary else 'run'}: "
                 f"{total} launches in {held} of {prof_ticks} ticks (the device trace holds "
                 f"{sum(per.values()) / prof_ticks:.2f} per tick; the typical tick's port "
-                f"kernels {ours:g}); {d2h} device-to-host copies, {syncs} synchronizes inside "
-                f"ops ({ends} top-level device synchronizes: the window's end, the profiler's)")
+                f"kernels {ours:g}); {d2h} device-to-host copies, {len(inside)} synchronizes "
+                f"inside ticks ({ends} device synchronizes after the last tick: the window's end, the "
+                f"profiler's)")
     extra = {}
     for B in Bs:
         (n_off, off), (n_on, on) = typical[B, False], typical[B, True]
@@ -3044,6 +3085,305 @@ def fig15_phase(dev, cpu_run) -> dict:
     return totals
 
 
+# the channels phase: benchmarks/reps_channels_bench.py's three scenarios
+# (256 chunks in rounds of 32 over 16 channels) under the REPS scheduler
+def channels_run(dev) -> dict:
+    """``bench/reps_channels_bench``'s scenarios under REPS on ``dev`` (the
+    CPU side in a helper process): per scenario the ``ReduceReport`` as a
+    dict, the scheduler's state leaves and key as numpy, its rounds and
+    the seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.bench import reps_channels_bench as rcb
+    from repro_torch.core.reps import FIELDS
+
+    if torch.device(dev).type == "cpu":
+        torch.set_num_threads(2)
+    out = {}
+    for name, _ in rcb.SCENARIOS:
+        rep, sched, secs = rcb.run_scenario(name, "reps", dev)
+        out[name] = {"report": dataclasses.asdict(rep), "secs": secs,
+                     "state": {f: getattr(sched.state, f).cpu().numpy() for f in FIELDS},
+                     "key": sched.key.cpu().numpy(), "round_idx": sched.round_idx}
+    return out
+
+
+def channels_phase(dev, cpu_run) -> dict:
+    """The REPS channel scheduler (``repro_torch.ft``) with its state and
+    key on the card against the same scenarios on the CPU (a helper
+    process): every ``ReduceReport`` field, every state leaf and the key
+    equal; no kernel launched (the scheduler is ``core.reps``' tensor code,
+    one chunk at a time).  Returns the launches per kernel (none)."""
+    from repro_torch.kernels import ops
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    t_start = time.perf_counter()
+    card, secs, counts = counted(lambda: channels_run(dev))
+    exact_launches("channels", counts, {})
+    cpu = cpu_run.get(timeout=600)
+    for name, c in card.items():
+        w = cpu[name]
+        if c["report"] != w["report"] or c["round_idx"] != w["round_idx"]:
+            raise AssertionError(f"channels {name}: card report {c['report']} != CPU {w['report']}")
+        same_leaves({**c["state"], "key": c["key"]}, {**w["state"], "key": w["key"]},
+                    f"channels {name}")
+        r = c["report"]
+        chunks = 256 + r["timeouts"]
+        log(f"channels {name}/reps: rounds={r['rounds']} makespan_us="
+            f"{r['total_latency_us']:.0f} p99_us={r['p99_chunk_latency_us']:.0f} timeouts="
+            f"{r['timeouts']} ecn={r['ecn_marked']}; card {c['secs']:.3f} s "
+            f"({chunks / c['secs']:.1f} chunks/s), CPU {w['secs']:.3f} s; card == CPU on the "
+            f"report, all {len(c['state'])} state leaves and the key")
+    log(f"channels phase: {time.perf_counter() - t_start:.1f} s (card runs {secs:.1f} s; "
+        f"no kernel launched)")
+    return totals
+
+
+# the serve phase: the six transformer archs the port builds, at reduced();
+# a prompt past reduced gemma3's 64-token window, then decode steps; the
+# tolerances (max|d| / max|ref|) of tests/test_torch_serve.py
+SERVE_ARCHS = ("gemma3-4b", "gemma-7b", "mistral-nemo-12b", "qwen1.5-4b", "musicgen-large",
+               "llava-next-mistral-7b")
+SERVE_B, SERVE_P, SERVE_GEN = 2, 80, 3
+SERVE_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+SERVE_CACHE_TOL = {"fp32": 2.0**-7, "bf16": 3e-2}
+SERVE_INIT_TOL = 1e-5
+# gemma3-4b at full size: the serve CLI's defaults, then one long prompt
+# past the 1024-token window and the 1024-key chunk
+SERVE_LONG = 2304
+
+
+def rel_err(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def serve_reduced_runs(dev, carry=None) -> dict:
+    """Per arch of ``SERVE_ARCHS`` at ``reduced()`` on ``dev``: the
+    ``init_params(PRNGKey(0))`` leaves, the float32 ``forward`` logits of
+    ``randint(PRNGKey(2), (B, P + GEN))``, and for the float32 model steps
+    and the bfloat16 serve steps the logits and the cache after the prefill
+    and after each decode step, all as float32 numpy.  With ``carry`` (the
+    CPU's result) each decode step starts from the CPU's cache: a bfloat16
+    element that rounds the other way moves the next step by more than the
+    matmuls' own rounding."""
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import tree_flatten_with_path
+
+    if torch.device(dev).type == "cpu":
+        torch.set_num_threads(2)
+    np_ = lambda t: t.float().cpu().numpy()
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = reduced(get_config(arch))
+        m = build_model(cfg)
+        params = m.init_params(rng.PRNGKey(0, device=dev))
+        toks = rng.randint(rng.PRNGKey(2, device=dev), (SERVE_B, SERVE_P + SERVE_GEN), 0,
+                           cfg.vocab)
+        r = {"params": {k: np_(v) for k, v in tree_flatten_with_path(params).items()},
+             "forward": np_(transformer.forward(params, cfg, {"tokens": toks})[0])}
+        fp32 = (m.prefill_fn, lambda p, c, t, n: (*m.decode_fn(p, c, t, n), n + 1))
+        for mode, (prefill, decode) in (("fp32", fp32), ("bf16", make_serve_steps(m))):
+            logits, cache, n = prefill(params, {"tokens": toks[:, :SERVE_P]},
+                                       SERVE_P + SERVE_GEN + 1)
+            steps = [(np_(logits), {k: np_(v) for k, v in cache.items()})]
+            for i in range(SERVE_GEN):
+                if carry is not None:
+                    cache = {k: torch.from_numpy(v).to(dev, torch.bfloat16)
+                             for k, v in carry[arch][mode][i][1].items()}
+                t = SERVE_P + i
+                logits, cache, n = decode(params, cache, toks[:, t:t + 1], n)
+                steps.append((np_(logits), {k: np_(v) for k, v in cache.items()}))
+            if int(n) != SERVE_P + SERVE_GEN:
+                raise AssertionError(f"serve {arch} {mode}: cache_len {int(n)}")
+            r[mode] = steps
+        out[arch] = r
+    return out
+
+
+def serve_reduced_check(card: dict, cpu: dict) -> None:
+    """Card against CPU for every arch: init leaves within
+    ``SERVE_INIT_TOL``, forward and per-step logits within ``SERVE_TOL``,
+    caches within ``SERVE_CACHE_TOL``, everything finite."""
+    import numpy as np
+
+    for arch, c in card.items():
+        w = cpu[arch]
+        init = max(rel_err(c["params"][k], w["params"][k]) if np.abs(w["params"][k]).max() else
+                   float(np.abs(c["params"][k]).max()) for k in w["params"])
+        worst = {"forward": rel_err(c["forward"], w["forward"])}
+        for mode in ("fp32", "bf16"):
+            worst[mode] = max(rel_err(g[0], h[0]) for g, h in zip(c[mode], w[mode]))
+            worst[mode + " cache"] = max(rel_err(g[1][k], h[1][k]) for g, h in
+                                         zip(c[mode], w[mode]) for k in ("k", "v"))
+        finite = np.isfinite(c["forward"]).all() and all(
+            np.isfinite(s[0]).all() for mode in ("fp32", "bf16") for s in c[mode])
+        tol = {"forward": SERVE_TOL["fp32"], "fp32": SERVE_TOL["fp32"],
+               "bf16": SERVE_TOL["bf16"], "fp32 cache": SERVE_CACHE_TOL["fp32"],
+               "bf16 cache": SERVE_CACHE_TOL["bf16"]}
+        if not finite or init > SERVE_INIT_TOL or any(worst[k] > tol[k] for k in tol):
+            raise AssertionError(f"serve {arch}: card vs CPU init {init:.3e}, {worst} "
+                                 f"(tolerances {tol}), finite={finite}")
+        log(f"serve {arch} (reduced): card vs CPU: init {init:.2e} (<= {SERVE_INIT_TOL}); "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f" (prefill {SERVE_P} + {SERVE_GEN} decode steps; tolerances {tol})")
+
+
+def serve_phase(dev, cpu_run, smi: str) -> dict:
+    """The transformer serving path (``repro_torch.launch.serve``,
+    ``make_serve_steps`` over ``repro_torch.models``).  gemma3-4b at full
+    width and depth through the serve CLI's defaults (init from PRNGKey(0)
+    in bfloat16, 4 x 32 prompts, 16 greedy steps: init seconds, the first
+    prefill and decode); then warm: the same greedy run again (the same
+    tokens; decode tokens/s), prefill at 4 x 32 and 1 x 2304 (CUDA events;
+    2304 is past the 1024-token window and the 1024-key chunk, so a query's
+    first chunk is wholly masked), decode against the full forward at both
+    (rel < 0.03 with float32 params over a float32 KV cache; logged over
+    the bf16 cache, for float32 params and for the bf16 serve steps; every
+    logit finite), the prompts
+    and the embedding's threefry draw at a chunk boundary against the
+    CPU's, peak device memory.  Then the six reduced archs card vs CPU
+    (``serve_reduced_check``; the CPU side from a helper process).  No port
+    kernel is launched.  Returns the launches per kernel (none)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import tree_flatten_with_path
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    t_start = time.perf_counter()
+
+    def cli():
+        torch.cuda.reset_peak_memory_stats()
+        run = serve.main([])  # the CLI's defaults: gemma3-4b, 4 x 32, 16 steps, on the card
+        torch.cuda.synchronize()
+        run["peak"] = torch.cuda.max_memory_allocated()
+        return run
+
+    run, secs, counts = counted(cli)
+    exact_launches("serve CLI", counts, {})
+    cfg, model, params = run["cfg"], run["model"], run["params"]
+    n_params = sum(t.numel() for t in tree_flatten_with_path(params).values())
+    B, P, G = run["tokens"].shape[0], run["prompts"].shape[1], run["tokens"].shape[1]
+    log(f"serve {cfg.name} full ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params} parameters in bf16) through the CLI: init "
+        f"{run['init_s']:.3f} s; first prefill {B}x{P} {run['prefill_s'] * 1e3:.1f} ms; "
+        f"{G - 1} decode steps {run['decode_s'] * 1e3:.1f} ms "
+        f"({(G - 1) * B / run['decode_s']:.1f} tok/s); peak memory "
+        f"{run['peak'] / 2**30:.3f} GiB; sample {run['tokens'][0][:12].tolist()}; {secs:.1f} s")
+
+    def checks():
+        out = {}
+        if not torch.equal(run["prompts"].cpu(),
+                           rng.randint(rng.PRNGKey(1, device="cpu"), (B, P), 0, cfg.vocab)):
+            raise AssertionError("serve: the card's prompts differ from the CPU's draw")
+        # the embedding (671 M values, drawn in chunks of INIT_CHUNK) across
+        # its first chunk boundary, against the CPU's draw of those elements
+        ks = common.split_keys(rng.PRNGKey(0, device="cpu"), cfg.n_layers + 3)
+        s0, n = common.INIT_CHUNK - 4096, 8192
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(cfg.d_model)))
+        want = (rng.normal(ks[-3], (n,), start=s0) * scale).to(torch.bfloat16).float()
+        got = params["embed"].reshape(-1)[s0:s0 + n].float().cpu()
+        out["init_err"] = rel_err(got.numpy(), want.numpy())
+        out["init_equal"] = int((got == want).sum())
+        if out["init_err"] > 2.0**-7:  # one bfloat16 step: erfinv on the card is not the CPU's
+            raise AssertionError(f"serve: embedding draw at {s0} differs from the CPU's "
+                                 f"(rel {out['init_err']})")
+        torch.cuda.reset_peak_memory_stats()
+        gen, out["prefill_warm_s"], out["decode_warm_s"] = serve.generate(
+            model, params, run["prompts"], G)
+        if not torch.equal(gen, run["tokens"]):
+            raise AssertionError("serve: a second greedy run gave other tokens")
+        # where a serve step's time goes: 3 prefills at 4 x 32, 8 decode steps
+        prefill_step, decode_step = make_serve_steps(model)
+        profile_ticks(f"{cfg.name} prefill {B}x{P}", lambda i: prefill_step(
+            params, {"tokens": run["prompts"]}, P + G), 3, unit="prefill")
+        _, cache, n = prefill_step(params, {"tokens": run["prompts"]}, P + 9)
+        carry = [cache, n]
+
+        def decode_one(i):
+            _, carry[0], carry[1] = decode_step(params, carry[0], run["tokens"][:, i:i + 1],
+                                                carry[1])
+
+        profile_ticks(f"{cfg.name} decode, batch {B}", decode_one, 8, unit="step")
+        del cache, carry
+        prefill_bf16 = make_serve_steps(model)[0]
+        params32 = common.cast_tree(params, torch.float32)  # the reference test's dtype
+        # decode against the full forward: the bf16 serve steps and float32
+        # params over the bf16 cache (logged: at 34 layers the cache's
+        # rounding alone moves the logits past 0.03, in the reference too),
+        # and float32 params over a float32 cache (held: the decode path
+        # computes what the forward computes)
+        modes = (("bf16", params, torch.bfloat16), ("fp32", params32, torch.bfloat16),
+                 ("fp32 cache", params32, torch.float32))
+        long = rng.randint(rng.PRNGKey(3, device=dev), (1, SERVE_LONG), 0, cfg.vocab)
+        for label, toks in ((f"{B}x{P}", run["prompts"]), (f"1x{SERVE_LONG}", long)):
+            S = toks.shape[1]
+            out["ms " + label] = eager_ms(
+                lambda: prefill_bf16(params, {"tokens": toks}, S + 1), reps=3, inner=1)
+            for mode, p, cache_dtype in modes:
+                full, _ = transformer.forward(p, cfg, {"tokens": toks})
+                pl, cache, n = transformer.prefill(p, cfg, {"tokens": toks[:, :S - 1]}, S + 1,
+                                                   cache_dtype=cache_dtype)
+                ld, _ = transformer.decode_step(p, cfg, cache, toks[:, S - 1:S], n)
+                if not bool(torch.isfinite(full).all() and torch.isfinite(pl).all()
+                            and torch.isfinite(ld).all()):
+                    raise AssertionError(f"serve {label} {mode}: logits not finite")
+                ref, got = full[:, S - 1].float(), ld[:, 0].float()
+                out[f"rel {mode} {label}"] = float((ref - got).abs().max()
+                                                   / (ref.abs().max() + 1e-9))
+                del full, pl, cache, ld
+            if not out[f"rel fp32 cache {label}"] < 0.03:
+                raise AssertionError(f"serve {label}: decode (float32 cache) vs full forward "
+                                     f"rel {out[f'rel fp32 cache {label}']} (>= 0.03)")
+        del params32
+        torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    out, secs, counts = counted(checks)
+    exact_launches("serve checks", counts, {})
+    long = f"1x{SERVE_LONG}"
+    log(f"serve {cfg.name} full on {smi}: init {run['init_s']:.3f} s; prefill {B}x{P} "
+        f"{out[f'ms {B}x{P}']:.3f} ms, {long} {out['ms ' + long]:.3f} ms (warm; CUDA events, "
+        f"median of 3); decode {(G - 1) * B / out['decode_warm_s']:.1f} tok/s at batch {B} "
+        f"({G - 1} steps in {out['decode_warm_s'] * 1e3:.1f} ms, warm; tokens == the CLI's); "
+        f"peak memory {run['peak'] / 2**30:.3f} GiB in the CLI, {out['peak'] / 2**30:.3f} GiB "
+        f"in the checks (float32 params and the {long} forward's full logits); decode vs "
+        f"full forward rel at {B}x{P} / {long}: float32 params over a float32 cache "
+        f"{out[f'rel fp32 cache {B}x{P}']:.3e} / {out['rel fp32 cache ' + long]:.3e} (< 0.03); "
+        f"over the bf16 cache (logged): float32 params {out[f'rel fp32 {B}x{P}']:.4f} / "
+        f"{out['rel fp32 ' + long]:.4f}, bf16 serve steps {out[f'rel bf16 {B}x{P}']:.4f} / "
+        f"{out['rel bf16 ' + long]:.4f}; logits finite; embedding draw across its first "
+        f"chunk boundary vs the CPU: "
+        f"rel {out['init_err']:.2e}, {out['init_equal']} of 8192 equal; {secs:.1f} s")
+    del run, params, model
+
+    cpu = cpu_run.get(timeout=600)
+    card, secs, counts = counted(lambda: serve_reduced_runs(dev, carry=cpu))
+    exact_launches("serve reduced", counts, {})
+    serve_reduced_check(card, cpu)
+    log(f"serve phase: {time.perf_counter() - t_start:.1f} s (reduced archs on the card "
+        f"{secs:.1f} s)")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -3272,6 +3612,15 @@ def main() -> int:
         for k, n in fig15_phase(dev, cpu_fig15).items():
             totals[k] += n
         phase_done("fig15 hook")
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        cpu_channels = pool.apply_async(channels_run, ("cpu",))
+        cpu_serve = pool.apply_async(serve_reduced_runs, ("cpu",))
+        for k, n in channels_phase(dev, cpu_channels).items():
+            totals[k] += n
+        phase_done("channels")
+        for k, n in serve_phase(dev, cpu_serve, smi).items():
+            totals[k] += n
+        phase_done("serve")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

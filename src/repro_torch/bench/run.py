@@ -6,6 +6,7 @@
     python -m repro_torch.bench.run --only scale --scale-conns 1000000 --scale-ticks 1000
     python -m repro_torch.bench.run --only bins --full             # fig13/14, fig16, fig17
     python -m repro_torch.bench.run --only fig18 --full            # one Simulator per cell
+    python -m repro_torch.bench.run --only reps_channels           # ft/'s channel scheduler
 
 Prints ``name,us_per_call,derived`` CSV rows and merges them into
 ``build/repro_torch/BENCH_torch.json`` (``--out`` to write elsewhere): the
@@ -46,6 +47,7 @@ MODULES = [  # the reference's order (benchmarks/run.py); bins holds its fig13, 
     "fig19_incremental",
     "fig02_symmetric",
     "arena",
+    "reps_channels_bench",
 ]
 SCALE_MODULES = ["scale_smoke", "table1_footprint"]  # run only when --only names them
 

@@ -1,0 +1,12 @@
+"""Mistral-Nemo-12B [hf:mistralai/Mistral-Nemo-Base-2407].
+
+40L d_model=5120 32H (GQA kv=8, head_dim=128) d_ff=14336 vocab=131072,
+SwiGLU, RoPE theta=1e6, 128k context (full attention)."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab=131072, act="swiglu", rope_theta=1e6,
+    tie_embeddings=False, attn_strategy="heads",
+))

@@ -1,0 +1,76 @@
+"""Shared model components: norms, RoPE, initializers, dtype policy
+(counterpart of ``repro.models.common``)."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import rng
+from repro_torch.tree import tree_map_with_path
+
+# elements per threefry draw in dense_init: a chunk's int64 temporaries stay
+# near 1 GiB on the card (gemma3-4b's embedding is 671 M values)
+INIT_CHUNK = 1 << 24
+
+
+def rms_norm(x, w, *, eps: float = 1e-6, plus_one: bool = False):
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (y * scale).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd) or (..., S, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    ang = positions[..., None].float() * freqs  # (..., S, hd/2)
+    while ang.ndim < x.ndim - 1:  # align S with x's seq axis (-3), broadcast heads
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(key, shape, in_axis_size=None, dtype=torch.float32):
+    """``normal(key, shape) / sqrt(fan_in)`` cast to ``dtype``, on the key's
+    device, drawn in chunks of ``INIT_CHUNK`` elements of the flat index
+    (the same values as one draw)."""
+    shape = tuple(shape)
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
+    out = torch.empty(shape, dtype=dtype, device=key.device)
+    flat = out.view(-1)
+    n = math.prod(shape)
+    for s in range(0, n, INIT_CHUNK):
+        m = min(INIT_CHUNK, n - s)
+        flat[s:s + m] = (rng.normal(key, (m,), start=s) * scale).to(dtype)
+    return out
+
+
+def split_keys(key, n):
+    return list(rng.split(key, n))
+
+
+def cast_tree(tree, dtype):
+    return tree_map_with_path(
+        lambda _, x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def act_fn(name: str):
+    if name in ("swiglu", "rwkv_ffn"):
+        return F.silu
+    if name == "geglu":  # jax.nn.gelu's default is the tanh form
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)

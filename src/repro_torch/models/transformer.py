@@ -1,0 +1,207 @@
+"""Decoder-only transformer assembly (counterpart of
+``repro.models.transformer``) for the dense, audio-stub and vision-stub
+families.
+
+Parameters are nested dicts of tensors; the layers' leaves are stacked
+along a leading L axis, as the reference stacks them for its scan, and the
+port loops over that axis.  The gemma3 5:1 local:global pattern is a
+per-layer window (``window_schedule``).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import dense_init, rms_norm, split_keys
+from repro_torch.tree import tree_map_with_path
+
+Params = dict[str, Any]
+
+
+def _layer_init(key, cfg: ModelConfig, dtype):
+    ks = split_keys(key, 2)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=key.device)
+    p = {"norm1": ones(), "norm2": ones(), "attn": attn.init_attn_params(ks[0], cfg, dtype)}
+    if cfg.n_experts:
+        p["moe"] = mlp_mod.init_moe_params(ks[1], cfg, dtype)  # raises: not ported
+    p["mlp"] = mlp_mod.init_mlp_params(ks[1], cfg, dtype)
+    return p
+
+
+def _put(dst: dict, src: dict, i: int) -> None:
+    """``dst[...][i] = src[...]`` leaf by leaf over two nested dicts."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _put(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def _layer(layers: dict, i: int) -> dict:
+    return tree_map_with_path(lambda _, x: x[i], layers)
+
+
+def init_params(cfg: ModelConfig, key, dtype=torch.float32) -> Params:
+    """The reference's parameters from ``key`` (layer i from ``ks[i]``, the
+    embedding from ``ks[-3]``, the untied head from ``ks[-2]``), on the
+    key's device.  Each layer is drawn and written into the stacked leaves
+    before the next is drawn."""
+    ks = split_keys(key, cfg.n_layers + 3)
+    stacked = None
+    for i in range(cfg.n_layers):
+        layer = _layer_init(ks[i], cfg, dtype)
+        if stacked is None:
+            stacked = tree_map_with_path(
+                lambda _, x: x.new_empty((cfg.n_layers, *x.shape)), layer)
+        _put(stacked, layer, i)
+        del layer
+    p: Params = {
+        "embed": dense_init(ks[-3], (cfg.vocab, cfg.d_model), cfg.d_model, dtype),
+        "layers": stacked,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=key.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(ks[-2], (cfg.d_model, cfg.vocab), cfg.d_model, dtype)
+    return p
+
+
+def _layer_axes(cfg: ModelConfig):
+    a = {
+        "norm1": ("embed",),
+        "norm2": ("embed",),
+        "attn": {
+            "wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+        },
+    }
+    if cfg.qkv_bias:
+        a["attn"]["bq"] = ("heads", "head_dim")
+        a["attn"]["bk"] = ("kv_heads", "head_dim")
+        a["attn"]["bv"] = ("kv_heads", "head_dim")
+    a["mlp"] = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed")}
+    return a
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical-axis tree matching init_params' structure (layers get a
+    leading None for the stacked L dim)."""
+    def lead(t):
+        return {k: lead(v) for k, v in t.items()} if isinstance(t, dict) else (None, *t)
+
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": lead(_layer_axes(cfg)),
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def window_schedule(cfg: ModelConfig, seq_len: int) -> torch.Tensor:
+    """Per-layer attention window (seq_len + 1 => effectively global), an
+    int32 tensor on the host."""
+    if cfg.window_pattern is None:
+        return torch.full((cfg.n_layers,), seq_len + 1, dtype=torch.int32)
+    w, period = cfg.window_pattern
+    sched = [seq_len + 1 if (i + 1) % period == 0 else w for i in range(cfg.n_layers)]
+    return torch.tensor(sched, dtype=torch.int32)
+
+
+def _scale_embed(x, cfg: ModelConfig):
+    """gemma: x * sqrt(d), the float32 square root cast to x's dtype first."""
+    if not cfg.embed_scale:
+        return x
+    return x * torch.tensor(float(np.sqrt(np.float32(cfg.d_model))), dtype=x.dtype)
+
+
+def _embed_in(params, cfg: ModelConfig, batch):
+    x = batch["embeds"] if "embeds" in batch else params["embed"][batch["tokens"]]
+    return _scale_embed(x, cfg)
+
+
+def _logits(params, cfg: ModelConfig, x):
+    h = rms_norm(x, params["final_norm"], plus_one=cfg.norm_plus_one)
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T.to(h.dtype)
+    return torch.einsum("bsd,dv->bsv", h, head)
+
+
+def _block(x, p, cfg: ModelConfig, attend):
+    """One pre-norm block: ``x + attend(norm1(x))``, then the MLP."""
+    x = x + attend(rms_norm(x, p["norm1"], plus_one=cfg.norm_plus_one))
+    h = rms_norm(x, p["norm2"], plus_one=cfg.norm_plus_one)
+    if cfg.n_experts:
+        return x + mlp_mod.moe(h, p, cfg)  # raises: not ported
+    return x + mlp_mod.mlp(h, p["mlp"], cfg)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: dict):
+    """Eval forward (no gradient in this slice).  Returns (logits, aux)."""
+    x = _embed_in(params, cfg, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for i, window in enumerate(window_schedule(cfg, S).tolist()):
+        p = _layer(params["layers"], i)
+        x = _block(x, p, cfg, lambda h: attn.attention_train(h, p["attn"], cfg, positions,
+                                                              window=window))
+    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with a KV cache
+# ---------------------------------------------------------------------------
+def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
+            cache_dtype=torch.bfloat16):
+    """Forward over the prompt, returning (last_logits, cache, cache_len).
+
+    The cache is (L, B, max_len, Hk, hd) for k and v, in bfloat16 whatever
+    the parameters' dtype, as the reference stores it; ``cache_dtype``
+    float32 keeps K/V unrounded (decode then computes what the full forward
+    computes, at any depth).  cache_len is a 0-d int32 tensor."""
+    x = _embed_in(params, cfg, batch)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache = attn.KVCacheSpec(cfg.n_layers, B, max_len, cfg.n_kv_heads,
+                             cfg.head_dim).init(cache_dtype, device=x.device)
+
+    for i, window in enumerate(window_schedule(cfg, S).tolist()):
+        p = _layer(params["layers"], i)
+
+        def attend(h):
+            q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            o = attn.flash_attention(q, k, v, positions, positions, window=window)
+            return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+
+        x = _block(x, p, cfg, attend)
+    logits = _logits(params, cfg, x[:, -1:, :])
+    return logits, cache, torch.tensor(S, dtype=torch.int32, device=x.device)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, tokens, cache_len):
+    """One decode step. tokens: (B, 1) int (or embeds (B, 1, d));
+    cache: {"k","v"}: (L, B, S, Hk, hd); cache_len: a 0-d int32 tensor.
+    Returns (logits, new cache); the cache passed in is left unchanged."""
+    x = tokens if tokens.ndim == 3 else params["embed"][tokens]
+    x = _scale_embed(x, cfg)
+    S = cache["k"].shape[2]
+    new = {"k": torch.empty_like(cache["k"]), "v": torch.empty_like(cache["v"])}
+    for i, window in enumerate(window_schedule(cfg, S).tolist()):
+        p = _layer(params["layers"], i)
+
+        def attend(h):
+            ck, cv = attn.decode_kv_update(p["attn"], cfg, h, cache["k"][i], cache["v"][i],
+                                           cache_len)
+            new["k"][i], new["v"][i] = ck, cv
+            return attn.attention_decode(h, p["attn"], cfg, ck, cv, cache_len, window=window)
+
+        x = _block(x, p, cfg, attend)
+    return _logits(params, cfg, x), new

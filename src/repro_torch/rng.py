@@ -11,6 +11,9 @@ module re-implements the five calls the simulator makes:
   ``split``    key_i = threefry(key, (0, i))              (fold-like split)
   ``random_bits``  bits_i = xor of threefry(key, (i >> 32, i & 0xFFFFFFFF))
   ``randint`` / ``uniform``  JAX's ``_randint`` / ``_uniform`` on those bits.
+  ``normal``  JAX's ``_normal_real``: a uniform draw on ``[nextafter(-1, 0), 1)``
+              then ``sqrt(2) * erfinv`` (torch's ``erfinv`` is not XLA's: the
+              draws agree to ~2e-5, not bit for bit).
 
 A key is an ``int64`` tensor whose last axis has length 2 and holds the two
 uint32 words.  Torch has little uint32 arithmetic, so every word is kept in
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -92,13 +96,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, start: int = 0) -> torch.Tensor:
     """32 random bits per element (``_threefry_random_bits_partitionable``),
-    as int64 in ``[0, 2**32)``, shaped ``key.shape[:-1] + shape``."""
+    as int64 in ``[0, 2**32)``, shaped ``key.shape[:-1] + shape``.  Element
+    ``i`` depends on the key and its flat index alone, so ``start`` draws
+    the elements ``start, start + 1, ...`` of any larger draw (a draw made
+    in chunks equals the draw made at once)."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     k1, k2 = _words(key)
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     y1, y2 = threefry2x32(k1[..., None], k2[..., None], i >> 32, i & M32)
     return (y1 ^ y2).reshape(*key.shape[:-1], *shape)
 
@@ -135,3 +142,21 @@ def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
     rounded to float32, as JAX converts it to the draw's dtype."""
     p32 = torch.tensor(float(p), dtype=torch.float32).item()
     return uniform(key, shape) < p32
+
+
+# jax.random.normal's uniform range in float32: [nextafter(-1, 0), 1); its
+# width 1 - lo rounds to 2.0
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key: torch.Tensor, shape, start: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 (``_normal_real``): the
+    uniform draw ``max(lo, f * (1 - lo) + lo)`` over the mantissa float
+    ``f`` in ``[0, 1)``, then ``sqrt(2) * erfinv``.  ``start`` as in
+    ``random_bits``: large draws are made in chunks of the flat index."""
+    bits = random_bits(key, shape, start)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return torch.erfinv(u) * _SQRT2
