@@ -63,14 +63,67 @@ def split_keys(key, n):
     return list(rng.split(key, n))
 
 
+def stack_layers(n_layers: int, layer_init) -> dict:
+    """``layer_init(i)``'s trees for i < n_layers stacked along a leading L
+    axis, as the reference stacks them for its scan; layer i is drawn and
+    written into the stacked leaves before layer i + 1 is drawn."""
+    stacked = None
+    for i in range(n_layers):
+        layer = layer_init(i)
+        if stacked is None:
+            stacked = tree_map_with_path(lambda _, x: x.new_empty((n_layers, *x.shape)), layer)
+        _put(stacked, layer, i)
+        del layer
+    return stacked
+
+
+def _put(dst: dict, src: dict, i: int) -> None:
+    """``dst[...][i] = src[...]`` leaf by leaf over two nested dicts."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _put(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def layer_slice(layers: dict, i: int) -> dict:
+    """Layer i of stacked layers."""
+    return tree_map_with_path(lambda _, x: x[i], layers)
+
+
+def lead_axes(axes):
+    """A leading None (the stacked L axis) on every axes tuple of a tree."""
+    if isinstance(axes, dict):
+        return {k: lead_axes(v) for k, v in axes.items()}
+    return (None, *axes)
+
+
 def cast_tree(tree, dtype):
     return tree_map_with_path(
         lambda _, x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
+# jax.nn's sigmoid, silu and softplus as XLA expands them: one rounding per
+# operation in the input's dtype.  torch's fused forms round once, and in
+# bfloat16 that difference, amplified through a recurrent stack, is the
+# largest part of the port's distance from the reference.
+def sigmoid(x):
+    """``lax.logistic``: ``1 / (1 + exp(-x))``."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    return x * sigmoid(x)
+
+
+def softplus(x):
+    """``jnp.logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def act_fn(name: str):
     if name in ("swiglu", "rwkv_ffn"):
-        return F.silu
+        return silu
     if name == "geglu":  # jax.nn.gelu's default is the tanh form
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(name)

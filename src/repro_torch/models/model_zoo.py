@@ -1,12 +1,10 @@
 """Unified model interface (counterpart of ``repro.models.model_zoo``):
 ``build_model(cfg)`` gives a ``Model`` bundling init / loss / prefill /
-decode for ``--arch`` dispatch.
-
-The port builds the transformer families (dense, audio, vlm; the stub
-frontends take precomputed ``embeds``).  The MoE, RWKV (ssm) and Zamba
-(hybrid) families raise ``NotImplementedError`` (ROADMAP item 14), as do
-the dry-run fields (``input_specs``, ``batch_axes``, ``decode_state_spec``
-/ ``decode_state_axes``), which wait for ``launch/dryrun``.
+decode for ``--arch`` dispatch over the four families: the transformers
+(dense, MoE, audio, vlm; the stub frontends take precomputed ``embeds``),
+RWKV6 (``ssm``) and Zamba2 (``hybrid``).  The dry-run fields
+(``input_specs``, ``batch_axes``, ``decode_state_spec`` /
+``decode_state_axes``) wait for ``launch/dryrun``.
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import recurrent, transformer
 
 Params = Any
 AUX_COEF = 0.01
@@ -41,10 +39,10 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("ssm", "hybrid") or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP item 14); "
-            "the port builds the dense, audio and vlm transformers")
+    if cfg.family == "ssm":
+        return _build_rwkv(cfg)
+    if cfg.family == "hybrid":
+        return _build_zamba(cfg)
     return _build_transformer(cfg)
 
 
@@ -63,4 +61,56 @@ def _build_transformer(cfg: ModelConfig) -> Model:
                                                                       max_len),
         decode_fn=lambda params, cache, tokens, cache_len: transformer.decode_step(
             params, cfg, cache, tokens, cache_len),
+    )
+
+
+def _build_rwkv(cfg: ModelConfig) -> Model:
+    def loss_fn(params, batch):
+        logits, aux, _ = recurrent.rwkv_forward(params, cfg, batch)
+        loss = cross_entropy(logits, batch["labels"])
+        return loss, {"xent": loss, "aux": aux}
+
+    def prefill_fn(params, batch, max_len):
+        logits, _, state = recurrent.rwkv_forward(params, cfg, batch)
+        S = batch["tokens"].shape[1]
+        return logits[:, -1:, :], state, torch.tensor(S, dtype=torch.int32,
+                                                      device=logits.device)
+
+    def decode_fn(params, state, tokens, cache_len):
+        logits, _, new_state = recurrent.rwkv_forward(params, cfg, {"tokens": tokens},
+                                                      state=state)
+        return logits, new_state
+
+    return Model(
+        cfg=cfg,
+        init_params=lambda key, dtype=torch.float32: recurrent.rwkv_init_params(cfg, key,
+                                                                                dtype),
+        param_axes=lambda: recurrent.rwkv_param_axes(cfg),
+        loss_fn=loss_fn,
+        prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
+    )
+
+
+def _build_zamba(cfg: ModelConfig) -> Model:
+    def loss_fn(params, batch):
+        logits, aux = recurrent.zamba_forward(params, cfg, batch)
+        loss = cross_entropy(logits, batch["labels"])
+        return loss, {"xent": loss, "aux": aux}
+
+    def prefill_fn(params, batch, max_len):
+        return recurrent.zamba_prefill(params, cfg, batch, min(cfg.shared_attn_window, max_len))
+
+    def decode_fn(params, state, tokens, cache_len):
+        return recurrent.zamba_decode_step(params, cfg, state, tokens, cache_len,
+                                           state["k"].shape[2])
+
+    return Model(
+        cfg=cfg,
+        init_params=lambda key, dtype=torch.float32: recurrent.zamba_init_params(cfg, key,
+                                                                                 dtype),
+        param_axes=lambda: recurrent.zamba_param_axes(cfg),
+        loss_fn=loss_fn,
+        prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
     )

@@ -1,0 +1,340 @@
+"""Recurrent-family models (counterpart of ``repro.models.recurrent``):
+RWKV6 (attention-free) and Zamba2 (Mamba2 backbone + one shared attention
+block applied periodically).
+
+Both are state-based at decode: the "KV cache" is a fixed-size recurrent
+state.  Zamba2's shared attention block keeps a bounded sliding KV window
+(a ring buffer) so its cache is O(window), not O(context).  Parameters
+are nested dicts whose layer leaves are stacked along a leading L axis,
+as the reference stacks them; the port loops over that axis.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import rng
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm
+from repro_torch.models.common import (apply_rope, dense_init, layer_slice, lead_axes, rms_norm,
+                                      split_keys, stack_layers)
+
+Params = dict[str, Any]
+
+
+# ===========================================================================
+# RWKV6
+# ===========================================================================
+def rwkv_init_params(cfg: ModelConfig, key, dtype=torch.float32) -> Params:
+    ks = split_keys(key, cfg.n_layers + 3)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=key.device)
+
+    def layer(i):
+        k1, k2 = rng.split(ks[i], 2)
+        return {
+            "norm1": ones(),
+            "norm2": ones(),
+            "tmix": ssm.init_rwkv_tmix_params(k1, cfg, dtype),
+            "cmix": ssm.init_rwkv_cmix_params(k2, cfg, dtype),
+        }
+
+    return {
+        "embed": dense_init(ks[-3], (cfg.vocab, cfg.d_model), cfg.d_model, dtype),
+        "layers": stack_layers(cfg.n_layers, layer),
+        "final_norm": ones(),
+        "lm_head": dense_init(ks[-2], (cfg.d_model, cfg.vocab), cfg.d_model, dtype),
+    }
+
+
+def rwkv_param_axes(cfg: ModelConfig):
+    layer = {
+        "norm1": (None,),
+        "norm2": (None,),
+        "tmix": {
+            "mu": (None, "embed"),
+            "wr": ("embed", "state"),
+            "wk": ("embed", "state"),
+            "wv": ("embed", "state"),
+            "wg": ("embed", "state"),
+            "wo": ("state", "embed"),
+            "w0": ("state",),
+            "wa": (None, None),
+            "wb": (None, "state"),
+            "u": ("heads", None),
+            "ln_w": ("state",),
+        },
+        "cmix": {
+            "mu": (None, "embed"),
+            "wk": ("embed", "mlp"),
+            "wv": ("mlp", "embed"),
+            "wr": ("embed", None),
+        },
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": lead_axes(layer),
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def rwkv_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
+    H, K = cfg.n_heads, cfg.head_dim
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return {
+        "wkv": z(cfg.n_layers, batch, H, K, K),
+        "tshift1": z(cfg.n_layers, batch, 1, cfg.d_model),
+        "tshift2": z(cfg.n_layers, batch, 1, cfg.d_model),
+    }
+
+
+def rwkv_forward(params: Params, cfg: ModelConfig, batch: dict, state=None):
+    """Returns (logits, aux=0, new_state). state=None -> zeros.  The state
+    passed in is left unchanged."""
+    x = params["embed"][batch["tokens"]]
+    B = x.shape[0]
+    if state is None:
+        state = rwkv_state_init(cfg, B, torch.float32, x.device)
+    wkv, ts1, ts2 = [], [], []
+    for i in range(cfg.n_layers):
+        p = layer_slice(params["layers"], i)
+        h = rms_norm(x, p["norm1"])
+        a, (last1, wkv1) = ssm.rwkv_tmix(h, state["tshift1"][i], p["tmix"], cfg,
+                                         state["wkv"][i])
+        x = x + a
+        h = rms_norm(x, p["norm2"])
+        m, last2 = ssm.rwkv_cmix(h, state["tshift2"][i], p["cmix"])
+        x = x + m
+        wkv.append(wkv1)
+        ts1.append(last1)
+        ts2.append(last2)
+    h = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    new_state = {"wkv": torch.stack(wkv), "tshift1": torch.stack(ts1),
+                 "tshift2": torch.stack(ts2)}
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device), new_state
+
+
+# ===========================================================================
+# Zamba2: mamba2 backbone + shared attention block every `period` layers
+# ===========================================================================
+def zamba_init_params(cfg: ModelConfig, key, dtype=torch.float32) -> Params:
+    ks = split_keys(key, cfg.n_layers + 5)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=key.device)
+    layers = stack_layers(cfg.n_layers, lambda i: {
+        "norm": ones(), "mamba": ssm.init_mamba_params(ks[i], cfg, dtype)})
+    k1, k2 = rng.split(ks[-4], 2)
+    shared = {
+        "norm1": ones(),
+        "norm2": ones(),
+        "attn": attn.init_attn_params(k1, cfg, dtype),
+        "mlp": mlp_mod.init_mlp_params(k2, cfg, dtype),
+    }
+    return {
+        "embed": dense_init(ks[-3], (cfg.vocab, cfg.d_model), cfg.d_model, dtype),
+        "layers": layers,
+        "shared": shared,
+        "final_norm": ones(),
+    }
+
+
+def zamba_param_axes(cfg: ModelConfig):
+    layer = {
+        "norm": (None,),
+        "mamba": {
+            "in_x": ("embed", "state"),
+            "in_z": ("embed", "state"),
+            "in_bc": ("embed", None),
+            "in_dt": ("embed", "heads"),
+            "dt_bias": ("heads",),
+            "a_log": ("heads",),
+            "d_skip": ("heads",),
+            "conv_w": (None, "state"),
+            "out": ("state", "embed"),
+        },
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": lead_axes(layer),
+        "shared": {
+            "norm1": ("embed",),
+            "norm2": ("embed",),
+            "attn": {
+                "wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "kv_heads", "head_dim"),
+                "wv": ("embed", "kv_heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed"),
+            },
+            "mlp": {
+                "w1": ("embed", "mlp"),
+                "w3": ("embed", "mlp"),
+                "w2": ("mlp", "embed"),
+            },
+        },
+        "final_norm": ("embed",),
+    }
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_attn_period
+
+
+def _groups(cfg: ModelConfig):
+    """``(lo, hi, shared)`` per group of backbone layers: G groups of
+    ``period`` layers, each followed by the shared block, then the
+    remainder (no shared block after it)."""
+    period, G = cfg.shared_attn_period, _n_groups(cfg)
+    out = [(g * period, (g + 1) * period, True) for g in range(G)]
+    if cfg.n_layers > G * period:
+        out.append((G * period, cfg.n_layers, False))
+    return out
+
+
+def zamba_state_init(cfg: ModelConfig, batch: int, window: int, dtype=torch.float32,
+                     device=None):
+    H, P, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
+    d_in = H * P
+    G = _n_groups(cfg)
+    kv = (G, batch, window, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch, H, N, P), dtype=dtype, device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, ssm.CONV_W - 1, d_in + 2 * N), dtype=dtype,
+                            device=device),
+        "k": torch.zeros(kv, dtype=torch.bfloat16, device=device),
+        "v": torch.zeros(kv, dtype=torch.bfloat16, device=device),
+    }
+
+
+def _mamba_layers(x, layers, cfg: ModelConfig, lo: int, hi: int, conv=None, ssm_state=None):
+    """Backbone layers lo..hi-1 over x, each from its conv and SSM state
+    (zeros where None).  Returns (x, [conv states], [SSM states])."""
+    B = x.shape[0]
+    H, P, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
+    if conv is None:
+        conv0 = torch.zeros((B, ssm.CONV_W - 1, H * P + 2 * N), dtype=x.dtype, device=x.device)
+        s0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    convs, ssms = [], []
+    for i in range(lo, hi):
+        p = layer_slice(layers, i)
+        h = rms_norm(x, p["norm"])
+        if conv is not None:
+            conv0, s0 = conv[i], ssm_state[i]
+        y, (conv1, s1) = ssm.mamba_mixer(h, p["mamba"], cfg, conv0, s0)
+        x = x + y
+        convs.append(conv1)
+        ssms.append(s1)
+    return x, convs, ssms
+
+
+def _tied_logits(params, x):
+    h = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", h, params["embed"].T.to(h.dtype))
+
+
+def _shared_mlp(x, p, cfg: ModelConfig):
+    return x + mlp_mod.mlp(rms_norm(x, p["norm2"]), p["mlp"], cfg)
+
+
+def zamba_forward(params: Params, cfg: ModelConfig, batch: dict):
+    """Eval forward (states start at zero). Returns (logits, aux)."""
+    x = params["embed"][batch["tokens"]]
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    p = params["shared"]
+    for lo, hi, shared in _groups(cfg):
+        x, _, _ = _mamba_layers(x, params["layers"], cfg, lo, hi)
+        if shared:
+            h = rms_norm(x, p["norm1"])
+            x = x + attn.attention_train(h, p["attn"], cfg, positions,
+                                         window=cfg.shared_attn_window)
+            x = _shared_mlp(x, p, cfg)
+    return _tied_logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def zamba_prefill(params: Params, cfg: ModelConfig, batch: dict, window: int):
+    """Forward over the prompt collecting final SSM/conv states and the
+    shared-attention ring caches (the last ``window`` positions, position
+    t at slot t % window). Returns (last_logits, state, cache_len)."""
+    x = params["embed"][batch["tokens"]]
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    W = min(window, S)
+    tail_pos = positions[-W:].long() % window
+    p = params["shared"]
+    convs, ssms, ks, vs = [], [], [], []
+    for lo, hi, shared in _groups(cfg):
+        x, conv1, s1 = _mamba_layers(x, params["layers"], cfg, lo, hi)
+        convs += conv1
+        ssms += s1
+        if shared:
+            h = rms_norm(x, p["norm1"])
+            q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
+            o = attn.flash_attention(q, k, v, positions, positions,
+                                     window=cfg.shared_attn_window)
+            x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+            x = _shared_mlp(x, p, cfg)
+            ring = (B, window, cfg.n_kv_heads, cfg.head_dim)
+            ck = torch.zeros(ring, dtype=torch.bfloat16, device=x.device)
+            cv = torch.zeros(ring, dtype=torch.bfloat16, device=x.device)
+            ck[:, tail_pos] = k[:, -W:].to(torch.bfloat16)
+            cv[:, tail_pos] = v[:, -W:].to(torch.bfloat16)
+            ks.append(ck)
+            vs.append(cv)
+    state = {"ssm": torch.stack(ssms), "conv": torch.stack(convs), "k": torch.stack(ks),
+             "v": torch.stack(vs)}
+    logits = _tied_logits(params, x[:, -1:, :])
+    return logits, state, torch.tensor(S, dtype=torch.int32, device=x.device)
+
+
+def zamba_decode_step(params: Params, cfg: ModelConfig, state, tokens, cache_len,
+                      window: int):
+    """One token through the hybrid stack with O(1) + O(window) state; the
+    state passed in is left unchanged.  cache_len: a 0-d int32 tensor."""
+    x = params["embed"][tokens]  # (B,1,d)
+    B = x.shape[0]
+    Hq, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Gq = Hq // Hk
+    p = params["shared"]
+    pa = p["attn"]
+    pos = cache_len.reshape(1)
+    slots = torch.arange(window, device=x.device)
+    # ring-buffer write at cache_len % window (a masked select); RoPE uses
+    # the absolute position, so overwriting old slots is consistent
+    sel = (slots == cache_len % window)[None, :, None, None]
+    # attend over the valid ring slots (all of them once cache_len >= window - 1)
+    valid = slots <= cache_len
+    sqrt_hd = float(np.sqrt(np.float32(hd)))
+    convs, ssms, ks, vs = [], [], [], []
+    for g, (lo, hi, shared) in enumerate(_groups(cfg)):
+        x, conv1, s1 = _mamba_layers(x, params["layers"], cfg, lo, hi, state["conv"],
+                                     state["ssm"])
+        convs += conv1
+        ssms += s1
+        if not shared:
+            continue
+        h = rms_norm(x, p["norm1"])
+        k1 = torch.einsum("bsd,dhk->bshk", h, pa["wk"])
+        v1 = torch.einsum("bsd,dhk->bshk", h, pa["wv"])
+        q = torch.einsum("bsd,dhk->bshk", h, pa["wq"])
+        if cfg.rope_theta:
+            k1 = apply_rope(k1, pos, cfg.rope_theta)
+            q = apply_rope(q, pos, cfg.rope_theta)
+        ck = torch.where(sel, k1.to(state["k"].dtype), state["k"][g])
+        cv = torch.where(sel, v1.to(state["v"].dtype), state["v"][g])
+        qf = (q.float() / sqrt_hd).reshape(B, Hk, Gq, hd)
+        s = torch.einsum("bkgh,bskh->bkgs", qf, ck.float())
+        s = torch.where(valid, s, attn.NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskh->bkgh", w, cv.float())
+        o = o.reshape(B, 1, Hq, hd).to(x.dtype)
+        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"])
+        x = _shared_mlp(x, p, cfg)
+        ks.append(ck)
+        vs.append(cv)
+    new_state = {"ssm": torch.stack(ssms), "conv": torch.stack(convs), "k": torch.stack(ks),
+                 "v": torch.stack(vs)}
+    return _tied_logits(params, x), new_state

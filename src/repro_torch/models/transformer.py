@@ -1,6 +1,6 @@
 """Decoder-only transformer assembly (counterpart of
-``repro.models.transformer``) for the dense, audio-stub and vision-stub
-families.
+``repro.models.transformer``) for the dense, MoE, audio-stub and
+vision-stub families.
 
 Parameters are nested dicts of tensors; the layers' leaves are stacked
 along a leading L axis, as the reference stacks them for its scan, and the
@@ -17,8 +17,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import dense_init, rms_norm, split_keys
-from repro_torch.tree import tree_map_with_path
+from repro_torch.models.common import (dense_init, layer_slice, lead_axes, rms_norm,
+                                      split_keys, stack_layers)
 
 Params = dict[str, Any]
 
@@ -28,41 +28,20 @@ def _layer_init(key, cfg: ModelConfig, dtype):
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=key.device)
     p = {"norm1": ones(), "norm2": ones(), "attn": attn.init_attn_params(ks[0], cfg, dtype)}
     if cfg.n_experts:
-        p["moe"] = mlp_mod.init_moe_params(ks[1], cfg, dtype)  # raises: not ported
-    p["mlp"] = mlp_mod.init_mlp_params(ks[1], cfg, dtype)
+        p["moe"] = mlp_mod.init_moe_params(ks[1], cfg, dtype)
+    else:
+        p["mlp"] = mlp_mod.init_mlp_params(ks[1], cfg, dtype)
     return p
-
-
-def _put(dst: dict, src: dict, i: int) -> None:
-    """``dst[...][i] = src[...]`` leaf by leaf over two nested dicts."""
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _put(dst[k], v, i)
-        else:
-            dst[k][i] = v
-
-
-def _layer(layers: dict, i: int) -> dict:
-    return tree_map_with_path(lambda _, x: x[i], layers)
 
 
 def init_params(cfg: ModelConfig, key, dtype=torch.float32) -> Params:
     """The reference's parameters from ``key`` (layer i from ``ks[i]``, the
     embedding from ``ks[-3]``, the untied head from ``ks[-2]``), on the
-    key's device.  Each layer is drawn and written into the stacked leaves
-    before the next is drawn."""
+    key's device."""
     ks = split_keys(key, cfg.n_layers + 3)
-    stacked = None
-    for i in range(cfg.n_layers):
-        layer = _layer_init(ks[i], cfg, dtype)
-        if stacked is None:
-            stacked = tree_map_with_path(
-                lambda _, x: x.new_empty((cfg.n_layers, *x.shape)), layer)
-        _put(stacked, layer, i)
-        del layer
     p: Params = {
         "embed": dense_init(ks[-3], (cfg.vocab, cfg.d_model), cfg.d_model, dtype),
-        "layers": stacked,
+        "layers": stack_layers(cfg.n_layers, lambda i: _layer_init(ks[i], cfg, dtype)),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=key.device),
     }
     if not cfg.tie_embeddings:
@@ -85,19 +64,24 @@ def _layer_axes(cfg: ModelConfig):
         a["attn"]["bq"] = ("heads", "head_dim")
         a["attn"]["bk"] = ("kv_heads", "head_dim")
         a["attn"]["bv"] = ("kv_heads", "head_dim")
-    a["mlp"] = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed")}
+    if cfg.n_experts:
+        a["moe"] = {
+            "router": ("embed", None),
+            "w1": ("experts", None, "moe_fsdp"),
+            "w3": ("experts", None, "moe_fsdp"),
+            "w2": ("experts", "moe_fsdp", None),
+        }
+    else:
+        a["mlp"] = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed")}
     return a
 
 
 def param_axes(cfg: ModelConfig):
     """Logical-axis tree matching init_params' structure (layers get a
     leading None for the stacked L dim)."""
-    def lead(t):
-        return {k: lead(v) for k, v in t.items()} if isinstance(t, dict) else (None, *t)
-
     axes = {
         "embed": ("vocab", "embed"),
-        "layers": lead(_layer_axes(cfg)),
+        "layers": lead_axes(_layer_axes(cfg)),
         "final_norm": ("embed",),
     }
     if not cfg.tie_embeddings:
@@ -134,24 +118,30 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def _block(x, p, cfg: ModelConfig, attend):
-    """One pre-norm block: ``x + attend(norm1(x))``, then the MLP."""
+    """One pre-norm block: ``x + attend(norm1(x))``, then the MLP or the
+    MoE.  Returns (x, aux); aux is the MoE's load-balance loss, else None."""
     x = x + attend(rms_norm(x, p["norm1"], plus_one=cfg.norm_plus_one))
     h = rms_norm(x, p["norm2"], plus_one=cfg.norm_plus_one)
     if cfg.n_experts:
-        return x + mlp_mod.moe(h, p, cfg)  # raises: not ported
-    return x + mlp_mod.mlp(h, p["mlp"], cfg)
+        m, aux = mlp_mod.moe(h, p["moe"], cfg)
+        return x + m, aux
+    return x + mlp_mod.mlp(h, p["mlp"], cfg), None
 
 
 def forward(params: Params, cfg: ModelConfig, batch: dict):
-    """Eval forward (no gradient in this slice).  Returns (logits, aux)."""
+    """Eval forward (no gradient in this slice).  Returns (logits, aux), aux
+    the sum of the layers' MoE load-balance losses (0 for a dense model)."""
     x = _embed_in(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = _layer(params["layers"], i)
-        x = _block(x, p, cfg, lambda h: attn.attention_train(h, p["attn"], cfg, positions,
-                                                              window=window))
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        p = layer_slice(params["layers"], i)
+        x, a = _block(x, p, cfg, lambda h: attn.attention_train(h, p["attn"], cfg, positions,
+                                                                 window=window))
+        if a is not None:
+            aux = aux + a
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +162,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
                              cfg.head_dim).init(cache_dtype, device=x.device)
 
     for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = _layer(params["layers"], i)
+        p = layer_slice(params["layers"], i)
 
         def attend(h):
             q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
@@ -181,7 +171,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
             o = attn.flash_attention(q, k, v, positions, positions, window=window)
             return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
 
-        x = _block(x, p, cfg, attend)
+        x, _ = _block(x, p, cfg, attend)
     logits = _logits(params, cfg, x[:, -1:, :])
     return logits, cache, torch.tensor(S, dtype=torch.int32, device=x.device)
 
@@ -195,7 +185,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, cache_len):
     S = cache["k"].shape[2]
     new = {"k": torch.empty_like(cache["k"]), "v": torch.empty_like(cache["v"])}
     for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = _layer(params["layers"], i)
+        p = layer_slice(params["layers"], i)
 
         def attend(h):
             ck, cv = attn.decode_kv_update(p["attn"], cfg, h, cache["k"][i], cache["v"][i],
@@ -203,5 +193,5 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, cache_len):
             new["k"][i], new["v"][i] = ck, cv
             return attn.attention_decode(h, p["attn"], cfg, ck, cv, cache_len, window=window)
 
-        x = _block(x, p, cfg, attend)
+        x, _ = _block(x, p, cfg, attend)
     return _logits(params, cfg, x), new

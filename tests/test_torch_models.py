@@ -5,7 +5,9 @@ by leaf (relative to the leaf's largest value; torch's erfinv is not
 XLA's), and with the reference's weights carried over (``params_from_numpy``)
 float32 ``forward`` logits and ``loss_fn`` within 1e-4 (matmuls round
 differently); ``param_axes``' structure; ``flash_attention`` with a KV chunk
-wholly outside the window; the four unported archs raise."""
+wholly outside the window.  The MoE, RWKV6 and Zamba2 archs are held in
+``test_torch_moe.py``, ``test_torch_recurrent.py`` and
+``test_torch_serve_families.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,6 @@ torch.set_num_threads(1)  # the suite's parallel workers share the host's cores
 
 ARCHS = ["gemma3-4b", "gemma-7b", "mistral-nemo-12b", "qwen1.5-4b", "musicgen-large",
          "llava-next-mistral-7b"]
-UNPORTED = ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b", "rwkv6-1.6b", "zamba2-7b"]
 FP32_TOL = 1e-4
 INIT_TOL = 1e-5
 B, S = 2, 96  # past reduced gemma3's 64-token window
@@ -140,18 +141,6 @@ def test_flash_attention_with_a_wholly_masked_chunk(hk):
     full = attention.flash_attention(*map(torch.from_numpy, (q, k, v, pos, pos)), window=8,
                                      chunk=64).numpy()
     assert rel_err(got, full) <= 1e-5
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        build_model(reduced(get_config(arch)))
-
-
-def test_moe_layers_raise():
-    cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        transformer.init_params(cfg, rng.PRNGKey(0, "cpu"))
 
 
 def test_carry_runs_on_the_card_unless_asked_for_the_cpu():

@@ -8,7 +8,8 @@ points), the bfloat16 KV cache within one bfloat16 step (2**-7) in float32
 and 3e-2 in bfloat16, each decode step from the reference's cache; the
 port's own decode against its full forward
 (tests/test_models.py::test_decode_matches_full_forward); the serve CLI's
-prompts bit-equal to JAX's, and the CLI on the CPU."""
+prompts bit-equal to JAX's, and the CLI on the CPU.  The run and the rule
+are ``tests/serve_parity.py``'s."""
 import contextlib
 import io
 
@@ -28,55 +29,14 @@ from repro_torch.launch import serve
 from repro_torch.models import build_model, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.train import make_serve_steps
+from serve_parity import assert_serve_close, fp32_steps, run_serve
 
 torch.set_num_threads(1)  # the suite's parallel workers share the host's cores
 
 ARCHS = ["gemma3-4b", "gemma-7b", "mistral-nemo-12b", "qwen1.5-4b", "musicgen-large",
          "llava-next-mistral-7b"]
-TOL = {"fp32": 1e-4, "bf16": 3e-2}
-CACHE_TOL = {"fp32": 2.0**-7, "bf16": 3e-2}
 B, P, GEN = 2, 80, 3  # prompt past reduced gemma3's 64-token window
 MAX_LEN = P + GEN + 1
-
-
-def rel_err(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / np.abs(want).max())
-
-
-def as_np(t) -> np.ndarray:
-    if isinstance(t, torch.Tensor):
-        return t.float().numpy()
-    return np.asarray(t, np.float32)
-
-
-def run_serve(prefill, decode, params, toks, wrap, caches=None):
-    """Prefill on the first P tokens, then GEN decode steps fed the next
-    tokens.  Returns the logits of every step and the cache after every
-    step, as float32 numpy.  ``caches`` (another run's caches, as numpy)
-    makes each decode step start from that run's cache, so that a step is
-    held against the reference from the same inputs: the cache is bfloat16,
-    and a float32 K that rounds the other way at one element moves the
-    next step's logits by more than the matmuls' own rounding."""
-    logits, cache, clen = prefill(params, {"tokens": wrap(toks[:, :P])}, MAX_LEN)
-    logits_out, cache_out = [as_np(logits)], [{k: as_np(v) for k, v in cache.items()}]
-    for i, t in enumerate(range(P, P + GEN)):
-        if caches is not None:
-            cache = {k: wrap(v).to(cache[k].dtype) for k, v in caches[i].items()}
-        logits, cache, clen = decode(params, cache, wrap(toks[:, t:t + 1]), clen)
-        logits_out.append(as_np(logits))
-        cache_out.append({k: as_np(v) for k, v in cache.items()})
-    assert int(clen) == P + GEN
-    return logits_out, cache_out
-
-
-def fp32_steps(model):
-    """The serve steps without the bfloat16 cast (the model's own prefill
-    and decode), with decode returning cache_len + 1 as the serve step does."""
-    def decode(params, cache, tokens, clen):
-        return (*model.decode_fn(params, cache, tokens, clen), clen + 1)
-
-    return model.prefill_fn, decode
 
 
 @pytest.fixture(scope="module")
@@ -90,9 +50,9 @@ def jax_side():
             params = model.init_params(jax.random.PRNGKey(0))
             toks = np.random.RandomState(11).randint(0, cfg.vocab, (B, P + GEN)).astype(np.int32)
             jit = lambda pre, dec: (jax.jit(pre, static_argnums=2), jax.jit(dec))
-            runs = {"fp32": run_serve(*jit(*fp32_steps(model)), params, toks, jnp.asarray),
-                    "bf16": run_serve(*jit(*j_make_serve_steps(model)), params, toks,
-                                      jnp.asarray)}
+            runs = {mode: run_serve(*jit(*steps), params, toks, jnp.asarray, P, MAX_LEN)
+                    for mode, steps in (("fp32", fp32_steps(model)),
+                                        ("bf16", j_make_serve_steps(model)))}
             cache[arch] = (jax.tree.map(np.asarray, params), toks, runs)
         return cache[arch]
 
@@ -106,15 +66,8 @@ def test_prefill_and_decode_match_reference(jax_side, arch, mode):
     model = build_model(reduced(get_config(arch)))
     params = params_from_numpy(np_params, "cpu")
     steps = fp32_steps(model) if mode == "fp32" else make_serve_steps(model)
-    want_logits, want_caches = runs[mode]
-    got_logits, got_caches = run_serve(*steps, params, toks, torch.from_numpy, want_caches)
-    for i, (g, w) in enumerate(zip(got_logits, want_logits)):
-        assert g.shape == w.shape and np.isfinite(g).all()
-        assert rel_err(g, w) <= TOL[mode], f"step {i}: {rel_err(g, w)}"
-    for i, (g, w) in enumerate(zip(got_caches, want_caches)):
-        for k in ("k", "v"):
-            assert g[k].shape == w[k].shape
-            assert rel_err(g[k], w[k]) <= CACHE_TOL[mode], f"step {i}: cache {k}"
+    got = run_serve(*steps, params, toks, torch.from_numpy, P, MAX_LEN, states=runs[mode][1])
+    assert_serve_close(got, runs[mode], mode)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
