@@ -197,12 +197,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      card vs CPU, every state leaf by its dtype, float32 routing equal,
      bf16 routing flips and the CPU's own bf16 excursions found
      (``tests/serve_parity.py``); no kernel launched.
+ 20. train — the training path: rwkv6-1.6b uncut (24 layers, d_model
+     2048, 1,583,941,632 parameters) through the train CLI, 12 steps of 8 x
+     128 (init seconds, step ms, tokens/s, peak memory, every step's loss
+     and grad norm finite, every leaf moved, one step profiled: device
+     launches of the forward, backward and optimizer, busy share);
+     mistral-nemo-12b at full width and 4 of 40 layers with remat on, off
+     and ``"dots"`` (peak memory, step ms), one step profiled, and 4
+     float32 microbatches against one batch (max|d params| < 5e-3); the
+     ten reduced archs, one float32 step card vs CPU under the training
+     tests' rule; resume on the card (a run checkpointed at step 5 and
+     resumed == an uninterrupted 10-step run, bit for bit, deterministic
+     algorithms); no kernel launched.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
 the telemetry, the sweep, the fabric, the scale, the balls-into-bins, the
-soak, the chaos and the fig15-hook phases' runs, and the channels and
-the two serve phases', which launch none; the flat
+soak, the chaos and the fig15-hook phases' runs, and the channels,
+the two serve and the train phases', which launch none; the flat
 ``ecmp_hash`` is launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -210,6 +222,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import multiprocessing
 import statistics
 import subprocess
@@ -3780,6 +3793,406 @@ def families_phase(dev, cpu_run, smi: str) -> dict:
     return totals
 
 
+# phase 20, training: rwkv6-1.6b uncut through the train CLI (24 layers,
+# d_model 2048: its params, m, v, fp32 gradients and bf16 copy are ~29 GiB;
+# mistral-nemo-12b, qwen1.5-4b and gemma3-4b would need ~70-245 GB at ~18-20
+# bytes per parameter), mistral-nemo-12b (the CLI's default) at full width
+# and 4 of its 40 layers, the ten reduced archs card vs CPU, and resume on
+# the card
+TRAIN_STEPS = 12  # (a): the median step is over steps 3-12
+TRAIN_NEMO_LAYERS = 4
+TRAIN_NEMO_STEPS = 3  # per remat mode (b): one warm step, then the median of two
+TRAIN_B, TRAIN_S = 4, 64  # (c): whole chunks of RWKV's 16 and the SSD's 32
+TRAIN_TOL = 1e-4
+TRAIN_SMALL_GRAD = 1e-3  # tests/train_parity.py's SMALL_GRAD
+TRAIN_MB_TOL = 5e-3  # tests/test_train_substrate.py's microbatch bound
+TRAIN_ARCHS = ("gemma3-4b", "gemma-7b", "llava-next-mistral-7b", "mistral-nemo-12b",
+               "musicgen-large", "phi3.5-moe-42b-a6.6b", "qwen1.5-4b", "qwen3-moe-235b-a22b",
+               "rwkv6-1.6b", "zamba2-7b")
+
+
+def train_batch(cfg, dev, seed: int = 5, b: int = TRAIN_B, s: int = TRAIN_S) -> dict:
+    """tests/train_parity.py's ``make_batch`` on ``dev``: labels, and tokens
+    or (the stub frontends) float32 embeddings, drawn with numpy."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    batch = {"labels": rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.frontend != "none":
+        batch["embeds"] = rs.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    else:
+        batch["tokens"] = rs.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_reduced_runs(dev, ulp: bool = False) -> dict:
+    """Per arch of ``TRAIN_ARCHS`` at ``reduced()``: one float32 train step
+    on ``dev`` from ``init_train_state(PRNGKey(0))`` drawn on the CPU (the
+    same weights on either side), its loss, metrics, gradients (and with
+    ``ulp`` the gradients at parameters moved by one ulp, the model's own
+    conditioning), the state after the step and each MoE call's routing,
+    as numpy."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.steps import make_grad_fn
+    from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
+    from serve_parity import port_routing
+
+    if torch.device(dev).type == "cpu":
+        torch.set_num_threads(2)
+    np_ = lambda t: t.detach().float().cpu().numpy()
+    flat_np = lambda tree: {k: np_(v) for k, v in tree_flatten_with_path(tree).items()}
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2), compute_dtype=torch.float32)
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = reduced(get_config(arch))
+        model = build_model(cfg)
+        params, opt = init_train_state(model, rng.PRNGKey(0, device="cpu"))
+        params, opt = (tree_map_with_path(lambda _, t: t.to(dev), x) for x in (params, opt))
+        batch = train_batch(cfg, dev)
+        r = {"routing": []}
+        with port_routing(r["routing"]):
+            loss, metrics, grads = make_grad_fn(model, tcfg)(params, batch)
+        r["loss"], r["metrics"] = float(loss), {k: float(v) for k, v in metrics.items()}
+        r["grads"] = {k: np_(v) for k, v in grads.items()}
+        if ulp:
+            coin = np.random.RandomState(9)
+            moved = tree_map_with_path(lambda _, t: torch.nextafter(t, torch.from_numpy(
+                np.where(coin.rand(*t.shape) < 0.5, np.inf, -np.inf).astype(np.float32)).to(
+                dev)), params)
+            r["grads_ulp"] = {k: np_(v) for k, v in make_grad_fn(model, tcfg)(moved, batch)[2]
+                              .items()}
+        params, opt, m = make_train_step(model, tcfg)(params, opt, batch)
+        r["step_metrics"] = {k: float(v) for k, v in m.items()}
+        r["state"] = {"params": flat_np(params), "m": flat_np(opt["m"]), "v": flat_np(opt["v"])}
+        out[arch] = r
+    return out
+
+
+def train_reduced_check(card: dict, cpu: dict, smi: str) -> None:
+    """Card against CPU for every reduced arch under the float32 parity rule
+    of tests/test_torch_train_step.py: loss, metrics 1e-4, lr equal; each
+    gradient leaf within 1e-4 or twice the CPU's own one-ulp distance (the
+    model's conditioning), ``m`` the same, ``v`` twice; the parameters
+    within 1e-4 where the CPU's gradient is at least 1e-3 of its leaf's
+    largest (the first step is ill-conditioned below); routing ids and kept
+    assignments equal; everything finite."""
+    import numpy as np
+
+    for arch, w in cpu.items():
+        c = card[arch]
+        worst, tol = {}, {}
+
+        def hold(name, err, bound):
+            worst[name], tol[name] = max(worst.get(name, 0.0), err), bound
+
+        hold("loss", abs(c["loss"] - w["loss"]) / abs(w["loss"]), TRAIN_TOL)
+        for k, v in w["step_metrics"].items():
+            if k == "lr":
+                if c["step_metrics"][k] != v:
+                    raise AssertionError(f"train {arch}: lr {c['step_metrics'][k]} != {v}")
+                continue
+            hold(k, abs(c["step_metrics"][k] - v) / max(abs(v), 1e-30), TRAIN_TOL)
+        bound = {k: max(TRAIN_TOL, 2 * rel_err(w["grads_ulp"][k], g) if np.abs(g).max() else 0)
+                 for k, g in w["grads"].items()}
+        for k, g in w["grads"].items():
+            err = rel_err(c["grads"][k], g) if np.abs(g).max() else float(np.abs(c["grads"][k]).max())
+            hold("grads", err / bound[k], 1.0)
+        for name, scale in (("m", 1), ("v", 2)):
+            for k, a in w["state"][name].items():
+                err = rel_err(c["state"][name][k], a) if np.abs(a).max() else float(
+                    np.abs(c["state"][name][k]).max())
+                hold(name, err / (scale * bound[k]), 1.0)
+        skipped = 0
+        for k, a in w["state"]["params"].items():
+            g = np.abs(w["grads"][k])
+            held = g >= TRAIN_SMALL_GRAD * g.max()
+            err = np.abs(c["state"]["params"][k].astype(np.float64) - a) / np.abs(a).max()
+            hold("params", float(err[held].max(initial=0.0)), TRAIN_TOL)
+            skipped += int((~held).sum())
+        if len(c["routing"]) != len(w["routing"]) or not all(
+                np.array_equal(gi, wi) and np.array_equal(gk, wk)
+                for (_, gi, gk), (_, wi, wk) in zip(c["routing"], w["routing"])):
+            raise AssertionError(f"train {arch}: float32 routing differs card vs CPU")
+        finite = all(np.isfinite(x).all() for x in c["grads"].values()) and all(
+            np.isfinite(x).all() for x in c["state"]["params"].values())
+        if not finite or any(worst[k] > tol[k] for k in tol):
+            raise AssertionError(f"train {arch} (reduced): card vs CPU {worst} (tolerances "
+                                 f"{tol}), finite={finite}")
+        wide = {k: round(b, 7) for k, b in bound.items() if b > TRAIN_TOL}
+        log(f"train {arch} (reduced) on {smi}: card vs CPU, one float32 step: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items() if k not in ("grads", "m", "v"))
+            + f"; gradients, m, v at {max(worst['grads'], worst['m']):.2f}, {worst['v']:.2f} of "
+            f"their bounds (1e-4, or twice the CPU's one-ulp distance: {wide or 'none wider'}); "
+            f"{skipped} parameter elements with a gradient below 1e-3 of the leaf's largest "
+            f"not held; routing equal ({len(w['routing'])} MoE calls)")
+
+
+def device_window(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (the device trace alone): ``(device
+    events, their busy microseconds, wall microseconds)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(dev_events), sum(e.time_range.elapsed_us() for e in dev_events), wall_us
+
+
+def train_profile(label: str, model, tcfg, params, opt, batch, smi: str) -> dict:
+    """Where a train step's device work goes, in three profiled windows:
+    the forward alone (the loss with the graph recorded), the gradient
+    (``make_train_step``'s ``make_grad_fn``: forward and backward, the remat
+    recomputation included) and the update (``apply_updates``).  Launches
+    (device events) by part — the backward's is the gradient's less the
+    forward's — and the busy share of the gradient and the update."""
+    import torch
+
+    from repro_torch.models.common import cast_tree
+    from repro_torch.train import apply_updates
+    from repro_torch.train.steps import make_grad_fn
+    from repro_torch.tree import tree_map_with_path, tree_unflatten_like
+
+    def forward():
+        with torch.enable_grad():
+            p = tree_map_with_path(lambda _, t: t.detach().requires_grad_(True), params)
+            model.loss_fn(cast_tree(p, tcfg.compute_dtype), batch, remat=tcfg.remat,
+                          remat_policy=tcfg.remat_policy)
+
+    out = {}
+    fwd, _, _ = device_window(forward)
+    grad, grad_busy, grad_wall = device_window(
+        lambda: out.setdefault("grads", make_grad_fn(model, tcfg)(params, batch)[2]))
+    upd, upd_busy, upd_wall = device_window(lambda: apply_updates(
+        tcfg.opt, params, tree_unflatten_like(params, out.pop("grads")), opt))
+    if not fwd:
+        log(f"profile (train {label}): the profiler recorded no device time; not measured")
+        return {"launches": "not measured"}
+    r = {"launches": {"forward": fwd, "backward": grad - fwd, "optimizer": upd},
+         "busy": (grad_busy + upd_busy) / (grad_wall + upd_wall)}
+    log(f"profile (train {label}, one step, profiler on) on {smi}: gradient "
+        f"{grad_wall / 1e3:.1f} ms wall, {grad_busy / 1e3:.1f} ms device busy; update "
+        f"{upd_wall / 1e3:.1f} ms wall, {upd_busy / 1e3:.1f} ms busy; step "
+        f"{100 * r['busy']:.2f} % busy; device launches: forward {fwd}, backward {grad - fwd} "
+        f"(remat recomputation included), optimizer {upd}")
+    return r
+
+
+def train_phase(dev, cpu_run, smi: str) -> dict:
+    """The training path (``repro_torch.launch.train`` over
+    ``make_train_step``, ``loss_fn`` with remat, autograd, ``apply_updates``).
+    (a) rwkv6-1.6b uncut through the train CLI (12 steps of 8 x 128): init
+    seconds, step ms (median of steps 3-12), tokens/s, peak memory, every
+    step's loss and grad norm (finite: a gate; the drop logged), params
+    moved from their initial values (a gate), one step profiled (launches
+    by part, busy share).  (b) mistral-nemo-12b at full width and 4 of 40
+    layers (8 x 128): its parameter count, remat on / off / ``"dots"`` (peak
+    memory, step ms, losses finite), one step profiled, and in float32 4
+    microbatches against 1 on one batch from the same state (max|Δ params|
+    < 5e-3, the reference test's property).  (c) the ten reduced archs, one
+    float32 step each, card vs CPU (``train_reduced_check``; the CPU side
+    from a helper process).  (d) resume on the card: ``--reduced``
+    mistral-nemo-12b, 10 steps checkpointed every 5 against 5 steps and a
+    ``--resume`` to 10, under ``torch.use_deterministic_algorithms``: params
+    and optimizer state bit-equal.  No port kernel is launched.  Returns
+    the launches per kernel (none)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_opt_state, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.steps import make_grad_fn
+    from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    counted = _counting(totals)
+    t_start = time.perf_counter()
+    gib = lambda b: b / 2**30
+    leaf_sums = lambda tree: {k: float(v.double().sum()) for k, v in
+                              tree_flatten_with_path(tree).items()}
+    torch.cuda.empty_cache()
+
+    def measured(fn):
+        def run():
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, torch.cuda.max_memory_allocated()
+
+        (out, peak), secs, counts = counted(run)
+        exact_launches("train", counts, {})
+        return out, secs, peak
+
+    def finite_losses(what, losses, norms):
+        if not all(map(math.isfinite, losses + norms)):
+            raise AssertionError(f"train {what}: a loss or grad norm is not finite: {losses} "
+                                 f"{norms}")
+
+    # (a) rwkv6-1.6b uncut through the CLI
+    arch = "rwkv6-1.6b"
+    cfg = get_config(arch)
+    init, _, _ = measured(lambda: leaf_sums(build_model(cfg).init_params(
+        rng.PRNGKey(0, device=dev))))
+    run, secs, peak = measured(lambda: train.main(
+        ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", "8", "--seq", "128"]))
+    finite_losses(arch, run["losses"], run["grad_norms"])
+    after = leaf_sums(run["params"])
+    moved = [k for k in init if after[k] != init[k]]
+    if len(moved) != len(init):
+        raise AssertionError(f"train {arch}: leaves that did not move: "
+                             f"{sorted(set(init) - set(moved))}")
+    n_params = sum(t.numel() for t in tree_flatten_with_path(run["params"]).values())
+    step_s = statistics.median(run["step_s"][2:])
+    log(f"train {arch} (uncut: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+        f"parameters, fp32 master weights, bf16 compute, remat on) on {smi}: init "
+        f"{run['init_s']:.3f} s; {TRAIN_STEPS} steps of 8x128 in {secs:.1f} s; step "
+        f"{step_s * 1e3:.1f} ms (median of steps 3-{TRAIN_STEPS}; first "
+        f"{run['step_s'][0] * 1e3:.1f} ms), {8 * 128 / step_s:.0f} tokens/s; peak memory "
+        f"{gib(peak):.3f} GiB; all {len(init)} leaves moved; loss "
+        + ", ".join(f"{x:.4f}" for x in run["losses"]) + " (drop "
+        f"{run['losses'][0] - run['losses'][-1]:.4f}, logged); grad norm "
+        + ", ".join(f"{x:.3f}" for x in run["grad_norms"]))
+    model = run["model"]
+    data = SyntheticLM(cfg.vocab, 128, 8, seed=17)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.shard_batch(TRAIN_STEPS).items()}
+    prof_a, _, _ = measured(lambda: train_profile(arch, model, TrainConfig(), run["params"],
+                                                  run["opt"], batch, smi))
+    del run, model, init, after
+    torch.cuda.empty_cache()
+
+    # (b) mistral-nemo-12b at full width, 4 of 40 layers
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=TRAIN_NEMO_LAYERS)
+    model = build_model(cfg)
+    (params, opt), init_s, _ = measured(lambda: init_train_state(model, rng.PRNGKey(
+        0, device=dev)))
+    n_params = sum(t.numel() for t in tree_flatten_with_path(params).values())
+    data = SyntheticLM(cfg.vocab, 128, 8, seed=17)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.shard_batch(i).items()}
+               for i in range(TRAIN_NEMO_STEPS)]
+    modes = {}
+    for mode, remat, policy in (("remat on", True, None), ("remat off", False, None),
+                                ("remat dots", True, "dots")):
+        tcfg = TrainConfig(remat=remat, remat_policy=policy)
+        step = make_train_step(model, tcfg)
+
+        def steps():
+            out = []
+            for b in batches:
+                t0 = time.perf_counter()
+                _, _, m = step(params, opt, b)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0, float(m["loss"]), float(m["grad_norm"])))
+            # the gradient pass alone: its peak above the state it starts from
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            grads = make_grad_fn(model, tcfg)(params, batches[0])[2]
+            torch.cuda.synchronize()
+            above = torch.cuda.max_memory_allocated() - base
+            del grads
+            return out, above
+
+        (res, above), _, peak = measured(steps)
+        finite_losses(f"nemo {mode}", [r[1] for r in res], [r[2] for r in res])
+        modes[mode] = (statistics.median(r[0] for r in res[1:]), peak, res, above)
+    log(f"train mistral-nemo-12b (full width: d_model {cfg.d_model}, GQA {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {cfg.n_layers} of 40 layers; "
+        f"{n_params} parameters) on {smi}: init {init_s:.3f} s; 8x128, bf16 compute, "
+        + "; ".join(f"{mode}: step {s * 1e3:.1f} ms ({8 * 128 / s:.0f} tokens/s), peak "
+                    f"{gib(p):.3f} GiB, the gradient pass {gib(a):.3f} GiB above the state, "
+                    "losses " + ", ".join(f"{r[1]:.4f}" for r in res)
+                    for mode, (s, p, res, a) in modes.items())
+        + f" (each mode {TRAIN_NEMO_STEPS} steps on from the last; the median of the last "
+        f"{TRAIN_NEMO_STEPS - 1})")
+    prof_b, _, _ = measured(lambda: train_profile("mistral-nemo-12b, 4 layers", model,
+                                                  TrainConfig(), params, opt, batches[0], smi))
+
+    def microbatches():
+        got = {}
+        for n in (1, 4):  # from the same state: a copy, then the params themselves
+            p = params if n == 4 else tree_map_with_path(lambda _, t: t.clone(), params)
+            tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1),
+                               compute_dtype=torch.float32, microbatches=n)
+            got[n] = make_train_step(model, tcfg)(p, init_opt_state(p), batches[0])[0]
+            if n == 1:
+                got[1] = tree_flatten_with_path(got[1])
+        p4 = tree_flatten_with_path(got[4])
+        return max(float((got[1][k] - p4[k]).abs().max()) for k in p4)
+
+    del opt
+    mb, secs, peak = measured(microbatches)
+    if not mb < TRAIN_MB_TOL:
+        raise AssertionError(f"train nemo: 4 microbatches vs 1, max|d params| {mb} "
+                             f"(>= {TRAIN_MB_TOL})")
+    log(f"train mistral-nemo-12b ({cfg.n_layers} layers) on {smi}: float32 compute, 4 "
+        f"microbatches of 2x128 vs one batch of 8x128 from the same state: max|d params| "
+        f"{mb:.3e} (< {TRAIN_MB_TOL}); {secs:.1f} s, peak {gib(peak):.3f} GiB")
+    del params, batches, model
+    torch.cuda.empty_cache()
+
+    # (c) the ten reduced archs, card vs CPU
+    cpu = cpu_run.get(timeout=600)
+    card, secs, _ = measured(lambda: train_reduced_runs(dev))
+    train_reduced_check(card, cpu, smi)
+
+    # (d) resume on the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def resume():
+        args = ["--arch", "mistral-nemo-12b", "--reduced", "--batch", "4", "--seq", "64",
+                "--ckpt-every", "5"]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            whole = train.main(args + ["--steps", "10", "--ckpt-dir", os.path.join(tmp, "a")])
+            train.main(args + ["--steps", "5", "--ckpt-dir", os.path.join(tmp, "b")])
+            resumed = train.main(args + ["--steps", "10", "--ckpt-dir", os.path.join(tmp, "b"),
+                                         "--resume"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return whole, resumed
+
+    try:
+        (whole, resumed), secs_d, _ = measured(resume)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if resumed["start"] != 5:
+        raise AssertionError(f"train resume: started at {resumed['start']}, not 5")
+    differ = [f"{name}/{k}" for name in ("params", "opt")
+              for k, a in tree_flatten_with_path(whole[name]).items()
+              if not torch.equal(a, tree_flatten_with_path(resumed[name])[k])]
+    if differ or resumed["losses"] != whole["losses"][5:]:
+        raise AssertionError(f"train resume: leaves {differ} differ, losses "
+                             f"{resumed['losses']} vs {whole['losses'][5:]}")
+    log(f"train resume on {smi}: --reduced mistral-nemo-12b, 10 steps checkpointed every 5 "
+        f"== 5 steps then --resume to 10 (deterministic algorithms): all params and "
+        f"optimizer leaves bit-equal, losses equal; {secs_d:.1f} s; the checkpoints' "
+        f"directory removed")
+    log(f"train phase: {time.perf_counter() - t_start:.1f} s (reduced archs on the card "
+        f"{secs:.1f} s); launches per step: rwkv6-1.6b {prof_a['launches']}, "
+        f"mistral-nemo-12b (4 layers) {prof_b['launches']}; no kernel launched")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -4026,12 +4439,16 @@ def main() -> int:
         for k, n in serve_phase(dev, cpu_serve, smi).items():
             totals[k] += n
         phase_done("serve")
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
         cpu_families = pool.apply_async(serve_reduced_runs, ("cpu",),
                                         {"cases": FAMILY_CASES, "P": FAMILY_P})
+        cpu_train = pool.apply_async(train_reduced_runs, ("cpu",), {"ulp": True})
         for k, n in families_phase(dev, cpu_families, smi).items():
             totals[k] += n
         phase_done("serve families")
+        for k, n in train_phase(dev, cpu_train, smi).items():
+            totals[k] += n
+        phase_done("train")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

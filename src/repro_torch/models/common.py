@@ -2,14 +2,17 @@
 (counterpart of ``repro.models.common``)."""
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import rng
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import tree_flatten_with_path, tree_map_with_path, tree_unflatten_like
 
 # elements per threefry draw in dense_init: a chunk's int64 temporaries stay
 # near 1 GiB on the card (gemma3-4b's embedding is 671 M values)
@@ -86,9 +89,47 @@ def _put(dst: dict, src: dict, i: int) -> None:
             dst[k][i] = v
 
 
-def layer_slice(layers: dict, i: int) -> dict:
-    """Layer i of stacked layers."""
-    return tree_map_with_path(lambda _, x: x[i], layers)
+def unstack_layers(layers: dict) -> list[dict]:
+    """The stacked layers as one tree per layer: each leaf is unbound once
+    along L.  The layers are views; under autograd the backward of the
+    unbind is one ``stack`` per leaf, where indexing layer by layer
+    (``x[i]``) would give each layer's gradient a zero tensor of the whole
+    stack's size, L of them summed."""
+    flat = tree_flatten_with_path(layers)
+    parts = {k: torch.unbind(v) for k, v in flat.items()}
+    n = len(next(iter(parts.values())))
+    return [tree_unflatten_like(layers, {k: v[i] for k, v in parts.items()}) for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``:
+    save the result of a matrix product with no batch dimension (a
+    projection), recompute everything else.  ``torch.einsum`` lowers a
+    projection such as ``bsd,dhk->bshk`` to a ``bmm`` whose batch is 1, and
+    the attention's score and value products and the MoE's per-expert
+    products to ``bmm``s with a batch, so the batch size tells them apart."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {None: None, "dots": _save_dots}
+
+
+def remat(fn, *args, policy=None):
+    """``fn(*args)`` with its activations recomputed in the backward (the
+    counterpart of ``jax.checkpoint(fn, policy=...)``): ``policy`` None
+    saves only the inputs, ``"dots"`` also the projections' outputs."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of "
+                         f"{sorted(REMAT_POLICIES, key=str)}")
+    save = REMAT_POLICIES[policy]
+    if save is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts, save))
 
 
 def lead_axes(axes):

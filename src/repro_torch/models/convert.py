@@ -24,3 +24,12 @@ def params_from_numpy(tree, device=None):
     ``device="cpu"``) from a nested dict of numpy arrays."""
     dev = resolve_device(device)
     return tree_map_with_path(lambda _, a: tensor_from_numpy(np.asarray(a), dev), tree)
+
+
+def train_state_from_numpy(params_np, opt_np, device=None):
+    """The port's ``(params, opt_state)`` on ``device`` from the reference's
+    as numpy: ``opt_np`` is ``{"m": tree, "v": tree, "step": 0-d int32}``
+    (``init_opt_state``'s structure)."""
+    if np.asarray(opt_np["step"]).shape != () or np.asarray(opt_np["step"]).dtype != np.int32:
+        raise ValueError("opt_state['step'] must be a 0-d int32 array")
+    return params_from_numpy(params_np, device), params_from_numpy(opt_np, device)

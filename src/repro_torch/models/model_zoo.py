@@ -2,8 +2,10 @@
 ``build_model(cfg)`` gives a ``Model`` bundling init / loss / prefill /
 decode for ``--arch`` dispatch over the four families: the transformers
 (dense, MoE, audio, vlm; the stub frontends take precomputed ``embeds``),
-RWKV6 (``ssm``) and Zamba2 (``hybrid``).  The dry-run fields
-(``input_specs``, ``batch_axes``, ``decode_state_spec`` /
+RWKV6 (``ssm``) and Zamba2 (``hybrid``).  ``loss_fn`` is the training
+loss (``train.steps.make_train_step`` differentiates it), with the
+reference's activation checkpointing (``remat``, on by default).  The
+dry-run fields (``input_specs``, ``batch_axes``, ``decode_state_spec`` /
 ``decode_state_axes``) wait for ``launch/dryrun``.
 """
 from __future__ import annotations
@@ -33,7 +35,7 @@ class Model:
     cfg: ModelConfig
     init_params: Callable  # (key, dtype) -> params on the key's device
     param_axes: Callable  # () -> logical-axis tree
-    loss_fn: Callable  # (params, batch) -> (loss, metrics)
+    loss_fn: Callable  # (params, batch, remat=True, remat_policy=None) -> (loss, metrics)
     prefill_fn: Callable  # (params, batch, max_len) -> (logits, cache, len)
     decode_fn: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
 
@@ -47,8 +49,9 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
-    def loss_fn(params, batch):
-        logits, aux = transformer.forward(params, cfg, batch)
+    def loss_fn(params, batch, remat=True, remat_policy=None):
+        logits, aux = transformer.forward(params, cfg, batch, remat=remat,
+                                          remat_policy=remat_policy)
         loss = cross_entropy(logits, batch["labels"])
         return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
 
@@ -65,8 +68,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
 
 
 def _build_rwkv(cfg: ModelConfig) -> Model:
-    def loss_fn(params, batch):
-        logits, aux, _ = recurrent.rwkv_forward(params, cfg, batch)
+    def loss_fn(params, batch, remat=True, remat_policy=None):
+        logits, aux, _ = recurrent.rwkv_forward(params, cfg, batch, remat=remat)
         loss = cross_entropy(logits, batch["labels"])
         return loss, {"xent": loss, "aux": aux}
 
@@ -93,8 +96,8 @@ def _build_rwkv(cfg: ModelConfig) -> Model:
 
 
 def _build_zamba(cfg: ModelConfig) -> Model:
-    def loss_fn(params, batch):
-        logits, aux = recurrent.zamba_forward(params, cfg, batch)
+    def loss_fn(params, batch, remat=True, remat_policy=None):
+        logits, aux = recurrent.zamba_forward(params, cfg, batch, remat=remat)
         loss = cross_entropy(logits, batch["labels"])
         return loss, {"xent": loss, "aux": aux}
 

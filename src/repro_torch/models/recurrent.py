@@ -10,6 +10,7 @@ as the reference stacks them; the port loops over that axis.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -20,8 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import (apply_rope, dense_init, layer_slice, lead_axes, rms_norm,
-                                      split_keys, stack_layers)
+from repro_torch.models.common import (apply_rope, dense_init, lead_axes, remat as remat_call,
+                                      rms_norm, split_keys, stack_layers, unstack_layers)
 
 Params = dict[str, Any]
 
@@ -92,23 +93,32 @@ def rwkv_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32, device=No
     }
 
 
-def rwkv_forward(params: Params, cfg: ModelConfig, batch: dict, state=None):
+def _rwkv_layer(x, p, ts1, wkv0, ts2, cfg: ModelConfig):
+    """One RWKV6 layer from its token-shift and WKV state: (x, (wkv, last
+    token of the time mix, last token of the channel mix))."""
+    h = rms_norm(x, p["norm1"])
+    a, (last1, wkv1) = ssm.rwkv_tmix(h, ts1, p["tmix"], cfg, wkv0)
+    x = x + a
+    h = rms_norm(x, p["norm2"])
+    m, last2 = ssm.rwkv_cmix(h, ts2, p["cmix"])
+    return x + m, (wkv1, last1, last2)
+
+
+def rwkv_forward(params: Params, cfg: ModelConfig, batch: dict, state=None,
+                 remat: bool = False):
     """Returns (logits, aux=0, new_state). state=None -> zeros.  The state
-    passed in is left unchanged."""
+    passed in is left unchanged.  With ``remat`` each layer's activations
+    are recomputed in the backward."""
     x = params["embed"][batch["tokens"]]
     B = x.shape[0]
     if state is None:
         state = rwkv_state_init(cfg, B, torch.float32, x.device)
+    layer = functools.partial(_rwkv_layer, cfg=cfg)
+    layers = unstack_layers(params["layers"])
     wkv, ts1, ts2 = [], [], []
     for i in range(cfg.n_layers):
-        p = layer_slice(params["layers"], i)
-        h = rms_norm(x, p["norm1"])
-        a, (last1, wkv1) = ssm.rwkv_tmix(h, state["tshift1"][i], p["tmix"], cfg,
-                                         state["wkv"][i])
-        x = x + a
-        h = rms_norm(x, p["norm2"])
-        m, last2 = ssm.rwkv_cmix(h, state["tshift2"][i], p["cmix"])
-        x = x + m
+        args = (x, layers[i], state["tshift1"][i], state["wkv"][i], state["tshift2"][i])
+        x, (wkv1, last1, last2) = remat_call(layer, *args) if remat else layer(*args)
         wkv.append(wkv1)
         ts1.append(last1)
         ts2.append(last2)
@@ -209,22 +219,32 @@ def zamba_state_init(cfg: ModelConfig, batch: int, window: int, dtype=torch.floa
     }
 
 
-def _mamba_layers(x, layers, cfg: ModelConfig, lo: int, hi: int, conv=None, ssm_state=None):
-    """Backbone layers lo..hi-1 over x, each from its conv and SSM state
-    (zeros where None).  Returns (x, [conv states], [SSM states])."""
+def _mamba_layer(x, p, conv0, s0, cfg: ModelConfig):
+    """One backbone layer from its conv and SSM state: (x, (conv, SSM
+    state))."""
+    y, states = ssm.mamba_mixer(rms_norm(x, p["norm"]), p["mamba"], cfg, conv0, s0)
+    return x + y, states
+
+
+def _zero_states(x, cfg: ModelConfig):
+    """A backbone layer's zero conv and SSM states for ``x``'s batch."""
     B = x.shape[0]
     H, P, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
+    return (torch.zeros((B, ssm.CONV_W - 1, H * P + 2 * N), dtype=x.dtype, device=x.device),
+            torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device))
+
+
+def _mamba_layers(x, layers, cfg: ModelConfig, lo: int, hi: int, conv=None, ssm_state=None):
+    """Backbone layers lo..hi-1 of ``layers`` (``unstack_layers``) over x,
+    each from its conv and SSM state (zeros where None).  Returns (x,
+    [conv states], [SSM states])."""
     if conv is None:
-        conv0 = torch.zeros((B, ssm.CONV_W - 1, H * P + 2 * N), dtype=x.dtype, device=x.device)
-        s0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+        conv0, s0 = _zero_states(x, cfg)
     convs, ssms = [], []
     for i in range(lo, hi):
-        p = layer_slice(layers, i)
-        h = rms_norm(x, p["norm"])
         if conv is not None:
             conv0, s0 = conv[i], ssm_state[i]
-        y, (conv1, s1) = ssm.mamba_mixer(h, p["mamba"], cfg, conv0, s0)
-        x = x + y
+        x, (conv1, s1) = _mamba_layer(x, layers[i], conv0, s0, cfg)
         convs.append(conv1)
         ssms.append(s1)
     return x, convs, ssms
@@ -239,19 +259,29 @@ def _shared_mlp(x, p, cfg: ModelConfig):
     return x + mlp_mod.mlp(rms_norm(x, p["norm2"]), p["mlp"], cfg)
 
 
-def zamba_forward(params: Params, cfg: ModelConfig, batch: dict):
-    """Eval forward (states start at zero). Returns (logits, aux)."""
+def _shared_block_train(x, p, cfg: ModelConfig, positions):
+    h = rms_norm(x, p["norm1"])
+    x = x + attn.attention_train(h, p["attn"], cfg, positions, window=cfg.shared_attn_window)
+    return _shared_mlp(x, p, cfg)
+
+
+def zamba_forward(params: Params, cfg: ModelConfig, batch: dict, remat: bool = False):
+    """Training forward (states start at zero). Returns (logits, aux).  With
+    ``remat`` the activations of each backbone layer and of each
+    application of the shared block are recomputed in the backward."""
     x = params["embed"][batch["tokens"]]
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    p = params["shared"]
-    for lo, hi, shared in _groups(cfg):
-        x, _, _ = _mamba_layers(x, params["layers"], cfg, lo, hi)
-        if shared:
-            h = rms_norm(x, p["norm1"])
-            x = x + attn.attention_train(h, p["attn"], cfg, positions,
-                                         window=cfg.shared_attn_window)
-            x = _shared_mlp(x, p, cfg)
+    conv0, s0 = _zero_states(x, cfg)
+    mamba = functools.partial(_mamba_layer, cfg=cfg)
+    shared = functools.partial(_shared_block_train, cfg=cfg, positions=positions)
+    call = lambda fn, *args: remat_call(fn, *args) if remat else fn(*args)
+    layers = unstack_layers(params["layers"])
+    for lo, hi, has_shared in _groups(cfg):
+        for i in range(lo, hi):
+            x, _ = call(mamba, x, layers[i], conv0, s0)
+        if has_shared:
+            x = call(shared, x, params["shared"])
     return _tied_logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -266,8 +296,9 @@ def zamba_prefill(params: Params, cfg: ModelConfig, batch: dict, window: int):
     tail_pos = positions[-W:].long() % window
     p = params["shared"]
     convs, ssms, ks, vs = [], [], [], []
+    layers = unstack_layers(params["layers"])
     for lo, hi, shared in _groups(cfg):
-        x, conv1, s1 = _mamba_layers(x, params["layers"], cfg, lo, hi)
+        x, conv1, s1 = _mamba_layers(x, layers, cfg, lo, hi)
         convs += conv1
         ssms += s1
         if shared:
@@ -309,9 +340,9 @@ def zamba_decode_step(params: Params, cfg: ModelConfig, state, tokens, cache_len
     valid = slots <= cache_len
     sqrt_hd = float(np.sqrt(np.float32(hd)))
     convs, ssms, ks, vs = [], [], [], []
+    layers = unstack_layers(params["layers"])
     for g, (lo, hi, shared) in enumerate(_groups(cfg)):
-        x, conv1, s1 = _mamba_layers(x, params["layers"], cfg, lo, hi, state["conv"],
-                                     state["ssm"])
+        x, conv1, s1 = _mamba_layers(x, layers, cfg, lo, hi, state["conv"], state["ssm"])
         convs += conv1
         ssms += s1
         if not shared:

@@ -9,7 +9,8 @@ per-layer window (``window_schedule``).
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -17,8 +18,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (dense_init, layer_slice, lead_axes, rms_norm,
-                                      split_keys, stack_layers)
+from repro_torch.models.common import (dense_init, lead_axes, remat as remat_call, rms_norm,
+                                      split_keys, stack_layers, unstack_layers)
 
 Params = dict[str, Any]
 
@@ -128,17 +129,26 @@ def _block(x, p, cfg: ModelConfig, attend):
     return x + mlp_mod.mlp(h, p["mlp"], cfg), None
 
 
-def forward(params: Params, cfg: ModelConfig, batch: dict):
-    """Eval forward (no gradient in this slice).  Returns (logits, aux), aux
-    the sum of the layers' MoE load-balance losses (0 for a dense model)."""
+def _train_layer(x, p, cfg: ModelConfig, positions, window: int):
+    """One layer of the training forward: (x, the MoE's aux loss or None)."""
+    return _block(x, p, cfg, lambda h: attn.attention_train(h, p["attn"], cfg, positions,
+                                                           window=window))
+
+
+def forward(params: Params, cfg: ModelConfig, batch: dict, *, remat: bool = False,
+            remat_policy: Optional[str] = None):
+    """Training/eval forward.  Returns (logits, aux), aux the sum of the
+    layers' MoE load-balance losses (0 for a dense model).  With ``remat``
+    each layer's activations are recomputed in the backward
+    (``common.remat``; ``remat_policy="dots"`` keeps the projections')."""
     x = _embed_in(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = layer_slice(params["layers"], i)
-        x, a = _block(x, p, cfg, lambda h: attn.attention_train(h, p["attn"], cfg, positions,
-                                                                 window=window))
+    windows = window_schedule(cfg, S).tolist()
+    for p, window in zip(unstack_layers(params["layers"]), windows):
+        layer = functools.partial(_train_layer, cfg=cfg, positions=positions, window=window)
+        x, a = remat_call(layer, x, p, policy=remat_policy) if remat else layer(x, p)
         if a is not None:
             aux = aux + a
     return _logits(params, cfg, x), aux
@@ -161,8 +171,9 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
     cache = attn.KVCacheSpec(cfg.n_layers, B, max_len, cfg.n_kv_heads,
                              cfg.head_dim).init(cache_dtype, device=x.device)
 
+    layers = unstack_layers(params["layers"])
     for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = layer_slice(params["layers"], i)
+        p = layers[i]
 
         def attend(h):
             q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
@@ -184,8 +195,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, cache_len):
     x = _scale_embed(x, cfg)
     S = cache["k"].shape[2]
     new = {"k": torch.empty_like(cache["k"]), "v": torch.empty_like(cache["v"])}
+    layers = unstack_layers(params["layers"])
     for i, window in enumerate(window_schedule(cfg, S).tolist()):
-        p = layer_slice(params["layers"], i)
+        p = layers[i]
 
         def attend(h):
             ck, cv = attn.decode_kv_update(p["attn"], cfg, h, cache["k"][i], cache["v"][i],
