@@ -2,20 +2,23 @@
 (KV-chunked online softmax) for train/prefill, masked attention over the
 whole KV cache for decode.
 
-The reference constrains its tensors to a device mesh (``shard(...)``);
-on one card that is the identity, so the port has no such calls.  The
-attention is plain PyTorch, as the reference's is plain JAX: it reaches no
-Pallas kernel.
+Tensors are constrained to the active mesh's sharding at the reference's
+places (``distrib.sharding.shard``: a no-op with no mesh).  Train/prefill
+is head-parallel ("heads": q/k/v heads over the model axis) or, for the
+low-head archs, sequence-parallel ("seq_model"); decode keeps the KV cache
+sharded along its sequence ("kv_seq"), the softmax reducing across shards
+(flash-decode).  The attention is plain PyTorch, as the reference's is
+plain JAX: it reaches no Pallas kernel.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.sharding import einsum, full, shard, zeros
 from repro_torch.models.common import apply_rope, dense_init, split_keys
 
 # finite: a KV chunk wholly outside a query's window scores NEG_INF
@@ -46,9 +49,9 @@ def _scale(hd: int) -> float:
 
 
 def _project_qkv(x, p, cfg: ModelConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.rope_theta:
@@ -85,13 +88,13 @@ def flash_attention(
     qf = q.float() * _scale(hd)
     chunk = min(chunk, Skv)
 
-    m = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
-    o = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    m = full((B, Sq, H), NEG_INF, torch.float32, q)  # placed like q under a mesh
+    l = zeros((B, Sq, H), torch.float32, q)
+    o = zeros((B, Sq, H, hd), torch.float32, q)
     qp = q_pos[None, :, None, None]
     for c0 in range(0, Skv, chunk):
         kb, vb, pb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], kv_pos[c0:c0 + chunk]
-        s = torch.einsum("bqhd,bchd->bqhc", qf, kb.float())
+        s = einsum("bqhd,bchd->bqhc", qf, kb.float())
         ok = qp >= pb
         if window is not None:
             ok = ok & (qp - pb < window)
@@ -100,7 +103,7 @@ def flash_attention(
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        o = o * corr[..., None] + torch.einsum("bqhc,bchd->bqhd", p, vb.float())
+        o = o * corr[..., None] + einsum("bqhc,bchd->bqhd", p, vb.float())
         m = m_new
     out = o / torch.clamp(l[..., None], min=1e-30)
     return out.to(q.dtype)
@@ -109,22 +112,25 @@ def flash_attention(
 def attention_train(x, p, cfg: ModelConfig, positions, window=None):
     """Full-sequence attention (training / prefill forward)."""
     q, k, v = _project_qkv(x, p, cfg, positions)
+    if cfg.attn_strategy == "sequence":
+        q = shard(q, "batch", "seq_model", None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+    else:
+        # expand KV to full heads before the constraint, so that the whole
+        # attention is head-parallel even with fewer KV heads than shards
+        k = _expand_kv(k, cfg.n_heads)
+        v = _expand_kv(v, cfg.n_heads)
+        q = shard(q, "batch", "seq", "heads", None)
+        k = shard(k, "batch", "seq", "heads", None)
+        v = shard(v, "batch", "seq", "heads", None)
     out = flash_attention(q, k, v, positions, positions, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
-
-
-@dataclasses.dataclass(frozen=True)
-class KVCacheSpec:
-    n_layers: int
-    batch: int
-    max_len: int
-    n_kv_heads: int
-    head_dim: int
-
-    def init(self, dtype=torch.bfloat16, device=None):
-        shape = (self.n_layers, self.batch, self.max_len, self.n_kv_heads, self.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.attn_strategy == "sequence":
+        out = shard(out, "batch", "seq_model", None, None)
+    else:
+        out = shard(out, "batch", "seq", "heads", None)
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
+    return shard(y, "batch", "seq", None)
 
 
 def attention_decode(x, p, cfg: ModelConfig, layer_k, layer_v, cache_len, window=None):
@@ -135,7 +141,7 @@ def attention_decode(x, p, cfg: ModelConfig, layer_k, layer_v, cache_len, window
     """
     B = x.shape[0]
     pos = cache_len.reshape(1)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.rope_theta:
@@ -146,15 +152,19 @@ def attention_decode(x, p, cfg: ModelConfig, layer_k, layer_v, cache_len, window
     vf = _expand_kv(layer_v, H).float()
     qf = (q.float() * _scale(hd)).reshape(B, H, hd)
     kv_pos = torch.arange(S, device=x.device)
-    s = torch.einsum("bhd,bshd->bhs", qf, kf)
+    s = einsum("bhd,bshd->bhs", qf, kf)
+    # flash-decode: the scores keep the cache's sequence sharding, so each
+    # shard attends over its own KV chunk and only the softmax reductions
+    # cross shards
+    s = shard(s, "batch", None, "kv_seq")
     ok = kv_pos <= cache_len
     if window is not None:
         ok = ok & (cache_len - kv_pos < window)
     s = torch.where(ok, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", w, vf)
+    w = shard(torch.softmax(s, dim=-1), "batch", None, "kv_seq")
+    out = einsum("bhs,bshd->bhd", w, vf)
     out = out.reshape(B, 1, H, hd).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def decode_kv_update(p, cfg: ModelConfig, x, cache_k, cache_v, cache_len):
@@ -162,8 +172,8 @@ def decode_kv_update(p, cfg: ModelConfig, x, cache_k, cache_v, cache_len):
     over the cache's sequence axis, as the reference writes it (it returns
     new caches; the inputs are left unchanged)."""
     pos = cache_len.reshape(1)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     if cfg.rope_theta:

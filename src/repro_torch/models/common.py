@@ -49,11 +49,14 @@ def apply_rope(x, positions, theta: float):
 def dense_init(key, shape, in_axis_size=None, dtype=torch.float32):
     """``normal(key, shape) / sqrt(fan_in)`` cast to ``dtype``, on the key's
     device, drawn in chunks of ``INIT_CHUNK`` elements of the flat index
-    (the same values as one draw)."""
+    (the same values as one draw).  On the meta device there is nothing
+    to draw."""
     shape = tuple(shape)
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
     out = torch.empty(shape, dtype=dtype, device=key.device)
+    if out.is_meta:  # shapes alone (``launch.roofline``, ``launch.dryrun``)
+        return out
     flat = out.view(-1)
     n = math.prod(shape)
     for s in range(0, n, INIT_CHUNK):

@@ -10,8 +10,10 @@ sharded over a mesh axis, one psum) is multi-GPU and is not ported.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.sharding import einsum, shard
 from repro_torch.models.common import act_fn, dense_init, split_keys
 
 
@@ -27,8 +29,9 @@ def init_mlp_params(key, cfg: ModelConfig, dtype=torch.float32):
 
 def mlp(x, p, cfg: ModelConfig):
     act = act_fn(cfg.act)
-    h = act(torch.einsum("bsd,df->bsf", x, p["w1"])) * torch.einsum("bsd,df->bsf", x, p["w3"])
-    return torch.einsum("bsf,fd->bsd", h, p["w2"])
+    h = act(einsum("bsd,df->bsf", x, p["w1"])) * einsum("bsd,df->bsf", x, p["w3"])
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(einsum("bsf,fd->bsd", h, p["w2"]), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +64,7 @@ def moe_routing(xt, router, cfg: ModelConfig) -> dict:
     below ``cap``)."""
     T = xt.shape[0]
     E, k = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("td,de->te", xt, router).float()
+    logits = einsum("td,de->te", xt, router).float()
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :k], ids[:, :k]
@@ -118,9 +121,11 @@ def _moe_local(x, p, cfg: ModelConfig):
 
 def moe(x, p, cfg: ModelConfig):
     """The MoE layer on one card. Returns (y, aux_loss)."""
-    if p["w1"].shape[0] != cfg.n_experts:
+    w1 = p["w1"]
+    held = (w1.to_local() if isinstance(w1, DTensor) else w1).shape[0]  # a mesh: the shard's
+    if held != cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: parameters hold {p['w1'].shape[0]} of {cfg.n_experts} experts; "
+            f"{cfg.name}: parameters hold {held} of {cfg.n_experts} experts; "
             "expert parallelism over several cards is not ported yet (ROADMAP.md, queue 1 "
             "item 12, multi-GPU)")
     return _moe_local(x, p, cfg)

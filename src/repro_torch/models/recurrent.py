@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.sharding import einsum, lookup, shard, zeros
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm
@@ -83,13 +84,15 @@ def rwkv_param_axes(cfg: ModelConfig):
     }
 
 
-def rwkv_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
+def rwkv_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None, like=None):
+    """The zero decode state; placed by the decode state's logical axes
+    under a mesh when ``like`` (the step's activations) is a DTensor."""
     H, K = cfg.n_heads, cfg.head_dim
-    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    z = lambda shape, *axes: zeros(shape, dtype, device if like is None else like, *axes)
     return {
-        "wkv": z(cfg.n_layers, batch, H, K, K),
-        "tshift1": z(cfg.n_layers, batch, 1, cfg.d_model),
-        "tshift2": z(cfg.n_layers, batch, 1, cfg.d_model),
+        "wkv": z((cfg.n_layers, batch, H, K, K), None, "batch", "heads", None, None),
+        "tshift1": z((cfg.n_layers, batch, 1, cfg.d_model), None, "batch", None, None),
+        "tshift2": z((cfg.n_layers, batch, 1, cfg.d_model), None, "batch", None, None),
     }
 
 
@@ -109,10 +112,10 @@ def rwkv_forward(params: Params, cfg: ModelConfig, batch: dict, state=None,
     """Returns (logits, aux=0, new_state). state=None -> zeros.  The state
     passed in is left unchanged.  With ``remat`` each layer's activations
     are recomputed in the backward."""
-    x = params["embed"][batch["tokens"]]
+    x = shard(lookup(params["embed"], batch["tokens"]), "batch", "seq", None)
     B = x.shape[0]
     if state is None:
-        state = rwkv_state_init(cfg, B, torch.float32, x.device)
+        state = rwkv_state_init(cfg, B, torch.float32, like=x)
     layer = functools.partial(_rwkv_layer, cfg=cfg)
     layers = unstack_layers(params["layers"])
     wkv, ts1, ts2 = [], [], []
@@ -123,7 +126,7 @@ def rwkv_forward(params: Params, cfg: ModelConfig, batch: dict, state=None,
         ts1.append(last1)
         ts2.append(last2)
     h = rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = shard(einsum("bsd,dv->bsv", h, params["lm_head"]), "batch", "seq", "vocab")
     new_state = {"wkv": torch.stack(wkv), "tshift1": torch.stack(ts1),
                  "tshift2": torch.stack(ts2)}
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), new_state
@@ -230,8 +233,8 @@ def _zero_states(x, cfg: ModelConfig):
     """A backbone layer's zero conv and SSM states for ``x``'s batch."""
     B = x.shape[0]
     H, P, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
-    return (torch.zeros((B, ssm.CONV_W - 1, H * P + 2 * N), dtype=x.dtype, device=x.device),
-            torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device))
+    return (zeros((B, ssm.CONV_W - 1, H * P + 2 * N), x.dtype, x, "batch", None, "state"),
+            zeros((B, H, N, P), torch.float32, x, "batch", "heads", None, None))
 
 
 def _mamba_layers(x, layers, cfg: ModelConfig, lo: int, hi: int, conv=None, ssm_state=None):
@@ -252,7 +255,8 @@ def _mamba_layers(x, layers, cfg: ModelConfig, lo: int, hi: int, conv=None, ssm_
 
 def _tied_logits(params, x):
     h = rms_norm(x, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", h, params["embed"].T.to(h.dtype))
+    logits = einsum("bsd,dv->bsv", h, params["embed"].T.to(h.dtype))
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _shared_mlp(x, p, cfg: ModelConfig):
@@ -269,7 +273,7 @@ def zamba_forward(params: Params, cfg: ModelConfig, batch: dict, remat: bool = F
     """Training forward (states start at zero). Returns (logits, aux).  With
     ``remat`` the activations of each backbone layer and of each
     application of the shared block are recomputed in the backward."""
-    x = params["embed"][batch["tokens"]]
+    x = shard(lookup(params["embed"], batch["tokens"]), "batch", "seq", None)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     conv0, s0 = _zero_states(x, cfg)
@@ -289,7 +293,7 @@ def zamba_prefill(params: Params, cfg: ModelConfig, batch: dict, window: int):
     """Forward over the prompt collecting final SSM/conv states and the
     shared-attention ring caches (the last ``window`` positions, position
     t at slot t % window). Returns (last_logits, state, cache_len)."""
-    x = params["embed"][batch["tokens"]]
+    x = shard(lookup(params["embed"], batch["tokens"]), "batch", "seq", None)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     W = min(window, S)
@@ -304,17 +308,19 @@ def zamba_prefill(params: Params, cfg: ModelConfig, batch: dict, window: int):
         if shared:
             h = rms_norm(x, p["norm1"])
             q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
+            q = shard(q, "batch", "seq", "heads", None)
             o = attn.flash_attention(q, k, v, positions, positions,
                                      window=cfg.shared_attn_window)
-            x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+            x = x + shard(einsum("bshk,hkd->bsd", o, p["attn"]["wo"]), "batch", "seq", None)
             x = _shared_mlp(x, p, cfg)
             ring = (B, window, cfg.n_kv_heads, cfg.head_dim)
-            ck = torch.zeros(ring, dtype=torch.bfloat16, device=x.device)
-            cv = torch.zeros(ring, dtype=torch.bfloat16, device=x.device)
+            # written whole along the window, then sharded along it (below)
+            ck = zeros(ring, torch.bfloat16, x, "batch", None, "kv_heads", None)
+            cv = zeros(ring, torch.bfloat16, x, "batch", None, "kv_heads", None)
             ck[:, tail_pos] = k[:, -W:].to(torch.bfloat16)
             cv[:, tail_pos] = v[:, -W:].to(torch.bfloat16)
-            ks.append(ck)
-            vs.append(cv)
+            ks.append(shard(ck, "batch", "kv_seq", "kv_heads", None))
+            vs.append(shard(cv, "batch", "kv_seq", "kv_heads", None))
     state = {"ssm": torch.stack(ssms), "conv": torch.stack(convs), "k": torch.stack(ks),
              "v": torch.stack(vs)}
     logits = _tied_logits(params, x[:, -1:, :])
@@ -325,7 +331,7 @@ def zamba_decode_step(params: Params, cfg: ModelConfig, state, tokens, cache_len
                       window: int):
     """One token through the hybrid stack with O(1) + O(window) state; the
     state passed in is left unchanged.  cache_len: a 0-d int32 tensor."""
-    x = params["embed"][tokens]  # (B,1,d)
+    x = shard(lookup(params["embed"], tokens), "batch", None, None)  # (B,1,d)
     B = x.shape[0]
     Hq, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Gq = Hq // Hk
@@ -348,21 +354,23 @@ def zamba_decode_step(params: Params, cfg: ModelConfig, state, tokens, cache_len
         if not shared:
             continue
         h = rms_norm(x, p["norm1"])
-        k1 = torch.einsum("bsd,dhk->bshk", h, pa["wk"])
-        v1 = torch.einsum("bsd,dhk->bshk", h, pa["wv"])
-        q = torch.einsum("bsd,dhk->bshk", h, pa["wq"])
+        k1 = einsum("bsd,dhk->bshk", h, pa["wk"])
+        v1 = einsum("bsd,dhk->bshk", h, pa["wv"])
+        q = einsum("bsd,dhk->bshk", h, pa["wq"])
         if cfg.rope_theta:
             k1 = apply_rope(k1, pos, cfg.rope_theta)
             q = apply_rope(q, pos, cfg.rope_theta)
-        ck = torch.where(sel, k1.to(state["k"].dtype), state["k"][g])
-        cv = torch.where(sel, v1.to(state["v"].dtype), state["v"][g])
+        ck = shard(state["k"][g], "batch", "kv_seq", "kv_heads", None)
+        cv = shard(state["v"][g], "batch", "kv_seq", "kv_heads", None)
+        ck = torch.where(sel, k1.to(ck.dtype), ck)
+        cv = torch.where(sel, v1.to(cv.dtype), cv)
         qf = (q.float() / sqrt_hd).reshape(B, Hk, Gq, hd)
-        s = torch.einsum("bkgh,bskh->bkgs", qf, ck.float())
+        s = einsum("bkgh,bskh->bkgs", qf, ck.float())
         s = torch.where(valid, s, attn.NEG_INF)
         w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgs,bskh->bkgh", w, cv.float())
+        o = einsum("bkgs,bskh->bkgh", w, cv.float())
         o = o.reshape(B, 1, Hq, hd).to(x.dtype)
-        x = x + torch.einsum("bshk,hkd->bsd", o, pa["wo"])
+        x = x + einsum("bshk,hkd->bsd", o, pa["wo"])
         x = _shared_mlp(x, p, cfg)
         ks.append(ck)
         vs.append(cv)

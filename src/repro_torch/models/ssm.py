@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.sharding import einsum, shard
 from repro_torch.models.common import dense_init, sigmoid, silu, softplus, split_keys
 
 LOG_DECAY_FLOOR = -8.0  # per-step clamp; exp(-8) ~ 3e-4 per step
@@ -55,17 +56,17 @@ def chunked_rwkv(r, k, v, logw, u, state0, chunk: int = 16):
     logP = torch.cumsum(lwb, dim=2)  # inclusive
     # the state at each chunk's start: S1 = P_end * S0 + Σ_s (P_end / P_s) k_s^T v_s
     decay_to_end = torch.exp(logP[:, :, -1:] - logP)  # (B,n,c,H,K)
-    inc = torch.einsum("bxshk,bxshv->bxhkv", kb * decay_to_end, vb)
+    inc = einsum("bxshk,bxshv->bxhkv", kb * decay_to_end, vb)
     starts, state = _carry(state0.float(), torch.exp(logP[:, :, -1])[..., None], inc)
     # inter-chunk: y_t = (r_t * P_{t-1}) S0 ; P_{t-1} = P_t / w_t
     rP = rb * torch.exp(logP - lwb)
-    y = torch.einsum("bxthk,bxhkv->bxthv", rP, starts)
+    y = einsum("bxthk,bxhkv->bxthv", rP, starts)
     # intra-chunk, strictly causal (s < t): D = P_{t-1} / P_s
     D = torch.exp((logP - lwb)[:, :, :, None] - logP[:, :, None])  # (B,n,t,s,H,K)
     mask = (torch.arange(c, device=r.device)[:, None]
             > torch.arange(c, device=r.device)[None, :])[None, None, :, :, None, None]
-    A = torch.einsum("bxthk,bxtshk->bxths", rb, kb[:, :, None] * torch.where(mask, D, 0.0))
-    y = y + torch.einsum("bxths,bxshv->bxthv", A, vb)
+    A = einsum("bxthk,bxtshk->bxths", rb, kb[:, :, None] * torch.where(mask, D, 0.0))
+    y = y + einsum("bxths,bxshv->bxthv", A, vb)
     # bonus (s == t)
     y = y + (rb * (u.float() * kb)).sum(dim=-1, keepdim=True) * vb
     return y.reshape(B, S, H, V).to(r.dtype), state
@@ -77,7 +78,7 @@ def rwkv_step(r, k, v, logw, u, state):
     r, k, v = r.float(), k.float(), v.float()
     w = torch.exp(torch.clamp(logw.float(), LOG_DECAY_FLOOR, 0.0))
     kv = k[..., :, None] * v[..., None, :]  # (B,H,K,V)
-    y = torch.einsum("bhk,bhkv->bhv", r, state + u[None, ..., None] * kv)
+    y = einsum("bhk,bhkv->bhv", r, state + u[None, ..., None] * kv)
     new_state = w[..., None] * state + kv
     return y, new_state
 
@@ -94,15 +95,15 @@ def chunked_ssd(r, k, v, loga, state0, chunk: int = 32):
     lab = _chunks(torch.clamp(loga.float(), LOG_DECAY_FLOOR, 0.0), n, c)  # (B,n,c,H)
     logP = torch.cumsum(lab, dim=2)
     decay_to_end = torch.exp(logP[:, :, -1:] - logP)  # (B,n,c,H)
-    inc = torch.einsum("bxshm,bxshp->bxhmp", kb * decay_to_end[..., None], vb)
+    inc = einsum("bxshm,bxshp->bxhmp", kb * decay_to_end[..., None], vb)
     starts, state = _carry(state0.float(), torch.exp(logP[:, :, -1])[..., None, None], inc)
-    y = torch.einsum("bxthm,bxhmp->bxthp", rb * torch.exp(logP)[..., None], starts)
+    y = einsum("bxthm,bxhmp->bxthp", rb * torch.exp(logP)[..., None], starts)
     # D[b,x,t,h,s] = exp(logP_t - logP_s)
     D = torch.exp(logP[..., None] - logP.transpose(2, 3)[:, :, None])
     mask = (torch.arange(c, device=r.device)[:, None]
             >= torch.arange(c, device=r.device)[None, :])[None, None, :, None, :]
-    A = torch.einsum("bxthm,bxshm->bxths", rb, kb) * torch.where(mask, D, 0.0)
-    y = y + torch.einsum("bxths,bxshp->bxthp", A, vb)
+    A = einsum("bxthm,bxshm->bxths", rb, kb) * torch.where(mask, D, 0.0)
+    y = y + einsum("bxths,bxshp->bxthp", A, vb)
     return y.reshape(B, S, H, P).to(r.dtype), state
 
 
@@ -110,7 +111,7 @@ def ssd_step(r, k, v, loga, state):
     """r,k: (B,H,N); v: (B,H,P); loga: (B,H); state: (B,H,N,P)."""
     a = torch.exp(torch.clamp(loga.float(), LOG_DECAY_FLOOR, 0.0))
     new_state = a[..., None, None] * state + k.float()[..., :, None] * v.float()[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", r.float(), new_state)
+    y = einsum("bhn,bhnp->bhp", r.float(), new_state)
     return y, new_state
 
 
@@ -149,23 +150,24 @@ def rwkv_tmix(x, prev_tok, p, cfg: ModelConfig, state0):
     H, K = cfg.n_heads, cfg.head_dim
     xs = _token_shift(x, prev_tok)
     lerp = lambda i: x + (xs - x) * p["mu"][i]
-    proj = lambda i, w: torch.einsum("bsd,de->bse", lerp(i), p[w])
+    proj = lambda i, w: einsum("bsd,de->bse", lerp(i), p[w])
     r = proj(0, "wr").reshape(B, S, H, K)
     k = proj(1, "wk").reshape(B, S, H, K)
     v = proj(2, "wv").reshape(B, S, H, K)
     g = silu(proj(3, "wg"))
     # data-dependent decay (the Finch hallmark): low-rank dynamic log-decay
-    lora = torch.einsum("bsd,dl->bsl", torch.tanh(lerp(4)), p["wa"])
-    ww = p["w0"] + torch.einsum("bsl,le->bse", lora, p["wb"])
+    lora = einsum("bsd,dl->bsl", torch.tanh(lerp(4)), p["wa"])
+    ww = p["w0"] + einsum("bsl,le->bse", lora, p["wb"])
     logw = -torch.exp(torch.clamp(ww.float(), -10.0, 2.0))  # < 0
     logw = logw.reshape(B, S, H, K)
+    r, k, v = (shard(t, "batch", "seq", "heads", None) for t in (r, k, v))
     y, state = chunked_rwkv(r, k, v, logw, p["u"], state0)
     # per-head group norm (approximated with RMS over head dims)
     yh = y.float()
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-5)
     y = (yh.reshape(B, S, d) * p["ln_w"]).to(x.dtype)
-    y = torch.einsum("bsd,de->bse", y * g, p["wo"])
-    return y, (x[:, -1:], state)
+    y = einsum("bsd,de->bse", y * g, p["wo"])
+    return shard(y, "batch", "seq", None), (x[:, -1:], state)
 
 
 def init_rwkv_cmix_params(key, cfg: ModelConfig, dtype=torch.float32):
@@ -183,10 +185,11 @@ def rwkv_cmix(x, prev_tok, p):
     xs = _token_shift(x, prev_tok)
     xk = x + (xs - x) * p["mu"][0]
     xr = x + (xs - x) * p["mu"][1]
-    k = torch.square(torch.relu(torch.einsum("bsd,df->bsf", xk, p["wk"])))
-    kv = torch.einsum("bsf,fd->bsd", k, p["wv"])
-    r = sigmoid(torch.einsum("bsd,de->bse", xr, p["wr"]))
-    return r * kv, x[:, -1:]
+    k = torch.square(torch.relu(einsum("bsd,df->bsf", xk, p["wk"])))
+    k = shard(k, "batch", "seq", "mlp")
+    kv = einsum("bsf,fd->bsd", k, p["wv"])
+    r = sigmoid(einsum("bsd,de->bse", xr, p["wr"]))
+    return shard(r * kv, "batch", "seq", None), x[:, -1:]
 
 
 # ---------------------------------------------------------------------------
@@ -231,18 +234,20 @@ def mamba_mixer(x, p, cfg: ModelConfig, conv_prev, state0):
     B, S, d = x.shape
     H, P, N = cfg.n_heads, cfg.head_dim, cfg.ssm_state
     d_in = H * P
-    xz = torch.einsum("bsd,de->bse", x, p["in_z"])
-    xi = torch.einsum("bsd,de->bse", x, p["in_x"])
-    bc = torch.einsum("bsd,dn->bsn", x, p["in_bc"])
-    dt = softplus(torch.einsum("bsd,dh->bsh", x, p["in_dt"]) + p["dt_bias"])
+    xz = einsum("bsd,de->bse", x, p["in_z"])
+    xi = einsum("bsd,de->bse", x, p["in_x"])
+    bc = einsum("bsd,dn->bsn", x, p["in_bc"])
+    dt = softplus(einsum("bsd,dh->bsh", x, p["in_dt"]) + p["dt_bias"])
     conv_out, conv_state = _causal_conv(torch.cat([xi, bc], dim=-1), p["conv_w"], conv_prev)
     xi = conv_out[..., :d_in].reshape(B, S, H, P)
     Bm = conv_out[..., d_in:d_in + N][:, :, None, :].expand(B, S, H, N)
     Cm = conv_out[..., d_in + N:][:, :, None, :].expand(B, S, H, N)
     loga = -torch.exp(p["a_log"])[None, None, :] * dt  # (B,S,H)
     v = xi * dt[..., None]  # fold dt into the input (standard SSD form)
+    Cm = shard(Cm, "batch", "seq", "heads", None)
+    v = shard(v, "batch", "seq", "heads", None)
     y, state = chunked_ssd(Cm, Bm, v, loga, state0)
     y = y + xi * p["d_skip"][None, None, :, None]
     y = y.reshape(B, S, d_in) * silu(xz)
-    out = torch.einsum("bse,ed->bsd", y, p["out"])
-    return out, (conv_state, state)
+    out = einsum("bse,ed->bsd", y, p["out"])
+    return shard(out, "batch", "seq", None), (conv_state, state)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distrib.sharding import einsum, lookup, shard, zeros
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (dense_init, lead_axes, remat as remat_call, rms_norm,
@@ -90,14 +91,13 @@ def param_axes(cfg: ModelConfig):
     return axes
 
 
-def window_schedule(cfg: ModelConfig, seq_len: int) -> torch.Tensor:
-    """Per-layer attention window (seq_len + 1 => effectively global), an
-    int32 tensor on the host."""
+def window_schedule(cfg: ModelConfig, seq_len: int) -> list[int]:
+    """Per-layer attention window (seq_len + 1 => effectively global): a
+    list of ints, from the config alone."""
     if cfg.window_pattern is None:
-        return torch.full((cfg.n_layers,), seq_len + 1, dtype=torch.int32)
+        return [seq_len + 1] * cfg.n_layers
     w, period = cfg.window_pattern
-    sched = [seq_len + 1 if (i + 1) % period == 0 else w for i in range(cfg.n_layers)]
-    return torch.tensor(sched, dtype=torch.int32)
+    return [seq_len + 1 if (i + 1) % period == 0 else w for i in range(cfg.n_layers)]
 
 
 def _scale_embed(x, cfg: ModelConfig):
@@ -108,14 +108,14 @@ def _scale_embed(x, cfg: ModelConfig):
 
 
 def _embed_in(params, cfg: ModelConfig, batch):
-    x = batch["embeds"] if "embeds" in batch else params["embed"][batch["tokens"]]
-    return _scale_embed(x, cfg)
+    x = batch["embeds"] if "embeds" in batch else lookup(params["embed"], batch["tokens"])
+    return shard(_scale_embed(x, cfg), "batch", "seq", None)
 
 
 def _logits(params, cfg: ModelConfig, x):
     h = rms_norm(x, params["final_norm"], plus_one=cfg.norm_plus_one)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T.to(h.dtype)
-    return torch.einsum("bsd,dv->bsv", h, head)
+    return shard(einsum("bsd,dv->bsv", h, head), "batch", "seq", "vocab")
 
 
 def _block(x, p, cfg: ModelConfig, attend):
@@ -145,7 +145,7 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *, remat: bool = Fals
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    windows = window_schedule(cfg, S).tolist()
+    windows = window_schedule(cfg, S)
     for p, window in zip(unstack_layers(params["layers"]), windows):
         layer = functools.partial(_train_layer, cfg=cfg, positions=positions, window=window)
         x, a = remat_call(layer, x, p, policy=remat_policy) if remat else layer(x, p)
@@ -168,19 +168,27 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
     x = _embed_in(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = attn.KVCacheSpec(cfg.n_layers, B, max_len, cfg.n_kv_heads,
-                             cfg.head_dim).init(cache_dtype, device=x.device)
+    kv = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {n: zeros(kv, cache_dtype, x, None, "batch", "kv_seq", "kv_heads", None)
+             for n in ("k", "v")}
 
     layers = unstack_layers(params["layers"])
-    for i, window in enumerate(window_schedule(cfg, S).tolist()):
+    for i, window in enumerate(window_schedule(cfg, S)):
         p = layers[i]
 
         def attend(h):
             q, k, v = attn._project_qkv(h, p["attn"], cfg, positions)
+            q = shard(q, "batch", "seq", "heads", None)
+            k = shard(k, "batch", "kv_seq", "kv_heads", None)
+            v = shard(v, "batch", "kv_seq", "kv_heads", None)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
+            # resharded once per layer, heads like q's: the flash loop slices
+            # K/V by chunk, which along a sharded sequence gathers each chunk
+            k, v = (shard(attn._expand_kv(t, cfg.n_heads), "batch", "seq", "heads", None)
+                    for t in (k, v))
             o = attn.flash_attention(q, k, v, positions, positions, window=window)
-            return torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+            return shard(einsum("bshk,hkd->bsd", o, p["attn"]["wo"]), "batch", "seq", None)
 
         x, _ = _block(x, p, cfg, attend)
     logits = _logits(params, cfg, x[:, -1:, :])
@@ -191,19 +199,21 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, cache_len):
     """One decode step. tokens: (B, 1) int (or embeds (B, 1, d));
     cache: {"k","v"}: (L, B, S, Hk, hd); cache_len: a 0-d int32 tensor.
     Returns (logits, new cache); the cache passed in is left unchanged."""
-    x = tokens if tokens.ndim == 3 else params["embed"][tokens]
-    x = _scale_embed(x, cfg)
+    x = tokens if tokens.ndim == 3 else lookup(params["embed"], tokens)
+    x = shard(_scale_embed(x, cfg), "batch", None, None)
     S = cache["k"].shape[2]
     new = {"k": torch.empty_like(cache["k"]), "v": torch.empty_like(cache["v"])}
     layers = unstack_layers(params["layers"])
-    for i, window in enumerate(window_schedule(cfg, S).tolist()):
+    for i, window in enumerate(window_schedule(cfg, S)):
         p = layers[i]
 
         def attend(h):
-            ck, cv = attn.decode_kv_update(p["attn"], cfg, h, cache["k"][i], cache["v"][i],
-                                           cache_len)
+            ck = shard(cache["k"][i], "batch", "kv_seq", "kv_heads", None)
+            cv = shard(cache["v"][i], "batch", "kv_seq", "kv_heads", None)
+            ck, cv = attn.decode_kv_update(p["attn"], cfg, h, ck, cv, cache_len)
             new["k"][i], new["v"][i] = ck, cv
-            return attn.attention_decode(h, p["attn"], cfg, ck, cv, cache_len, window=window)
+            a = attn.attention_decode(h, p["attn"], cfg, ck, cv, cache_len, window=window)
+            return shard(a, "batch", None, None)
 
         x, _ = _block(x, p, cfg, attend)
     return _logits(params, cfg, x), new

@@ -89,7 +89,10 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> ``(..., num, 2)`` keys."""
+    """``jax.random.split(key, num)`` -> ``(..., num, 2)`` keys (on the meta
+    device, their shape alone)."""
+    if key.is_meta:
+        return key.new_empty((*key.shape[:-1], num, 2))
     k1, k2 = _words(key)
     i = torch.arange(num, dtype=torch.int64, device=key.device)
     y1, y2 = threefry2x32(k1[..., None], k2[..., None], torch.zeros_like(i), i)

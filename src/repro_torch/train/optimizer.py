@@ -34,6 +34,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
 
@@ -106,13 +107,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _local(t):
+    """A DTensor's shard on this rank; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, opt_state):
     """One AdamW step, in place: ``params`` and ``opt_state``'s leaves are
     overwritten and returned.  Returns ``(params, opt_state, metrics)``,
-    metrics ``grad_norm`` and ``lr`` (0-d float32 tensors)."""
-    step = opt_state["step"].add_(1)
+    metrics ``grad_norm`` and ``lr`` (0-d float32 tensors).
+
+    On DTensor leaves (a mesh) each gradient is first placed like its
+    parameter (the data-parallel reduction), the global norm's sum is the
+    one reduction across shards, and the update runs elementwise on each
+    leaf's local shard."""
+    params_flat = tree_flatten_with_path(params)
+    grads = tree_map_with_path(
+        lambda k, g: g.redistribute(g.device_mesh, params_flat[k].placements)
+        if isinstance(g, DTensor) and g.placements != params_flat[k].placements else g, grads)
+    step = _local(opt_state["step"]).add_(1)
     gnorm = global_norm(grads)
+    if isinstance(gnorm, DTensor):
+        gnorm = gnorm.full_tensor()
     # a division (``float / tensor`` would multiply by the reciprocal)
     scale = torch.clamp(gnorm.new_tensor(cfg.clip_norm) / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
@@ -125,9 +142,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, opt_state):
     flat_g = tree_flatten_with_path(grads)
     flat_m = tree_flatten_with_path(opt_state["m"])
     flat_v = tree_flatten_with_path(opt_state["v"])
-    for path, p in tree_flatten_with_path(params).items():
-        pf, gf = p.view(-1), flat_g[path].reshape(-1)
-        mf, vf = flat_m[path].view(-1), flat_v[path].view(-1)
+    for path, p in params_flat.items():
+        pf, gf = _local(p).view(-1), _local(flat_g[path]).reshape(-1)
+        mf, vf = _local(flat_m[path]).view(-1), _local(flat_v[path]).view(-1)
         for s in range(0, pf.numel(), CHUNK):
             e = s + CHUNK
             g = gf[s:e].float() * scale

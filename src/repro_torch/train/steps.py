@@ -12,6 +12,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import cast_tree
 from repro_torch.models.model_zoo import Model
@@ -55,6 +56,16 @@ def make_grad_fn(model: Model, tcfg: TrainConfig):
     return grad_fn
 
 
+def _microbatch(v, n: int, i: int):
+    """Microbatch ``i`` of ``n``: rows ``i * m`` to ``(i + 1) * m`` of ``v``.
+    Over a DTensor sharded by rows it is every ``n``-th row from ``i``
+    instead, so that each microbatch stays spread over the shards (the
+    microbatches' sum is the same)."""
+    if isinstance(v, DTensor):
+        return v.reshape(v.shape[0] // n, n, *v.shape[1:])[:, i]
+    return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+
+
 def make_train_step(model: Model, tcfg: TrainConfig):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  It updates ``params`` and ``opt_state`` in place (the
@@ -68,8 +79,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         n = tcfg.microbatches
         if n > 1:
             for i in range(n):
-                part = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                        for k, v in batch.items()}
+                part = {k: _microbatch(v, n, i) for k, v in batch.items()}
                 loss, _, g = grad_of(params, part)
                 if i == 0:
                     grads, lsum = g, loss
