@@ -209,21 +209,23 @@ Phases, in order; any failure exits non-zero and prints no result:
      tests' rule; resume on the card (a run checkpointed at step 5 and
      resumed == an uninterrupted 10-step run, bit for bit, deterministic
      algorithms); no kernel launched.
- 21. dry-run and roofline — ``repro_torch.launch.dryrun`` at full width on
-     the 256-rank fake mesh (a DTensor mesh over a fake process group, fake
-     tensors: host work, in helper processes while phases 15-20 run):
-     mistral-nemo-12b x train_4k (fsdp, 4 microbatches: the default 8
-     traces twice as long) and gemma3-4b x decode_32k (fsdp), every
+ 21. dry-run and roofline — first the roofline against steps the card
+     takes, one card, no mesh, with no helper process running: phase 20's
+     rwkv6-1.6b 8 x 128 train step and phase 18's gemma3-4b decode step at
+     batch 4, each counted on the card by ``launch.op_cost`` and timed
+     (CUDA events); then, the card idle, in two helper processes (host
+     work on fake tensors), ``repro_torch.launch.dryrun`` at full width on
+     the 256-rank fake mesh (a DTensor mesh over a fake process group):
+     mistral-nemo-12b x train_4k (fsdp, 2 microbatches: the default 8
+     traces four times as long) and gemma3-4b x decode_32k (fsdp), every
      reference key finite, per-device peak against the card's 80 GB, the
-     three roofline terms, bottleneck, roofline fraction; then the roofline
-     against steps the card takes, one card, no mesh: phase 20's rwkv6-1.6b
-     8 x 128 train step and phase 18's gemma3-4b decode step at batch 4,
-     each counted on the card by ``launch.op_cost`` == counted for the same
-     step on fake tensors (FLOPs), the measured step (CUDA events) >=
-     max(t_compute, t_memory) of the count (its roofline share <= 100 %),
-     its MFU (model FLOPs / peak / step), and the fake step's peak memory
-     against phase 20's ``max_memory_allocated`` (within ``ROOF_MEM_BAND``);
-     no process group in this process; no kernel launched.
+     three roofline terms, bottleneck, roofline fraction; and the two card
+     steps counted on fake tensors: the card's count == the fake count
+     (FLOPs), the measured step >= max(t_compute, t_memory) of the count
+     (its roofline share <= 100 %), its MFU (model FLOPs / peak / step),
+     and the fake step's peak memory against phase 20's
+     ``max_memory_allocated`` (within ``ROOF_MEM_BAND``); no process group
+     in this process; no kernel launched.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
@@ -4210,7 +4212,7 @@ def train_phase(dev, cpu_run, smi: str) -> dict:
     return totals, {"rwkv_step_s": rwkv_step_s, "rwkv_peak": rwkv_peak}
 
 
-ROOF_CELLS = ((("mistral-nemo-12b", "train_4k", "fsdp", 4),),
+ROOF_CELLS = ((("mistral-nemo-12b", "train_4k", "fsdp", 2),),
               (("gemma3-4b", "decode_32k", "fsdp", 1),))
 ROOF_TRAIN = ("rwkv6-1.6b", 8, 128)  # phase 20's uncut run: arch, batch, sequence
 ROOF_DECODE = ("gemma3-4b", 4, 32, 16)  # phase 18's serve CLI: arch, batch, prompt, gen
@@ -4258,19 +4260,21 @@ def roofline_fakes() -> dict:
     return out
 
 
-def roofline_phase(dev, smi: str, dry, dry_fake, train_info: dict) -> dict:
-    """(a) The full-width dry-run records (from helper processes): every key
-    of the reference's record, finite; each logged with its per-device peak
-    against the card's 80 GB.  (b) The roofline against the card, one card
-    and no mesh: rwkv6-1.6b's 8 x 128 train step (a fresh state, as phase
-    20's) and gemma3-4b's decode step at batch 4 over the serve CLI's 4 x 32
-    prefill (cache 48), each counted on the card with ``op_cost`` == counted
-    on fake tensors (FLOPs), timed with CUDA events (median of 3), held >=
-    max(t_compute, t_memory) of its count (roofline share <= 100 %), its MFU
-    logged; the fake train step's peak against phase 20's
-    ``max_memory_allocated``, within ``ROOF_MEM_BAND``.  No kernel is
-    launched and no process group is left in this process.  Returns the
-    launches per kernel (none)."""
+def roofline_phase(dev, smi: str, train_info: dict) -> dict:
+    """(b) The roofline against the card, one card and no mesh, first,
+    with no helper process running: rwkv6-1.6b's 8 x 128 train step (a
+    fresh state, as phase 20's) and gemma3-4b's decode step at batch 4
+    over the serve CLI's 4 x 32 prefill (cache 48), each counted on the
+    card with ``op_cost`` and timed with CUDA events (median of 3).  Then
+    the host work in two helper processes, with the card idle: (a) the
+    full-width dry-run records, every key of the reference's record,
+    finite, each logged with its per-device peak against the card's 80 GB;
+    and (b)'s two steps counted on fake tensors.  Each card count ==
+    the fake count (FLOPs), each step >= max(t_compute, t_memory) of its
+    count (roofline share <= 100 %), its MFU logged; the fake train step's
+    peak against phase 20's ``max_memory_allocated``, within
+    ``ROOF_MEM_BAND``.  No kernel is launched and no process group is left
+    in this process.  Returns the launches per kernel (none)."""
     import torch
     import torch.distributed as dist
 
@@ -4288,9 +4292,63 @@ def roofline_phase(dev, smi: str, dry, dry_fake, train_info: dict) -> dict:
     t_start = time.perf_counter()
     gib = lambda b: b / 2**30
 
+    def timed(fn, n: int = 3) -> float:
+        times = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        return statistics.median(times)
+
+    def train_part():
+        arch, b, s = ROOF_TRAIN
+        model = build_model(get_config(arch))
+        params, opt = init_train_state(model, rng.PRNGKey(0, device=dev))
+        data = SyntheticLM(model.cfg.vocab, s, b, seed=17)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.shard_batch(0).items()}
+        step = make_train_step(model, TrainConfig())
+        step(params, opt, batch)  # warm
+        torch.cuda.synchronize()
+        with op_cost.count() as card:
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+        return card, timed(lambda: step(params, opt, batch))
+
+    def decode_part():
+        arch, b, p, gen = ROOF_DECODE
+        model = build_model(get_config(arch))
+        params = model.init_params(rng.PRNGKey(0, device=dev), torch.bfloat16)
+        prompts = rng.randint(rng.PRNGKey(1, device=dev), (b, p), 0, model.cfg.vocab)
+        _, cache, clen = model.prefill_fn(params, {"tokens": prompts}, p + gen)
+        tokens = prompts[:, -1:]
+        decode = lambda: model.decode_fn(cast_tree(params, torch.bfloat16), cache, tokens, clen)
+        decode()  # warm
+        torch.cuda.synchronize()
+        with op_cost.count() as card:
+            decode()
+            torch.cuda.synchronize()
+        return card, timed(decode)
+
+    # (b) on the card
+    (train_card, train_s), secs_t, _ = counted(train_part)
+    torch.cuda.empty_cache()
+    (decode_card, decode_s), secs_d, _ = counted(decode_part)
+    torch.cuda.empty_cache()
+    exact_launches("roofline", totals, {})
+
+    # the host work, the card idle
+    t_host = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        dry = [pool.apply_async(dryrun_cells, (cells,)) for cells in ROOF_CELLS]
+        dry_fake = pool.apply_async(roofline_fakes)
+        recs = [r for d in dry for r in d.get(timeout=900)]
+        fakes = dry_fake.get(timeout=900)
+    secs_host = time.perf_counter() - t_host
+
     # (a)
-    recs = [r for d in dry for r in d.get(timeout=900)]
-    waited = time.perf_counter() - t_start
     for r in recs:
         nums = [v for v in r.values() if isinstance(v, (int, float))]
         nums += list(r["memory"].values()) + list(r["collective_breakdown"].values())
@@ -4312,19 +4370,8 @@ def roofline_phase(dev, smi: str, dry, dry_fake, train_info: dict) -> dict:
             f"{r['useful_flops_ratio']:.3f}, roofline fraction {r['roofline_fraction']:.4f} "
             f"(a model from the data sheet: {rl.PEAK_FLOPS:.3g} FLOP/s, {rl.HBM_BW:.3g} B/s, "
             f"{rl.LINK_BW:.3g} B/s)")
-    fakes = dry_fake.get(timeout=900)
 
-    def timed(fn, n: int = 3) -> float:
-        times = []
-        for _ in range(n):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) / 1e3)
-        return statistics.median(times)
-
+    # (b) against the fake counts
     def held(arch, shape, card, step_s, extra=""):
         flops, nbytes, n_ops, argument, peak = fakes[arch]
         if card.flops != flops:
@@ -4338,60 +4385,29 @@ def roofline_phase(dev, smi: str, dry, dry_fake, train_info: dict) -> dict:
             f"{nbytes:.4e} on fake tensors; {card.n_ops} ops ({n_ops} fake); t_compute "
             f"{r.t_compute * 1e3:.3f} ms, t_memory {r.t_memory * 1e3:.3f} ms (floor "
             f"{r.t_memory_min * 1e3:.3f}); measured step {step_s * 1e3:.3f} ms (CUDA events, "
-            f"median of 3){extra}: roofline share {100 * share:.2f} % (<= 100 %), MFU "
-            f"{100 * mfu:.3f} % (model FLOPs {r.model_flops:.4e} / {rl.PEAK_FLOPS:.3g} / step)")
+            f"median of 3, no helper process running){extra}: roofline share "
+            f"{100 * share:.2f} % (<= 100 %), MFU {100 * mfu:.3f} % (model FLOPs "
+            f"{r.model_flops:.4e} / {rl.PEAK_FLOPS:.3g} / step)")
         if share > 1.0:
             raise AssertionError(f"roofline {arch}: the step beats its roofline: {share}")
         return peak, argument
 
-    def train_part():
-        arch, b, s = ROOF_TRAIN
-        model = build_model(get_config(arch))
-        params, opt = init_train_state(model, rng.PRNGKey(0, device=dev))
-        data = SyntheticLM(model.cfg.vocab, s, b, seed=17)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.shard_batch(0).items()}
-        step = make_train_step(model, TrainConfig())
-        step(params, opt, batch)  # warm
-        torch.cuda.synchronize()
-        with op_cost.count() as card:
-            step(params, opt, batch)
-            torch.cuda.synchronize()
-        step_s = timed(lambda: step(params, opt, batch))
-        peak, argument = held(arch, roofline_shapes()[0][1], card, step_s,
-                              f"; phase 20's median {train_info['rwkv_step_s'] * 1e3:.1f} ms")
-        ratio = peak / train_info["rwkv_peak"]
-        log(f"roofline {arch} memory: the fake step's peak {gib(peak):.3f} GiB (arguments "
-            f"{gib(argument):.3f}) against phase 20's max_memory_allocated "
-            f"{gib(train_info['rwkv_peak']):.3f} GiB: ratio {ratio:.4f} (band {ROOF_MEM_BAND})")
-        if not ROOF_MEM_BAND[0] <= ratio <= ROOF_MEM_BAND[1]:
-            raise AssertionError(f"roofline {arch}: peak memory ratio {ratio} outside "
-                                 f"{ROOF_MEM_BAND}")
-
-    def decode_part():
-        arch, b, p, gen = ROOF_DECODE
-        model = build_model(get_config(arch))
-        params = model.init_params(rng.PRNGKey(0, device=dev), torch.bfloat16)
-        prompts = rng.randint(rng.PRNGKey(1, device=dev), (b, p), 0, model.cfg.vocab)
-        _, cache, clen = model.prefill_fn(params, {"tokens": prompts}, p + gen)
-        tokens = prompts[:, -1:]
-        decode = lambda: model.decode_fn(cast_tree(params, torch.bfloat16), cache, tokens, clen)
-        decode()  # warm
-        torch.cuda.synchronize()
-        with op_cost.count() as card:
-            decode()
-            torch.cuda.synchronize()
-        held(arch, roofline_shapes()[1][1], card, timed(decode))
-
-    _, secs_t, _ = counted(train_part)
-    torch.cuda.empty_cache()
-    _, secs_d, _ = counted(decode_part)
-    torch.cuda.empty_cache()
-    exact_launches("roofline", totals, {})
+    arch = ROOF_TRAIN[0]
+    peak, argument = held(arch, roofline_shapes()[0][1], train_card, train_s,
+                          f"; phase 20's median {train_info['rwkv_step_s'] * 1e3:.1f} ms")
+    ratio = peak / train_info["rwkv_peak"]
+    log(f"roofline {arch} memory: the fake step's peak {gib(peak):.3f} GiB (arguments "
+        f"{gib(argument):.3f}) against phase 20's max_memory_allocated "
+        f"{gib(train_info['rwkv_peak']):.3f} GiB: ratio {ratio:.4f} (band {ROOF_MEM_BAND})")
+    if not ROOF_MEM_BAND[0] <= ratio <= ROOF_MEM_BAND[1]:
+        raise AssertionError(f"roofline {arch}: peak memory ratio {ratio} outside "
+                             f"{ROOF_MEM_BAND}")
+    held(ROOF_DECODE[0], roofline_shapes()[1][1], decode_card, decode_s)
     if dist.is_initialized():
         raise AssertionError("roofline: a process group is left in the script's process")
-    log(f"dry-run and roofline phase: {time.perf_counter() - t_start:.1f} s (waited "
-        f"{waited:.1f} s for the dry-run helpers; train part {secs_t:.1f} s, decode part "
-        f"{secs_d:.1f} s); no kernel launched")
+    log(f"dry-run and roofline phase: {time.perf_counter() - t_start:.1f} s (on the card: "
+        f"train part {secs_t:.1f} s, decode part {secs_d:.1f} s; then the dry-run helpers "
+        f"{secs_host:.1f} s, the card idle); no kernel launched")
     return totals
 
 
@@ -4623,43 +4639,38 @@ def main() -> int:
     for k, n in soak_phase(dev).items():
         totals[k] += n
     phase_done("soak")
-    # phase 21's dry-runs (host work on fake tensors) in two more helper
-    # processes, from here on while phases 15-20 run on the card
-    with multiprocessing.get_context("spawn").Pool(2) as dry_pool:
-        dry = [dry_pool.apply_async(dryrun_cells, (cells,)) for cells in ROOF_CELLS]
-        dry_fake = dry_pool.apply_async(roofline_fakes)
-        with multiprocessing.get_context("spawn").Pool(3) as pool:
-            cpu_chaos = {lbl: pool.apply_async(chaos_run, (lbl, "cpu")) for lbl in CHAOS_LABELS}
-            cpu_fig15 = pool.apply_async(fig15_run, ("cpu",))
-            for k, n in chaos_phase(dev, cpu_chaos).items():
-                totals[k] += n
-            phase_done("chaos")
-            for k, n in fig15_phase(dev, cpu_fig15).items():
-                totals[k] += n
-            phase_done("fig15 hook")
-        with multiprocessing.get_context("spawn").Pool(2) as pool:
-            cpu_channels = pool.apply_async(channels_run, ("cpu",))
-            cpu_serve = pool.apply_async(serve_reduced_runs, ("cpu",))
-            for k, n in channels_phase(dev, cpu_channels).items():
-                totals[k] += n
-            phase_done("channels")
-            for k, n in serve_phase(dev, cpu_serve, smi).items():
-                totals[k] += n
-            phase_done("serve")
-        with multiprocessing.get_context("spawn").Pool(2) as pool:
-            cpu_families = pool.apply_async(serve_reduced_runs, ("cpu",),
-                                            {"cases": FAMILY_CASES, "P": FAMILY_P})
-            cpu_train = pool.apply_async(train_reduced_runs, ("cpu",), {"ulp": True})
-            for k, n in families_phase(dev, cpu_families, smi).items():
-                totals[k] += n
-            phase_done("serve families")
-            counts, train_info = train_phase(dev, cpu_train, smi)
-            for k, n in counts.items():
-                totals[k] += n
-            phase_done("train")
-            for k, n in roofline_phase(dev, smi, dry, dry_fake, train_info).items():
-                totals[k] += n
-            phase_done("dry-run and roofline")
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
+        cpu_chaos = {lbl: pool.apply_async(chaos_run, (lbl, "cpu")) for lbl in CHAOS_LABELS}
+        cpu_fig15 = pool.apply_async(fig15_run, ("cpu",))
+        for k, n in chaos_phase(dev, cpu_chaos).items():
+            totals[k] += n
+        phase_done("chaos")
+        for k, n in fig15_phase(dev, cpu_fig15).items():
+            totals[k] += n
+        phase_done("fig15 hook")
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        cpu_channels = pool.apply_async(channels_run, ("cpu",))
+        cpu_serve = pool.apply_async(serve_reduced_runs, ("cpu",))
+        for k, n in channels_phase(dev, cpu_channels).items():
+            totals[k] += n
+        phase_done("channels")
+        for k, n in serve_phase(dev, cpu_serve, smi).items():
+            totals[k] += n
+        phase_done("serve")
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        cpu_families = pool.apply_async(serve_reduced_runs, ("cpu",),
+                                        {"cases": FAMILY_CASES, "P": FAMILY_P})
+        cpu_train = pool.apply_async(train_reduced_runs, ("cpu",), {"ulp": True})
+        for k, n in families_phase(dev, cpu_families, smi).items():
+            totals[k] += n
+        phase_done("serve families")
+        counts, train_info = train_phase(dev, cpu_train, smi)
+        for k, n in counts.items():
+            totals[k] += n
+        phase_done("train")
+    for k, n in roofline_phase(dev, smi, train_info).items():
+        totals[k] += n
+    phase_done("dry-run and roofline")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

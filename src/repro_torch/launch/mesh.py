@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import socket
 
-import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.device import resolve_device
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -57,18 +58,19 @@ def release() -> None:
         dist.destroy_process_group()
 
 
-def make_host_mesh(model: int = 1):
+def make_host_mesh(model: int = 1, device=None):
     """A ``(world // model, model)`` ``("data", "model")`` mesh over the
-    ranks of the process group (one card each), initializing a group of
-    one rank on this card (or the CPU) when none is up."""
-    cuda = torch.cuda.is_available()
+    ranks of the process group (one card each; ``device``: the card by
+    default, ``"cpu"`` for a group of host processes), initializing a
+    group of one rank when none is up (NCCL on the card, gloo on the
+    CPU)."""
+    dev = resolve_device(device)
     if not dist.is_initialized():
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
-        dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
-                                rank=0, world_size=1)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
     n = dist.get_world_size()
     assert n % model == 0, (n, model)
-    return init_device_mesh("cuda" if cuda else "cpu", (n // model, model),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(dev.type, (n // model, model), mesh_dim_names=("data", "model"))

@@ -88,7 +88,6 @@ class OpCost:
     bytes_min: float = 0.0  # 2 x result bytes (perfect-fusion floor)
     coll_bytes: float = 0.0
     coll_breakdown: dict = dataclasses.field(default_factory=dict)
-    warnings: list = dataclasses.field(default_factory=list)
     n_ops: int = 0
     rows: dict = dataclasses.field(default_factory=dict)  # (path, op) -> [count, flops, bytes]
 
@@ -163,11 +162,11 @@ class _Counter(TorchDispatchMode):
         c.bytes_min += 2.0 * rb
         c.n_ops += 1
         if func.namespace in ("_c10d_functional", "_dtensor"):
-            kind, side, factor = _COLL_FACTORS.get(name, (name, "operand", 1.0))
-            if getattr(_skip, "alltoall", False):  # DTensor's all-to-all on a CPU mesh
-                kind, side, factor = _COLL_FACTORS["all_to_all_single"]
-            if name not in _COLL_FACTORS:
-                c.warnings.append(f"collective {name} counted as 1 x operand")
+            # DTensor's all-to-all on a CPU mesh runs as other collectives
+            coll = "all_to_all_single" if getattr(_skip, "alltoall", False) else name
+            if coll not in _COLL_FACTORS:
+                raise NotImplementedError(f"op_cost: no ring factor for the collective {coll}")
+            kind, side, factor = _COLL_FACTORS[coll]
             moved = factor * (rb if side == "result" else sum(map(_nbytes, ins)))
             c.coll_bytes += moved
             c.coll_breakdown[kind] = c.coll_breakdown.get(kind, 0.0) + moved

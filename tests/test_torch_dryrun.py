@@ -4,10 +4,12 @@ reference: the dry-run's specs (meta tensors where the reference has
 ``ShapeDtypeStruct``), the exact parameter counts and model FLOPs, the
 report's tables on the same records; the dry-run itself at reduced size on
 fake meshes: pure data parallelism divides the one-device count by the
-data axis exactly and all-reduces each gradient once (2 x its bytes), and
-on (4, 2) and (2, 2, 2) meshes a record has every key the reference's has,
+data axis exactly and all-reduces each gradient once (2 x its bytes), the
+model axis divides every transformer matmul and leaves whole what the
+rules leave whole (the closed forms), and on (4, 2) and (2, 2, 2) meshes a record has every key the reference's has,
 all finite.  (The reference's own dry-run does not run under this JAX:
 ``shard()`` raises on its Explicit mesh axes.)"""
+import dataclasses
 import json
 import math
 
@@ -92,6 +94,51 @@ def test_pure_data_parallel_divides_the_count():
     assert one.coll_bytes == 0
     params = (mem1["alias"] - 4) // 3  # params, m and v (float32), and the step
     assert dp.coll_breakdown == {"all-reduce": 2 * params}
+
+
+def _flops_by_row(cfg, n_model):
+    """Per-(path, op) FLOPs of a (4 x 64) train step on a (1, n_model)
+    mesh (no remat), and the total."""
+    mesh = make_mesh((1, n_model), ("data", "model"))
+    try:
+        cost, _, _ = dryrun.trace_step(build_model(cfg), ShapeConfig("t", 64, 4, "train"), mesh,
+                                       rows=True, remat=False)
+    finally:
+        release()
+    return {path: flops for path, _, flops, _ in cost.breakdown() if flops}, cost.flops
+
+
+def test_model_axis_splits_every_transformer_matmul():
+    """On a (1, 4) model-only mesh the transformer's matmuls are split by
+    heads, KV heads, mlp or vocab: every row of the count is a quarter
+    of the (1, 1) mesh's."""
+    cfg = reduced(all_configs()["mistral-nemo-12b"])
+    assert cfg.n_kv_heads == 4
+    (one, total1), (four, total4) = _flops_by_row(cfg, 1), _flops_by_row(cfg, 4)
+    assert four.keys() == one.keys() and total4 * 4 == total1
+    assert all(four[k] * 4 == v for k, v in one.items())
+
+
+T_TOKENS = 4 * 64
+
+
+@pytest.mark.parametrize("arch,kv,n_model,row,closed_form", [
+    # 2 KV heads do not split 4 ways: the K and V projections stay whole on
+    # each device, the Q projection is split by heads
+    ("mistral-nemo-12b", 2, 4, "attention._project_qkv/bmm",
+     lambda c: c.n_layers * 2 * T_TOKENS * c.d_model * c.head_dim * (c.n_heads // 4
+                                                                     + 2 * c.n_kv_heads)),
+    # RWKV's channel mix: the key and value matmuls split by mlp, the
+    # receptance (embed x embed) whole
+    ("rwkv6-1.6b", None, 2, "ssm.rwkv_cmix/bmm",
+     lambda c: c.n_layers * 2 * T_TOKENS * (2 * c.d_model * c.d_ff // 2 + c.d_model ** 2)),
+])
+def test_model_axis_flops_equal_the_closed_form(arch, kv, n_model, row, closed_form):
+    cfg = reduced(all_configs()[arch])
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    rows, _ = _flops_by_row(cfg, n_model)
+    assert rows[row] == closed_form(cfg)
 
 
 @pytest.mark.parametrize("dims,axes,arch,kind,rules,mb", [

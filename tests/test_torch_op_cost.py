@@ -122,7 +122,8 @@ def test_sharded_matmul_counts_the_local_product():
 def test_collective_ring_factors():
     """all-reduce 2 x operand, all-gather 1 x result, reduce-scatter and
     all-to-all 1 x operand (the reference's factors), from the
-    collectives DTensor's redistributions dispatch."""
+    collectives DTensor's redistributions dispatch; a collective with no
+    factor raises."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -149,6 +150,11 @@ def test_collective_ring_factors():
                     x.redistribute(mesh, to)
                 assert c.coll_breakdown == {kind: want}, (kind, c.coll_breakdown)
                 assert c.coll_bytes == want
+            # a collective with no ring factor is an error, not a guess
+            with pytest.raises(NotImplementedError, match="all_reduce_"):
+                with op_cost.count():
+                    torch.ops._c10d_functional.all_reduce_(torch.empty(8), "sum",
+                                                           mesh.get_group(0).group_name)
     finally:
         release()
 

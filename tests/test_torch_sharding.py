@@ -166,7 +166,8 @@ def test_shard_redistributes_under_a_mesh():
 
 def test_meshes():
     """The production meshes over fake groups of 256 and 512 ranks, torn
-    down by ``release``; the host mesh over this process's one rank."""
+    down by ``release``; the host mesh over this process's one rank, on
+    the card unless the CPU is asked for."""
     import torch.distributed as dist
 
     for multi_pod, shape, names in ((False, (16, 16), ("data", "model")),
@@ -178,8 +179,12 @@ def test_meshes():
         finally:
             release()
         assert not dist.is_initialized()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_host_mesh()
+        assert not dist.is_initialized()
     try:
-        mesh = make_host_mesh()
+        mesh = make_host_mesh(device="cpu")
         assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
     finally:
         dist.destroy_process_group()
