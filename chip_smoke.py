@@ -226,13 +226,35 @@ Phases, in order; any failure exits non-zero and prints no result:
      and the fake step's peak memory against phase 20's
      ``max_memory_allocated`` (within ``ROOF_MEM_BAND``); no process group
      in this process; no kernel launched.
+ 22. ranks — several ranks on the one card: two gloo ranks (NCCL refuses
+     two ranks on one device), each a process on cuda:0, started once by
+     ``repro_torch.distrib.ranks.run_ranks`` with no helper process beside
+     them, the kernels built before: (a) the row mesh: phase 10(a)'s fig06
+     grid (FATTREE_128, SwitchLB(ops, reps), ``collect="summary"`` with
+     early exit) to 1200 ticks, past the first failure window, one row per
+     rank; every row == the main path's run at tick 1200 (phase 4 keeps
+     both cells' states there) on every leaf, exact launches per rank, and
+     ``ticks_run`` the one-rank sweep's; (b) the connection axis: phase
+     12's 10**5 row with ``conn_devices=2`` ((rows, conns) = (1, 2)), every
+     leaf == phase 12's one-rank card run, each rank's peak memory and
+     bitmap bytes per connection against it; (c) MoE expert parallelism:
+     phase 19's phi3.5-moe (full width, 8 layers, bf16) on a (1, 2)
+     ("data", "model") mesh, each rank drawing only its half of the experts,
+     its 4 x 32 prefill and 4 decode steps fed phase 19's greedy tokens:
+     logits against phase 19's by the bf16 serve rule, the prefill's drops
+     equal; init seconds, peak memory and decode tokens/s per rank; (d)
+     ``checkpoint.restore(axes=)`` of a reduced checkpoint the parent saved
+     onto the (1, 2) mesh, each rank's shards bit-equal to their blocks.
+     The collectives of a CUDA tensor go through the host (gloo); no run
+     here covers NCCL across several cards.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
 the telemetry, the sweep, the fabric, the scale, the balls-into-bins, the
 soak, the chaos and the fig15-hook phases' runs, and the channels,
-the two serve, the train and the roofline phases', which launch none; the flat
-``ecmp_hash`` is launched there no more); the last line
+the two serve, the train and the roofline phases', which launch none, and
+the ranks phase's, summed over its ranks; the flat ``ecmp_hash`` is
+launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -263,6 +285,10 @@ ZOO_TRACED = (("reps", {"freezing_timeout": 200}), ("plb", {}), ("flowlet", {}),
               ("prime", {}), ("seqbalance", {}), ("flowlet_table", {}), ("mprdma", {}),
               ("bitmap", {}), ("adaptive_roce", {}),
               ("mixed", {"fg": "reps", "bg": "plb", "bg_conns": (1, 3, 5, 8)}))
+# the ranks phase (22): the fig06 grid's horizon on two ranks, past the first
+# failure window (150-800); the main path keeps its rows' states at this tick
+RANKS_FIG06_TICKS = 1200
+RANKS_MOE_DECODE = 4  # phi3.5-moe's decode steps on the (1, 2) model mesh
 # the load balancers of the zoo beyond ECMP / OPS / REPS, in registry order
 ZOO = ("plb", "flowlet", "mptcp", "mprdma", "bitmap", "adaptive_roce", "prime",
        "seqbalance", "flowlet_table")
@@ -1358,7 +1384,8 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
     0, NP = A by the lifetime bound, ticks/s, peak memory, and a profiled
     window (device busy share, launches per tick); its live REPS state packs
     to <= 25 B/conn and round-trips, and ``measure_scale(10**6)``.  Returns
-    the launches per kernel."""
+    the launches per kernel and the 10**5 row's card run ``(SimState
+    leaves, run_row's info)``."""
     import torch
 
     from repro_torch.bench.common import Rows
@@ -1429,6 +1456,8 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
         if d == dev:
             eng, res, info = run_row(10**5, row5_ticks, device=d)
             finals.append(sim_state_to_numpy(res.state_for(eng.cases[0].name)))
+            row5 = (finals[0], info)  # the ranks phase's one-rank reference
+            del eng, res
         else:
             leaves, info = cpu_row5.get(timeout=900)
             finals.append(leaves)
@@ -1495,7 +1524,7 @@ def scale_phase(dev, dense_reps, row5_ticks: int, row6_ticks: int, prof_ticks: i
     log(f"scale measure_scale(10**6) on the card: {bpc:.3f} B/conn, round trip exact")
     step_done("(d) 10**6 row")
     torch.cuda.empty_cache()
-    return totals
+    return totals, row5
 
 
 # ---------------------------------------------------------------------------
@@ -1551,15 +1580,18 @@ def check_invariants(sim, state) -> None:
     assert int(state.c_inflight.min()) >= 0
 
 
-def main_path(dev, ticks: int) -> tuple[dict, dict, dict]:
+def main_path(dev, ticks: int, snap_at: int = RANKS_FIG06_TICKS) -> tuple[dict, dict, dict, dict]:
     """The fig06 OPS and REPS cells for ``ticks`` ticks with exact launch
-    counts; returns the launches per kernel, the ticks/s per cell and each
+    counts; returns the launches per kernel, the ticks/s per cell, each
     cell's ``(simulator, final state, ticks)`` (the sweep phase continues
-    them as its serial references)."""
+    them as its serial references) and each cell's SimState leaves at tick
+    ``snap_at`` (the ranks phase's serial references; the run is stepped to
+    there, copied to the host untimed, and stepped on)."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.netsim import summarize
+    from repro_torch.netsim import sim_state_to_numpy, summarize
+    from repro_torch.netsim.engine import TickTrace, add_rows, drop_rows
 
     # the routing step is one next_queue launch; the flat hash runs no more
     per_tick = {"ops": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 0,
@@ -1567,16 +1599,23 @@ def main_path(dev, ticks: int) -> tuple[dict, dict, dict]:
                 "reps": {"seg_sum": 4, "seg_rank": 1, "queue_tick": 1, "reps_tick": 1,
                          "next_queue": 1, "ecmp_hash": 0}}
     totals = {k: 0 for k in ops.KERNEL_MODULES}
-    rates, finals = {}, {}
+    rates, finals, snaps = {}, {}, {}
     for lb in ("ops", "reps"):
         sim = fig06_cell(lb, dev)
-        state = sim.init_state()
+        states = add_rows(sim.init_state())
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, trace = sim.run(ticks, state)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        secs, parts = 0.0, []
+        for t0, n in ((0, snap_at), (snap_at, ticks - snap_at)):
+            c0 = time.perf_counter()
+            states, tr = sim.run_rows(n, states, sim.base_key[None], t0=t0)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - c0
+            parts.append(tr)
+            if t0 == 0:
+                snaps[lb] = sim_state_to_numpy(drop_rows(states))
+        state = drop_rows(states)
+        trace = TickTrace(*(torch.cat(f)[:, 0] for f in zip(*parts)))
         counts = ops.launch_counts()
         s = summarize(sim, state)
         check_invariants(sim, state)
@@ -1591,7 +1630,7 @@ def main_path(dev, ticks: int) -> tuple[dict, dict, dict]:
             totals[k] += counts[k]
         rates[lb] = ticks / secs
         finals[lb] = (sim, state, ticks)
-    return totals, rates, finals
+    return totals, rates, finals, snaps
 
 
 def profile_window(dev, warm: int, ticks: int) -> None:
@@ -3592,7 +3631,10 @@ def families_phase(dev, cpu_run, smi: str) -> dict:
     0.03, its bound; cap = T there, so no assignment is dropped).
     Then the reduced archs card vs CPU (``serve_reduced_check``, the CPU
     side from a helper process).  No port kernel is launched.  Returns the
-    launches per kernel (none)."""
+    launches per kernel (none) and phi3.5-moe's bf16 serve run, fed its
+    greedy tokens (``tests/serve_parity.run_serve``: the tokens, each
+    step's logits, every MoE call's routing, the prefill's drops per
+    layer), for the ranks phase."""
     import dataclasses
 
     import torch
@@ -3605,13 +3647,14 @@ def families_phase(dev, cpu_run, smi: str) -> dict:
     from repro_torch.models.mlp import capacity as mlp_capacity
     from repro_torch.train import make_serve_steps
     from repro_torch.tree import tree_flatten_with_path
-    from serve_parity import port_routing
+    from serve_parity import port_routing, run_serve
 
     totals = {k: 0 for k in ops.KERNEL_MODULES}
     counted = _counting(totals)
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
     peaks = []
+    moe_ref = {}
     gib = lambda b: b / 2**30
 
     def measured(fn):
@@ -3766,10 +3809,15 @@ def families_phase(dev, cpu_run, smi: str) -> dict:
 
     def moe_checks():
         w = warm(model, cfg, run["params"], prompts, run["tokens"])
+        # the prefill and RANKS_MOE_DECODE decode steps fed the greedy
+        # tokens, routing recorded: the ranks phase's one-card reference
+        toks = torch.cat([prompts, run["tokens"][:, :RANKS_MOE_DECODE]], dim=1)
         calls = []
         with port_routing(calls):
-            make_serve_steps(model)[0](run["params"], {"tokens": prompts}, P + 1)
-        w["dropped"] = [int((~keep).sum()) for _, _, keep in calls]
+            logits, _ = run_serve(*make_serve_steps(model), run["params"], toks, lambda t: t,
+                                  P, toks.shape[1] + 1)
+        w["dropped"] = [int((~keep).sum()) for _, _, keep in calls[:cfg.n_layers]]
+        moe_ref.update(toks=toks.cpu(), logits=logits, routing=calls, dropped=w["dropped"])
         return w
 
     w, secs2, peak = measured(moe_checks)
@@ -3807,7 +3855,7 @@ def families_phase(dev, cpu_run, smi: str) -> dict:
     serve_reduced_check(card, cpu, found_ok=True)
     log(f"serve families phase: {time.perf_counter() - t_start:.1f} s (reduced archs on the "
         f"card {secs:.1f} s); peak device memory {gib(max(peaks)):.3f} GiB; no kernel launched")
-    return totals
+    return totals, moe_ref
 
 
 # phase 20, training: rwkv6-1.6b uncut through the train CLI (24 layers,
@@ -4411,6 +4459,383 @@ def roofline_phase(dev, smi: str, train_info: dict) -> dict:
     return totals
 
 
+# phase 22, several ranks on the one card: two gloo ranks (NCCL refuses two
+# ranks on one device), each a process holding cuda:0, started once by
+# ``repro_torch.distrib.ranks.run_ranks`` after the kernels are built, with
+# no helper process beside them; each rank runs (a)-(d) in turn and returns
+# numpy, and this process holds the results against its own runs
+RANKS = 2
+RANKS_SCALE_CONNS = 10**5
+# the ranks' MoE layers replicate everything but the experts (split over
+# "model"), so that a layer's only collectives are y's sum and the aux's
+# two means: the forward and decode of phase 19 on two half-expert ranks
+RANKS_MOE_RULES = {"batch": ("pod", "data"), "experts": "model", "seq_model": None,
+                   "heads": None, "kv_heads": None, "kv_seq": None, "mlp": None,
+                   "vocab": None, "state": None}
+
+
+def _ranks_sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _ranks_timed(fn):
+    """``fn()`` between a barrier of the ranks and a device sync, timed."""
+    import torch.distributed as dist
+
+    _ranks_sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    _ranks_sync()
+    return out, time.perf_counter() - t0
+
+
+def ranks_sweep(dev) -> dict:
+    """(a) phase 10(a)'s fig06 grid (FATTREE_128's fabric, the OPS and REPS
+    cells one SwitchLB bucket, ``collect="summary"`` with the early exit) at
+    ``RANKS_FIG06_TICKS`` over a ``("rows",)`` mesh of both ranks: each row's
+    leaves, its branch and the other slot's initial state; the launches."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.bench import common as bc
+    from repro_torch.bench import fig06_failures_micro as fig06
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import SweepEngine, sim_state_to_numpy
+    from repro_torch.netsim.interop import lb_state_to_numpy
+
+    cfg = bc.ci_cfg(full=True)
+    cases = [dataclasses.replace(c, ticks=RANKS_FIG06_TICKS, seeds=(0,))
+             for c in fig06.cases(cfg, full=True)]
+    eng = SweepEngine(cfg, cases, device=dev)  # devices="auto": the group's ranks
+
+    def run():
+        ops.reset_launch_counts()
+        res = eng.run(collect="summary", early_exit=True)
+        return res, ops.launch_counts()
+
+    (res, counts), secs = _ranks_timed(run)
+    rows = {}
+    for c in cases:
+        b, cell = res._find(c.name)
+        init = b.lb.init_state(b.sim.wl.n_conns, rng.fold_in(rng.PRNGKey(c.seeds[0], device=dev),
+                                                             777))[1]
+        rows[c.name] = dict(lb=c.lb, branch=cell.branch,
+                            state=sim_state_to_numpy(res.state_for(c.name)),
+                            init={i: lb_state_to_numpy(v) for i, v in enumerate(init)
+                                  if i != cell.branch})
+    return dict(rows=rows, secs=secs, counts=counts, n_devices=eng.n_devices,
+                plan=eng.plan.describe(), ticks_run=[b.ticks_run for b in res.buckets],
+                local_rows=[int(b.keys.shape[0]) for b in eng.buckets],
+                exec_s=[b.exec_wall_s for b in res.buckets])
+
+
+def ranks_conn(dev, ticks: int) -> dict:
+    """(b) phase 12's 10**5-connection scale row with its connection axis
+    split over both ranks (``bench/scale_smoke.run_row(conn_devices=2)``):
+    the gathered leaves and the rank's numbers."""
+    from repro_torch.bench.scale_smoke import run_row
+    from repro_torch.netsim import sim_state_to_numpy
+
+    (eng, res, info), secs = _ranks_timed(
+        lambda: run_row(RANKS_SCALE_CONNS, ticks, device=dev, conn_devices=RANKS))
+    return dict(state=sim_state_to_numpy(res.state_for(eng.cases[0].name)), info=info,
+                secs=secs, mesh=tuple(eng.mesh.shape))
+
+
+def ranks_moe(dev, toks) -> dict:
+    """(c) phase 19's phi3.5-moe (full width, ``FAMILY_MOE_LAYERS`` layers,
+    bf16) on a (1, 2) ``("data", "model")`` mesh: each rank draws only its
+    half of every layer's experts from PRNGKey(0), then the bf16 serve steps
+    take phase 19's prompt and its greedy tokens (a prefill and
+    ``RANKS_MOE_DECODE`` decode steps), routing recorded."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.launch.dryrun import axes_to_shardings
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
+    from serve_parity import as_np, port_routing
+
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=FAMILY_MOE_LAYERS)
+    model = build_model(cfg)
+    mesh = init_device_mesh(dev.type, (1, RANKS), mesh_dim_names=("data", "model"))
+    e_loc = cfg.n_experts // RANKS
+    lo = mesh.get_coordinate()[1] * e_loc
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    local, init_s = _ranks_timed(lambda: model.init_params(
+        rng.PRNGKey(0, device=dev), torch.bfloat16, experts=(lo, lo + e_loc)))
+    places = axes_to_shardings(mesh, model.param_axes(), None, RANKS_MOE_RULES)
+
+    def placed(path, t):
+        pl = places[path]
+        shape = list(t.shape)
+        for m, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] *= mesh.size(m)
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=tuple(shape),
+                                  stride=shd.contiguous_stride(shape))
+
+    params = tree_map_with_path(placed, local)
+    prefill, decode = make_serve_steps(model)
+    toks = toks.to(dev)
+    P = toks.shape[1] - RANKS_MOE_DECODE
+    plain = lambda t: as_np(t.full_tensor() if isinstance(t, DTensor) else t)
+    calls, logits, step_s = [], [], []
+    with shd.mesh_rules(mesh, RANKS_MOE_RULES), implicit_replication(), port_routing(calls):
+        (lg, state, clen), s = _ranks_timed(lambda: prefill(params, {"tokens": toks[:, :P]},
+                                                            toks.shape[1] + 1))
+        logits.append(plain(lg))
+        step_s.append(s)
+        for t in range(P, toks.shape[1]):
+            (lg, state, clen), s = _ranks_timed(
+                lambda t=t: decode(params, state, toks[:, t:t + 1], clen))
+            logits.append(plain(lg))
+            step_s.append(s)
+    return dict(init_s=init_s, step_s=step_s, logits=logits, routing=calls,
+                peak=torch.cuda.max_memory_allocated() if cuda else 0, experts=(lo, lo + e_loc),
+                held_bytes=sum(t.nbytes for t in tree_flatten_with_path(local).values()))
+
+
+def ranks_reshard(dev, path: str) -> dict:
+    """(d) the checkpoint the parent saved (``tests/ranks_parity``'s reduced
+    mistral-nemo trees) restored with ``axes=`` onto a (1, 2) mesh under the
+    fsdp rules: per leaf, whether this rank's local shard is bit-equal to
+    its block of the saved array."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.launch.dryrun import RULE_SETS
+    from repro_torch.tree import tree_flatten_with_path
+    from ranks_parity import reshard_trees
+
+    like, axes = reshard_trees()
+    mesh = init_device_mesh(dev.type, (1, RANKS), mesh_dim_names=("data", "model"))
+
+    def run():
+        with shd.mesh_rules(mesh, RULE_SETS["fsdp"]):
+            return restore(path, like, axes=axes, device=dev)
+
+    (trees, step), secs = _ranks_timed(run)
+    coord, held, sharded, bad = mesh.get_coordinate(), 0, 0, []
+    for name, tree in trees.items():
+        saved = np.load(f"{path}/{name}.npz")
+        for k, t in tree_flatten_with_path(tree).items():
+            want = saved[k]
+            if isinstance(t, DTensor):
+                block = [slice(0, n) for n in want.shape]
+                for m, p in enumerate(t.placements):
+                    if p.is_shard():
+                        size = want.shape[p.dim] // mesh.size(m)
+                        block[p.dim] = slice(coord[m] * size, (coord[m] + 1) * size)
+                        sharded += 1
+                got, want = t.to_local().cpu().numpy(), want[tuple(block)]
+            else:
+                got = t.cpu().numpy()
+            held += got.nbytes
+            if (got.dtype, got.shape) != (want.dtype, want.shape) or (
+                    got.tobytes() != want.tobytes()):
+                bad.append(f"{name}/{k}")
+    return dict(step=step, secs=secs, bad=bad, sharded=sharded, held=held,
+                leaves=sum(len(tree_flatten_with_path(t)) for t in trees.values()))
+
+
+def ranks_work(rank: int, device: str, moe_toks, ckpt: str, scale_ticks: int) -> dict:
+    """One rank of phase 22: on the card the kernels loaded (built by the
+    parent), then (a)-(d) in turn."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+
+        build.library()
+    out = {"a": ranks_sweep(dev), "b": ranks_conn(dev, scale_ticks)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["c"] = ranks_moe(dev, moe_toks)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["d"] = ranks_reshard(dev, ckpt)
+    return out
+
+
+def ranks_phase(dev, snaps: dict, row5: tuple, moe_ref: dict, scale_ticks: int) -> dict:
+    """Several ranks on the one card (see ``ranks_work``): (a) every row of
+    the two-rank fig06 sweep equals the main path's run at tick
+    ``RANKS_FIG06_TICKS`` (``snaps``) on every leaf, its active SwitchLB
+    slot against the plain load balancer and the other slot at its init,
+    and its ``ticks_run`` is the one-rank sweep's (no row is quiescent
+    there, so no chunk boundary could have ended it sooner); (b) the
+    conn-sharded 10**5 row equals phase 12's one-rank card run ``row5`` on
+    every leaf; (c) phi3.5-moe's two half-expert ranks against phase 19's
+    one-card run ``moe_ref`` by the bf16 serve rule (``tests/serve_parity``:
+    logits per row within 3e-2, routing flips found at near ties), its
+    prefill's drops equal; (d) every restored leaf's local shard equal to
+    its block.  Returns the launches per kernel (summed over the ranks)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import save
+    from repro_torch.distrib.ranks import run_ranks
+    from repro_torch.kernels import ops
+    from ranks_parity import reshard_trees
+    from serve_parity import TOL, routing_divergence
+
+    totals = {k: 0 for k in ops.KERNEL_MODULES}
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trees, axes = reshard_trees()
+        ckpt = f"{tmp}/step_7"
+        save(ckpt, 7, trees, axes=axes)
+        del trees
+        t0 = time.perf_counter()
+        out = run_ranks(ranks_work, RANKS, dev.type, "gloo",
+                        args=(dev.type, moe_ref["toks"], ckpt, scale_ticks), timeout=900)
+        spawn_s = time.perf_counter() - t0
+    gib = lambda b: "n/a" if b is None else f"{b / 2**30:.3f}"
+
+    # (a) rows == the main path's runs at the horizon
+    for r, o in enumerate(out):
+        a = o["a"]
+        if (a["n_devices"], a["local_rows"], a["ticks_run"]) != (RANKS, [1], [RANKS_FIG06_TICKS]):
+            raise AssertionError(f"ranks (a) rank {r}: {a['n_devices']} ranks, local rows "
+                                 f"{a['local_rows']}, ticks_run {a['ticks_run']}")
+        for k, m in SWEEP_PER_TICK.items():
+            if a["counts"][k] != m * RANKS_FIG06_TICKS:
+                raise AssertionError(f"ranks (a) rank {r}: {k} launched {a['counts'][k]} times, "
+                                     f"expected {m} x {RANKS_FIG06_TICKS}")
+            totals[k] += a["counts"][k]
+        for name, row in a["rows"].items():
+            want = snaps[row["lb"]]
+            got = row["state"]
+            same_leaves({k: v for k, v in got.items() if not k.startswith("lb_state")},
+                        {k: v for k, v in want.items() if not k.startswith("lb_state")},
+                        f"ranks (a) rank {r} {name} vs the main path at {RANKS_FIG06_TICKS}")
+            slot = lambda i: {"lb_state" + k[len(f"lb_state.1.{i}"):]: v for k, v in got.items()
+                              if k == f"lb_state.1.{i}" or k.startswith(f"lb_state.1.{i}.")}
+            same_leaves(slot(row["branch"]), {k: v for k, v in want.items()
+                                              if k.startswith("lb_state")},
+                        f"ranks (a) rank {r} {name}: active SwitchLB slot vs the plain LB")
+            for i, init in row["init"].items():
+                same_leaves(slot(i), init, f"ranks (a) rank {r} {name}: slot {i} vs init")
+            if int(got["lb_state.0"]) != row["branch"]:
+                raise AssertionError(f"ranks (a) {name}: branch {got['lb_state.0']}")
+    done = {lb: int(s["c_done"].sum()) for lb, s in snaps.items()}
+    if min(128 - d for d in done.values()) <= 0:
+        raise AssertionError(f"ranks (a): a row is complete at {RANKS_FIG06_TICKS}: {done}")
+    a0 = out[0]["a"]
+    log(f"ranks (a) row mesh, {RANKS} gloo ranks on {dev}: the fig06 grid (FATTREE_128, "
+        f"SwitchLB(ops, reps), collect=summary, early exit) to {RANKS_FIG06_TICKS} ticks, one row "
+        f"per rank: ticks_run {a0['ticks_run']} == the one-rank sweep's (completed "
+        f"{done} of 128 at the horizon: no chunk boundary was quiescent); on every rank every "
+        f"row == the main path's run at tick {RANKS_FIG06_TICKS} on all "
+        f"{len(next(iter(a0['rows'].values()))['state'])} leaves (the active SwitchLB slot "
+        f"against the plain LB, the other at its init); launches per rank exact; "
+        + ", ".join(f"rank {r}: {o['a']['secs']:.3f} s" for r, o in enumerate(out)))
+    log("ranks (a) plan:\n" + a0["plan"])
+
+    # (b) the conn-sharded row == phase 12's one-rank card run
+    want, one = row5
+    for r, o in enumerate(out):
+        b = o["b"]
+        same_leaves(b["state"], want, f"ranks (b) rank {r}: conn-sharded 10**5 row vs one rank")
+        for k, n in FLEET_PER_TICK.items():
+            if b["info"]["launches_per_tick"][k] != n:
+                raise AssertionError(f"ranks (b) rank {r}: {k} "
+                                     f"{b['info']['launches_per_tick'][k]} launches per tick")
+            totals[k] += n * scale_ticks
+    info = [o["b"]["info"] for o in out]
+    log(f"ranks (b) connection axis, mesh {out[0]['b']['mesh']} (rows, conns): the 10**5 row, "
+        f"{scale_ticks} ticks, all {len(want)} SimState leaves on every rank == phase 12's "
+        f"one-rank card run; exec {', '.join(f'{i['exec_wall_s']:.3f}' for i in info)} s "
+        f"({', '.join(f'{i['ticks_per_sec']:.1f}' for i in info)} ticks/s; one rank "
+        f"{one['ticks_per_sec']:.1f}); peak memory per rank "
+        f"{', '.join(gib(i['peak_mem_bytes']) for i in info)} GiB (one rank "
+        f"{gib(one['peak_mem_bytes'])}); bitmap bytes per connection per rank "
+        f"{', '.join(f'{i['bitmap_bytes_per_conn']:.4f}' for i in info)} (one rank "
+        f"{one['bitmap_bytes_per_conn']:.4f}), per-connection vectors "
+        f"{info[0]['conn_vector_bytes_per_conn']:.4f} B (one rank "
+        f"{one['conn_vector_bytes_per_conn']:.4f})")
+
+    # (c) phi3.5-moe on two half-expert ranks against phase 19's one card
+    n_layers, batch = FAMILY_MOE_LAYERS, moe_ref["toks"].shape[0]
+    for r, o in enumerate(out):
+        c = o["c"]
+        dropped = [int((~keep).sum()) for _, _, keep in c["routing"][:n_layers]]
+        if dropped != moe_ref["dropped"]:
+            raise AssertionError(f"ranks (c) rank {r}: prefill drops {dropped}, one card "
+                                 f"{moe_ref['dropped']}")
+        diverged = routing_divergence(c["routing"], moe_ref["routing"], n_layers, batch)
+        worst, found = 0.0, []
+        for i, (g, w) in enumerate(zip(c["logits"], moe_ref["logits"], strict=True)):
+            norm = np.abs(w).max()
+            if not (g.shape == w.shape and np.isfinite(g).all()):
+                raise AssertionError(f"ranks (c) rank {r} step {i}: logits {g.shape}")
+            for row in range(g.shape[0]):
+                err = float(np.abs(g[row] - w[row]).max() / norm)
+                if err <= TOL["bf16"]:
+                    worst = max(worst, err)
+                elif row in diverged[i]:
+                    found.append((i, row, diverged[i][row]))
+                else:
+                    raise AssertionError(f"ranks (c) rank {r} step {i} row {row}: logits rel "
+                                         f"{err} (> {TOL['bf16']})")
+        o["c"]["worst"], o["c"]["found"] = worst, found
+    c0 = out[0]["c"]
+    dec = [sum(o["c"]["step_s"][1:]) for o in out]
+    log(f"ranks (c) MoE expert parallel, mesh (1, {RANKS}) (data, model): phi3.5-moe "
+        f"(full width, {n_layers} layers, bf16), each rank experts "
+        f"{', '.join(str(o['c']['experts']) for o in out)} drawn alone: init "
+        f"{', '.join(f'{o['c']['init_s']:.3f}' for o in out)} s, held "
+        f"{', '.join(gib(o['c']['held_bytes']) for o in out)} GiB, peak "
+        f"{', '.join(gib(o['c']['peak']) for o in out)} GiB; prefill "
+        f"{batch}x{moe_ref['toks'].shape[1] - RANKS_MOE_DECODE} "
+        f"{c0['step_s'][0] * 1e3:.1f} ms, decode {RANKS_MOE_DECODE} steps "
+        f"{', '.join(f'{batch * RANKS_MOE_DECODE / d:.1f}' for d in dec)} tokens/s; prefill "
+        f"drops {moe_ref['dropped']} == one card; logits vs phase 19's one card (bf16 rule, "
+        f"rel <= {TOL['bf16']}): worst held {', '.join(f'{o['c']['worst']:.3e}' for o in out)}; "
+        f"found, not held: {[o['c']['found'] for o in out]}")
+
+    # (d) the re-shard
+    for r, o in enumerate(out):
+        d = o["d"]
+        if d["bad"] or d["step"] != 7 or not d["sharded"]:
+            raise AssertionError(f"ranks (d) rank {r}: leaves {d['bad']} differ (step "
+                                 f"{d['step']}, {d['sharded']} sharded)")
+    d0 = out[0]["d"]
+    log(f"ranks (d) restore(axes=) onto (1, {RANKS}) under fsdp: all {d0['leaves']} leaves of "
+        f"the reduced mistral-nemo checkpoint, {d0['sharded']} placements sharded: every "
+        f"rank's local shard bit-equal to its block (rank bytes "
+        f"{', '.join(str(o['d']['held']) for o in out)}); "
+        f"{', '.join(f'{o['d']['secs']:.3f}' for o in out)} s")
+    log(f"ranks phase: {time.perf_counter() - t_start:.1f} s ({spawn_s:.1f} s in the ranks; "
+        f"(a) {a0['secs']:.1f}, (b) {out[0]['b']['secs']:.1f}, (c) init "
+        f"{c0['init_s']:.1f} + serve {sum(c0['step_s']):.1f}, (d) {d0['secs']:.1f} s on rank "
+        f"0); no helper process beside them; gloo on one card, not NCCL across cards")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -4583,7 +5008,7 @@ def main() -> int:
             log(f"kernel {r['name']}: the engine's former call form ({r['old_form']}): "
                 f"device {r['ms_old']:.5f} ms, eager from Python {r['eager_old_ms']:.5f} ms")
 
-    totals, rates, main_refs = main_path(dev, args.ticks)
+    totals, rates, main_refs, snaps_1200 = main_path(dev, args.ticks)
     profile_window(dev, warm=300, ticks=25)
     phase_done("main path and profile")
     # the CPU sides of phases 5, 11, 12, 8 and 9, in the order they are
@@ -4609,8 +5034,9 @@ def main() -> int:
             totals[k] += n
         del fig18_card
         phase_done("generated fabrics")
-        for k, n in scale_phase(dev, dense_reps, args.scale_row5_ticks, args.scale_row6_ticks,
-                                args.scale_prof_ticks, cpu_row5).items():
+        scale_totals, row5 = scale_phase(dev, dense_reps, args.scale_row5_ticks,
+                                         args.scale_row6_ticks, args.scale_prof_ticks, cpu_row5)
+        for k, n in scale_totals.items():
             totals[k] += n
         del dense_reps
         phase_done("scale mode")
@@ -4661,7 +5087,8 @@ def main() -> int:
         cpu_families = pool.apply_async(serve_reduced_runs, ("cpu",),
                                         {"cases": FAMILY_CASES, "P": FAMILY_P})
         cpu_train = pool.apply_async(train_reduced_runs, ("cpu",), {"ulp": True})
-        for k, n in families_phase(dev, cpu_families, smi).items():
+        family_totals, moe_ref = families_phase(dev, cpu_families, smi)
+        for k, n in family_totals.items():
             totals[k] += n
         phase_done("serve families")
         counts, train_info = train_phase(dev, cpu_train, smi)
@@ -4671,6 +5098,10 @@ def main() -> int:
     for k, n in roofline_phase(dev, smi, train_info).items():
         totals[k] += n
     phase_done("dry-run and roofline")
+    for k, n in ranks_phase(dev, snaps_1200, row5, moe_ref, args.scale_row5_ticks).items():
+        totals[k] += n
+    del snaps_1200, row5, moe_ref
+    phase_done("ranks")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

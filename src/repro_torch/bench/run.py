@@ -17,7 +17,10 @@ rows are kept.  It never writes the reference's
 BENCH_SEEDS and BENCH_COLLECT.  The scale modules (``scale_smoke``: one
 scale-mode sweep row; ``table1_footprint``: REPS's per-connection bytes)
 run only when ``--only`` names them; ``--scale-conns`` / ``--scale-ticks``
-(BENCH_SCALE_CONNS, BENCH_SCALE_TICKS; default 10**5 and 300) size them.
+(BENCH_SCALE_CONNS, BENCH_SCALE_TICKS; default 10**5 and 300) size them,
+and ``--scale-conn-devices N`` (BENCH_SCALE_CONN_DEVICES, default 1) splits
+the scale row's connection axis over N ranks of the backend
+``--scale-backend`` names.
 """
 from __future__ import annotations
 
@@ -70,7 +73,14 @@ def main(argv=None) -> int:
     ap.add_argument("--scale-ticks", type=int,
                     default=int(os.environ.get("BENCH_SCALE_TICKS", "300")),
                     help="ticks of the scale row")
+    ap.add_argument("--scale-conn-devices", type=int,
+                    default=int(os.environ.get("BENCH_SCALE_CONN_DEVICES", "1")),
+                    help="ranks the scale row's connection axis is split over")
+    ap.add_argument("--scale-backend", choices=("gloo", "nccl"), default=None,
+                    help="the backend of those ranks (gloo for ranks sharing a card)")
     args = ap.parse_args(argv)
+    if args.scale_conn_devices > 1 and args.scale_backend is None:
+        ap.error("--scale-conn-devices > 1 needs --scale-backend gloo or nccl")
     if args.seeds < 1:
         ap.error(f"--seeds must be >= 1, got {args.seeds}")
     os.environ["BENCH_SEEDS"] = str(args.seeds)  # sweep_case's seed axis
@@ -91,7 +101,8 @@ def main(argv=None) -> int:
     for name in selected:
         mod = importlib.import_module(f"repro_torch.bench.{name}")
         if name in SCALE_MODULES:
-            mod.main(rows, conns=args.scale_conns, ticks=args.scale_ticks, device=args.device)
+            mod.main(rows, conns=args.scale_conns, ticks=args.scale_ticks, device=args.device,
+                     conn_devices=args.scale_conn_devices, backend=args.scale_backend)
         else:
             mod.main(rows, full=args.full, smoke=args.smoke, collect=args.collect,
                      device=args.device)

@@ -1,5 +1,5 @@
 """Live soak dashboard: watch a checkpointed sweep run, chunk by chunk (the
-reference's ``benchmarks/soak_dashboard.py``, plain mode).
+reference's ``benchmarks/soak_dashboard.py``).
 
 Drives the fig07-class soak grid (``repro_torch.bench.soak_fig07.cases``)
 through ``SoakRunner`` and prints a frame per cell after every ``advance``
@@ -11,9 +11,11 @@ Per cell: a progress bar, delivered / drops / timeouts counters, a
 per-window utilization sparkline, the recovery tracker's first drop ->
 first redelivery span once the redelivery lands, and, when tracing, the
 flight ring's cursor and its latest decision events.  ``--inject-spine N``
-kills a spine one chunk in.  The frames go to stdout, one per chunk; the
-reference's curses view is not ported (``--plain`` is accepted and is what
-runs).  Runs on the card unless ``--device cpu``.
+kills a spine one chunk in.  On a terminal the frames redraw in place
+through ``curses.wrapper`` (``run_curses``, reference
+``benchmarks/soak_dashboard.py:119-141``; ``q`` quits with the checkpoints
+kept); with ``--plain``, or when stdout is not a terminal, they go to
+stdout, one per chunk.  Runs on the card unless ``--device cpu``.
 
     python -m repro_torch.bench.soak_dashboard --plain --ticks 240 --chunk 80
     python -m repro_torch.bench.soak_dashboard --ckpt /tmp/ck --trace 512 --device cpu
@@ -21,6 +23,7 @@ runs).  Runs on the card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 
@@ -109,6 +112,31 @@ def run_plain(soak: SoakRunner, chunk: int, inject_at, inject_spine, cfg):
         print("-" * 72, flush=True)
 
 
+def run_curses(soak: SoakRunner, chunk: int, inject_at, inject_spine, cfg):
+    """The curses view: one frame per chunk, redrawn in place, clipped to
+    the screen, with a ``q`` prompt on the last line; ``q`` (or ``Q``)
+    stops the run between chunks, leaving the checkpoints written so far."""
+    import curses
+
+    def loop(scr):
+        curses.use_default_colors()
+        scr.nodelay(True)
+        while not soak.done:
+            if inject_at is not None and soak.cursor == inject_at and not soak.injections:
+                soak.inject(failures.spine_down(cfg, inject_spine, start=inject_at))
+            soak.advance(chunk)
+            scr.erase()
+            h, w = scr.getmaxyx()
+            for y, line in enumerate(frame(soak)[: h - 1]):
+                scr.addnstr(y, 0, line, w - 1)
+            scr.addnstr(h - 1, 0, "q: quit (checkpoints kept)", w - 1)
+            scr.refresh()
+            if scr.getch() in (ord("q"), ord("Q")):
+                return
+
+    curses.wrapper(loop)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=480,
@@ -122,7 +150,7 @@ def main(argv=None):
     ap.add_argument("--inject-spine", type=int, default=None,
                     help="inject a spine_down delta one chunk in")
     ap.add_argument("--plain", action="store_true",
-                    help="print frames to stdout (the only view the port has)")
+                    help="print frames to stdout instead of curses")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
@@ -132,7 +160,10 @@ def main(argv=None):
     trace = TraceSpec(ring=args.trace) if args.trace else None
     soak = SoakRunner(engine, SoakConfig(chunk=args.chunk, ckpt_dir=args.ckpt, trace=trace))
     inject_at = args.chunk if args.inject_spine is not None else None
-    run_plain(soak, args.chunk, inject_at, args.inject_spine, cfg)
+    if args.plain or not sys.stdout.isatty():
+        run_plain(soak, args.chunk, inject_at, args.inject_spine, cfg)
+    else:
+        run_curses(soak, args.chunk, inject_at, args.inject_spine, cfg)
     print(f"finished at cursor {soak.cursor}/{soak.horizon} "
           f"(checkpoints{' at ' + args.ckpt if args.ckpt else ' off'})")
     return soak

@@ -25,9 +25,14 @@ Crash-safety contract (the soak runtime's resume path depends on it):
   host synchronously, writes in a worker thread, and re-raises any worker
   exception from ``join()``.
 
-The reference re-shards a restore onto a device mesh (``axes``); the port
-runs on one card, so ``restore`` with ``axes`` raises (multi-GPU is
-ROADMAP.md queue 1 item 12).
+Elastic re-shard (reference ``checkpoint.py:216-235``).  Under an active
+``distrib.sharding.mesh_rules`` mesh, ``restore(..., axes=)`` places each
+leaf whose logical axes are given as a ``DTensor`` on that mesh (the
+placements ``resolve_spec`` / ``placements`` give for the saved shape),
+whatever layout it was saved from; each rank reads only the block it owns
+from the ``.npz`` (the arrays are stored uncompressed, so a block is a few
+seeks and reads).  Leaves without axes, or with no mesh active, come back
+as plain tensors.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import os
 import shutil
 import threading
 import time
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -184,20 +190,113 @@ def read_manifest(path: str) -> dict:
 def restore(path: str, like: dict[str, Any], axes: Optional[dict] = None, device=None):
     """Trees shaped like ``like`` (``{name: example tree}``), each leaf a
     tensor on its example leaf's device (or on ``device``), with the saved
-    values and dtypes.  Returns ``(trees, step)``."""
-    if axes is not None:
-        raise NotImplementedError(
-            "restore(axes=...) re-shards onto a device mesh; the port runs on one card "
-            "(multi-GPU is ROADMAP.md queue 1 item 12)")
+    values and dtypes.  With a mesh active (``distrib.sharding.mesh_rules``)
+    and ``axes`` (``{name: logical-axes tree}``, a tuple of axis names per
+    leaf), each leaf with axes is a ``DTensor`` on that mesh, this rank's
+    block read from the file: the elastic re-shard path.  Returns
+    ``(trees, step)``."""
+    from repro_torch.distrib.sharding import active_mesh
+
     manifest = read_manifest(path)
+    mesh = active_mesh()
     out = {}
     for name, tree in like.items():
-        with np.load(os.path.join(path, f"{name}.npz")) as data:
+        fpath = os.path.join(path, f"{name}.npz")
+        flat_axes = (_flat_axes(axes[name]) if mesh is not None and axes and name in axes
+                     else {})
+        devs = {k: device if device is not None else _dev(t)
+                for k, t in tree_flatten_with_path(tree).items()}
+        if flat_axes:
+            with zipfile.ZipFile(fpath) as zf:
+                flat = {k: (_placed(zf, k, flat_axes[k], mesh, devs[k]) if k in flat_axes
+                            else torch.as_tensor(_read_block(zf, k, None), device=devs[k]))
+                        for k in devs}
+            out[name] = tree_unflatten_like(tree, flat)
+            continue
+        with np.load(fpath) as data:
             arrays = tree_unflatten_like(tree, {k: data[k] for k in data.files})
-        devs = iter([device if device is not None else _dev(t)
-                     for t in tree_flatten_with_path(tree).values()])
-        out[name] = tree_map_with_path(lambda _, a: torch.as_tensor(a, device=next(devs)), arrays)
+        out[name] = tree_map_with_path(
+            lambda p, a: torch.as_tensor(a, device=devs[p or "_"]), arrays)
     return out, manifest["step"]
+
+
+def _flat_axes(axes_tree, prefix: str = "") -> dict:
+    """``{leaf path: logical axes}`` of an axes tree (dicts, lists and
+    tuples of subtrees; a leaf is a tuple of axis names and Nones)."""
+    if isinstance(axes_tree, tuple) and all(a is None or isinstance(a, str) for a in axes_tree):
+        return {prefix or "_": axes_tree}
+    if not isinstance(axes_tree, (dict, list, tuple)):
+        raise TypeError(f"axes at {prefix or '_'!r}: a leaf's axes are a tuple of axis names "
+                        f"(or Nones), got {type(axes_tree).__name__} {axes_tree!r}")
+    items = axes_tree.items() if isinstance(axes_tree, dict) else enumerate(axes_tree)
+    out = {}
+    for k, v in items:
+        out.update(_flat_axes(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _placed(zf: zipfile.ZipFile, key: str, logical_axes, mesh, device):
+    """The saved leaf ``key`` as a ``DTensor`` on ``mesh``, placed by its
+    logical axes under the active rules; only this rank's block is read."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distrib.sharding import contiguous_stride, placements, resolve_spec
+
+    shape, _, _ = _header(zf, key)
+    pl = placements(mesh, resolve_spec(logical_axes, shape))
+    coord = mesh.get_coordinate()
+    start, length = [0] * len(shape), list(shape)
+    for m, p in enumerate(pl):  # DTensor's order: the lower mesh dimension is the outer split
+        if p.is_shard():
+            length[p.dim] //= mesh.size(m)
+            start[p.dim] += coord[m] * length[p.dim]
+    local = torch.as_tensor(_read_block(zf, key, (start, length)), device=device)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=tuple(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _read_header(f):
+    """``(shape, fortran_order, dtype)`` from an open ``.npy`` stream,
+    leaving it at the data."""
+    version = np.lib.format.read_magic(f)
+    read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+            else np.lib.format.read_array_header_2_0)
+    return read(f)
+
+
+def _header(zf: zipfile.ZipFile, key: str):
+    with zf.open(f"{key}.npy") as f:
+        return _read_header(f)
+
+
+def _read_block(zf: zipfile.ZipFile, key: str, block=None) -> np.ndarray:
+    """The stored array ``key``, or its block ``(start, length)`` (one range
+    per dimension): one seek and read per contiguous run of the C-ordered
+    data (Fortran-ordered and 0-d arrays are read whole)."""
+    with zf.open(f"{key}.npy") as f:
+        shape, fortran, dtype = _read_header(f)
+        if block is None or fortran or not shape:
+            f.seek(0)
+            arr = np.lib.format.read_array(f, allow_pickle=False)
+            if block is None:
+                return arr
+            return arr[tuple(slice(s, s + n) for s, n in zip(*block))].copy()
+        base = f.tell()
+        start, length = block
+        strides = [dtype.itemsize] * len(shape)  # C order, in bytes
+        for d in range(len(shape) - 2, -1, -1):
+            strides[d] = strides[d + 1] * shape[d + 1]
+        # the innermost dimension that is cut: each run spans it and all after it
+        k = max([d for d in range(len(shape)) if length[d] != shape[d]], default=0)
+        out = np.empty(length, dtype=dtype)
+        if out.size == 0:
+            return out
+        runs = out.reshape(-1, length[k] * strides[k] // dtype.itemsize)
+        for i, idx in enumerate(np.ndindex(*length[:k])):
+            off = sum((start[d] + j) * strides[d] for d, j in enumerate(idx))
+            f.seek(base + off + start[k] * strides[k])
+            runs[i] = np.frombuffer(f.read(runs.shape[1] * dtype.itemsize), dtype=dtype)
+        return out
 
 
 def _snapshot_step(base: str, d: str) -> Optional[int]:

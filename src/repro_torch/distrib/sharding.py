@@ -15,8 +15,16 @@ placements: ``Shard(dim)`` on every mesh dimension that shards ``dim``,
 ``Replicate()`` on the others.
 
 The rule table is swappable (``mesh_rules(mesh, rules)``), as in the
-reference.  The sweep half of the reference module (row meshes for the
-network simulator) is not ported here.
+reference.
+
+The sweep half (reference ``src/repro/distrib/sharding.py:124-202``)
+builds the network simulator's meshes over the ranks of the active process
+group (``repro_torch.distrib.ranks``): ``sweep_mesh`` a 1-D ``("rows",)``
+mesh for row-parallel sweeps, ``sweep_conn_mesh`` a 2-D ``("rows",
+"conns")`` mesh for scale mode's connection axis, ``pad_rows`` the row
+count padded to the row axis.  The reference's ``resolve_kernels_backend``
+(Pallas or jnp by the mesh's platform) has no counterpart: in the port the
+device picks the kernel path.
 """
 from __future__ import annotations
 
@@ -320,3 +328,80 @@ def einsum(equation: str, *operands):
     assert y.shape == tuple(size[c] for c in out), (equation, y.shape)  # even shards
     return y
 
+
+
+# ---------------------------------------------------------------------------
+# Sweep-row sharding (netsim/sweep.py): independent scenario rows sharded
+# over a 1-D mesh of the process group's ranks, and scale mode's connection
+# axis as the minor axis of a 2-D one.
+# ---------------------------------------------------------------------------
+SWEEP_AXIS = "rows"
+# the second axis of conn-sharded scale mode (SimConfig.conn_sharding): the
+# connection axis of the per-connection state is split over it (see
+# Simulator.step_rows(conn_axis=...))
+CONN_AXIS = "conns"
+
+
+def _visible_ranks(max_devices: Optional[int]) -> int:
+    import torch.distributed as dist
+
+    n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return n if max_devices is None else max(1, min(int(max_devices), n))
+
+
+def _rank_mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...]):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = 1
+    for s in shape:
+        n *= s
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def sweep_mesh(max_devices: Optional[int] = None, device_type: str = "cpu"):
+    """1-D ``("rows",)`` mesh over the first ``max_devices`` ranks of the
+    process group (all of them by default), or None when that is one rank
+    or no group is up (callers then run every row in this process).  Every
+    rank of the group must call it (making the mesh's groups is
+    collective); reference ``sharding.py:138-147``."""
+    n = _visible_ranks(max_devices)
+    if n <= 1:
+        return None
+    return _rank_mesh(device_type, (n,), (SWEEP_AXIS,))
+
+
+def sweep_conn_mesh(conn_devices: int, max_devices: Optional[int] = None,
+                    device_type: str = "cpu"):
+    """2-D ``(rows, conns)`` mesh for conn-sharded sweeps: scenario rows on
+    the major axis, the connection state axis split over the minor
+    ``CONN_AXIS``; rank ``r`` sits at ``(r // conn_devices, r %
+    conn_devices)``.  Raises when fewer than ``conn_devices`` ranks are up
+    (conn sharding cannot silently degrade: results would still be
+    bit-identical, but the memory contract would not hold); reference
+    ``sharding.py:150-173``."""
+    n = _visible_ranks(max_devices)
+    conn_devices = int(conn_devices)
+    if conn_devices < 1:
+        raise ValueError(f"conn_devices must be >= 1, got {conn_devices}")
+    if conn_devices > n:
+        raise ValueError(
+            f"conn_devices={conn_devices} exceeds the {n} visible devices "
+            "(on the CPU start more ranks: repro_torch.distrib.ranks.run_ranks)")
+    rows = n // conn_devices
+    return _rank_mesh(device_type, (rows, conn_devices), (SWEEP_AXIS, CONN_AXIS))
+
+
+def pad_rows(n_rows: int, mesh) -> int:
+    """Row count after padding to a multiple of the sweep mesh's row axis."""
+    if mesh is None:
+        return n_rows
+    n_dev = _axis_size(mesh, SWEEP_AXIS)
+    return ((n_rows + n_dev - 1) // n_dev) * n_dev
+
+
+def mesh_platform(mesh) -> str:
+    """Platform ("cpu" / "gpu") of the devices a sweep runs on: the mesh's
+    device type when one is given, else the card when one is present."""
+    if mesh is not None:
+        return "gpu" if mesh.device_type == "cuda" else mesh.device_type
+    return "gpu" if torch.cuda.is_available() else "cpu"

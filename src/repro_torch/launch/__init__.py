@@ -1,2 +1,2 @@
-"""Entry points of the port (``serve``, ``train``); the reference's mesh, roofline,
-dry-run, cost and report launchers are not ported yet."""
+"""Entry points of the port: ``serve``, ``train``, and the mesh, roofline,
+dry-run, cost and report launchers."""

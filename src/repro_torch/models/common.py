@@ -46,22 +46,25 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def dense_init(key, shape, in_axis_size=None, dtype=torch.float32):
+def dense_init(key, shape, in_axis_size=None, dtype=torch.float32, rows=None):
     """``normal(key, shape) / sqrt(fan_in)`` cast to ``dtype``, on the key's
     device, drawn in chunks of ``INIT_CHUNK`` elements of the flat index
-    (the same values as one draw).  On the meta device there is nothing
-    to draw."""
+    (the same values as one draw).  ``rows=(lo, hi)`` draws only rows
+    ``lo:hi`` of the first dimension (the same values as those rows of the
+    whole draw: threefry's draws are counter-based).  On the meta device
+    there is nothing to draw."""
     shape = tuple(shape)
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(fan_in)))
-    out = torch.empty(shape, dtype=dtype, device=key.device)
+    lo, hi = (0, shape[0]) if rows is None else rows
+    out = torch.empty((hi - lo, *shape[1:]), dtype=dtype, device=key.device)
     if out.is_meta:  # shapes alone (``launch.roofline``, ``launch.dryrun``)
         return out
     flat = out.view(-1)
-    n = math.prod(shape)
+    n, first = out.numel(), lo * math.prod(shape[1:])
     for s in range(0, n, INIT_CHUNK):
         m = min(INIT_CHUNK, n - s)
-        flat[s:s + m] = (rng.normal(key, (m,), start=s) * scale).to(dtype)
+        flat[s:s + m] = (rng.normal(key, (m,), start=first + s) * scale).to(dtype)
     return out
 
 

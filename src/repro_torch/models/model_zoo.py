@@ -49,7 +49,8 @@ def cross_entropy(logits, labels):
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init_params: Callable  # (key, dtype) -> params on the key's device
+    init_params: Callable  # (key, dtype) -> params on the key's device (transformers:
+    # experts=(lo, hi) draws one shard of each MoE layer's experts)
     param_axes: Callable  # () -> logical-axis tree
     loss_fn: Callable  # (params, batch, remat=True, remat_policy=None) -> (loss, metrics)
     prefill_fn: Callable  # (params, batch, max_len) -> (logits, cache, len)
@@ -112,7 +113,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
 
     return Model(
         cfg=cfg,
-        init_params=lambda key, dtype=torch.float32: transformer.init_params(cfg, key, dtype),
+        init_params=lambda key, dtype=torch.float32, **kw: transformer.init_params(cfg, key, dtype,
+                                                                                   **kw),
         param_axes=lambda: transformer.param_axes(cfg),
         loss_fn=loss_fn,
         prefill_fn=lambda params, batch, max_len: transformer.prefill(params, cfg, batch,

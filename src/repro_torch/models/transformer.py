@@ -25,25 +25,26 @@ from repro_torch.models.common import (dense_init, lead_axes, remat as remat_cal
 Params = dict[str, Any]
 
 
-def _layer_init(key, cfg: ModelConfig, dtype):
+def _layer_init(key, cfg: ModelConfig, dtype, experts=None):
     ks = split_keys(key, 2)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=key.device)
     p = {"norm1": ones(), "norm2": ones(), "attn": attn.init_attn_params(ks[0], cfg, dtype)}
     if cfg.n_experts:
-        p["moe"] = mlp_mod.init_moe_params(ks[1], cfg, dtype)
+        p["moe"] = mlp_mod.init_moe_params(ks[1], cfg, dtype, experts=experts)
     else:
         p["mlp"] = mlp_mod.init_mlp_params(ks[1], cfg, dtype)
     return p
 
 
-def init_params(cfg: ModelConfig, key, dtype=torch.float32) -> Params:
+def init_params(cfg: ModelConfig, key, dtype=torch.float32, experts=None) -> Params:
     """The reference's parameters from ``key`` (layer i from ``ks[i]``, the
     embedding from ``ks[-3]``, the untied head from ``ks[-2]``), on the
-    key's device."""
+    key's device.  ``experts=(lo, hi)``: each MoE layer holds experts
+    ``lo:hi`` alone (one rank's shard, drawn without the rest)."""
     ks = split_keys(key, cfg.n_layers + 3)
     p: Params = {
         "embed": dense_init(ks[-3], (cfg.vocab, cfg.d_model), cfg.d_model, dtype),
-        "layers": stack_layers(cfg.n_layers, lambda i: _layer_init(ks[i], cfg, dtype)),
+        "layers": stack_layers(cfg.n_layers, lambda i: _layer_init(ks[i], cfg, dtype, experts)),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=key.device),
     }
     if not cfg.tie_embeddings:

@@ -99,7 +99,8 @@ class SimConfig:
     pkt_slots: int = 0  # 0 = auto (n_conns * max_cwnd + slack)
     # scale mode: the sparse active set and the lifetime-sized packet table
     # (engine.py); active_slots pins the set's size A (0 = the lifetime
-    # bound).  Sharding the connection axis over several cards is not ported.
+    # bound); SweepEngine(conn_devices=N) also splits the connection axis
+    # over N ranks.
     conn_sharding: bool = False
     active_slots: int = 0
     # shape pins of the reference's sweep bucketing (0 = derive from the

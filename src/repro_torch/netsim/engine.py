@@ -96,8 +96,28 @@ gets there with PyTorch:
     that open this tick.  Observation only: the state and the probe are
     bit-identical with events on or off.
 
-Not ported yet: the conn-axis mesh (``conn_axis``, several cards); it
-raises ``NotImplementedError``.
+  * The connection axis (scale mode over several ranks;
+    ``step_rows(..., conn_axis=)``, ``step_scenario(conn_axis=)``; reference
+    ``engine.py:858-903, 966-985, 1541-1552``).  ``conn_axis`` is a 1-D
+    ``DeviceMesh`` (``mesh["conns"]`` of ``sharding.sweep_conn_mesh``) or a
+    process group; rank ``r`` of its ``n`` owns connections ``[r * NC / n,
+    (r + 1) * NC / n)``.  The nine small per-connection leaves arrive as
+    that block (``(B, NC / n)``) and are all-gathered to full shape at entry
+    (one packed collective) and sliced back at exit; the scenario's five
+    connection tables are gathered once per scenario object and kept
+    (``conn_scenario``; the reference gathers them every tick).  The
+    ``(NC, MSG)`` ``c_rtx`` / ``c_rcv`` bitmaps stay with their rank as
+    ``(B, NC / n + 1, MSG)``, the block plus this rank's own drop row, and
+    every access goes through the ``_bm_*`` helpers: a read answers for the
+    owned rows and one all-reduce (sum, ``> 0``) ORs the ranks' answers, a
+    write drops on rows the rank does not own.  ``lb_state`` and every draw
+    keep their full shape on every rank, so a conn-sharded run is
+    bit-identical to ``conn_axis=None``.  ``shard_conn_state`` and
+    ``gather_conn_state`` move a state between the two layouts; a gathered
+    bitmap's drop row is False (each rank's own drop row is scratch).
+    Collectives per tick: one all-gather and, without trimming, three
+    all-reduces (RTO, delivery, the injection's retransmit rows; one more
+    with trimming).
 """
 from __future__ import annotations
 
@@ -136,6 +156,11 @@ F32 = torch.float32
 DRAW_CHUNK = 256  # ticks whose random inputs ``run`` draws in one pass, at most
 DRAW_ELEMS = 2**26  # per-connection draws (ticks x rows x conns x kinds) per pass, at most
 SCN_TABLES = 16  # rows' scenarios whose prepared tables a simulator keeps
+# the per-connection leaves a conn axis splits (the bitmaps apart), and the
+# scenario's connection tables
+CONN_LEAVES = ("c_inflight", "c_next_new", "c_delivered", "c_rx_pending", "c_done",
+               "c_done_tick", "c_rtx_count", "c_cwnd", "c_alpha")
+SCN_CONN_TABLES = ("conn_src", "conn_dst", "conn_msg", "conn_start", "conn_dep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -545,6 +570,91 @@ def drop_rows(x):
     return tree_map(lambda t: t[0], x)
 
 
+@dataclasses.dataclass(frozen=True)
+class ConnShard:
+    """This rank's place on a connection axis: the axis's process
+    ``group``, the rank's index on it and the axis's size."""
+
+    group: Any
+    rank: int
+    size: int
+
+    @classmethod
+    def of(cls, axis) -> "ConnShard | None":
+        """The axis given as a 1-D ``DeviceMesh`` or a process group (or
+        None: no axis)."""
+        if axis is None or isinstance(axis, ConnShard):
+            return axis
+        if isinstance(axis, str):
+            raise TypeError(f"conn_axis={axis!r}: the port's conn axis is the ranks it spans "
+                            "(mesh['conns'] of sharding.sweep_conn_mesh, or a process group), "
+                            "not a mesh-axis name")
+        import torch.distributed as dist
+
+        group = axis.get_group() if hasattr(axis, "get_group") else axis
+        return cls(group, dist.get_rank(group), dist.get_world_size(group))
+
+    def block(self, nc: int) -> tuple[int, int]:
+        """``(offset, length)`` of this rank's block of ``nc`` connections."""
+        if nc % self.size:
+            raise ValueError(f"{nc} connections do not split over {self.size} ranks")
+        n = nc // self.size
+        return self.rank * n, n
+
+
+def _pack_i32(xs) -> torch.Tensor:
+    """Equal-shape int32 / bool / float32 tensors stacked as int32 (floats
+    by their bits), for one collective."""
+    return torch.stack([x.view(I32) if x.dtype == F32 else x.to(I32) for x in xs])
+
+
+def _unpack_i32(packed: torch.Tensor, likes) -> list[torch.Tensor]:
+    return [p.view(F32) if l.dtype == F32 else p.to(l.dtype) for p, l in zip(packed, likes)]
+
+
+def gather_conns(xs, conn_axis) -> list[torch.Tensor]:
+    """Connection blocks ``(..., NC / n)`` of equal shape gathered over
+    ``conn_axis`` to ``(..., NC)``, in one collective."""
+    from repro_torch.distrib.ranks import all_gather_cat
+
+    ax = ConnShard.of(conn_axis)
+    return _unpack_i32(all_gather_cat(_pack_i32(xs), ax.group, dim=-1), xs)
+
+
+def shard_conn_state(state: SimState, conn_axis) -> SimState:
+    """A full-shape rows state (leaves ``(B, ...)``) as this rank holds it on
+    ``conn_axis``: the nine per-connection leaves cut to the rank's block,
+    the bitmaps to the block plus a False drop row; every other leaf as it
+    is."""
+    ax = ConnShard.of(conn_axis)
+    nc = state.c_inflight.shape[-1]
+    off, n = ax.block(nc)
+    cut = {k: getattr(state, k)[..., off:off + n].clone() for k in CONN_LEAVES}
+
+    def bitmap(bm):
+        out = torch.zeros((bm.shape[0], n + 1, bm.shape[2]), dtype=bm.dtype, device=bm.device)
+        out[:, :n] = bm[:, off:off + n]
+        return out
+
+    return state.replace(c_rtx=bitmap(state.c_rtx), c_rcv=bitmap(state.c_rcv), **cut)
+
+
+def gather_conn_state(state: SimState, conn_axis) -> SimState:
+    """The inverse of ``shard_conn_state`` (collective over the axis): every
+    rank gets the full-shape state, the bitmaps with a False drop row."""
+    from repro_torch.distrib.ranks import all_gather_cat
+
+    ax = ConnShard.of(conn_axis)
+    full = dict(zip(CONN_LEAVES, gather_conns([getattr(state, k) for k in CONN_LEAVES], ax)))
+
+    def bitmap(bm):
+        rows = all_gather_cat(bm[:, :-1].contiguous(), ax.group, dim=1)
+        return torch.cat([rows, torch.zeros_like(bm[:, :1])], dim=1)
+
+    return state.replace(c_rtx=bitmap(state.c_rtx), c_rcv=bitmap(state.c_rcv), **full)
+
+
+
 def _compact(mask: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     """Indices of set bits of each row of ``mask (B, N)`` in ascending order,
     padded with ``N`` (binary search over the running popcount, as the
@@ -786,6 +896,7 @@ class Simulator:
         # the newest SCN_TABLES of them, so that a caller alternating a few
         # prepares each once
         self._scn_tables: dict[int, tuple] = {}
+        self._conn_scns: dict[int, tuple] = {}
 
         # constants reused every tick
         self._qid = torch.arange(self.NQ, dtype=I32, device=dev)
@@ -893,21 +1004,87 @@ class Simulator:
         return torch.clamp(cwnd, 1.0, float(cfg.max_cwnd_pkts)), alpha
 
     # -- (B, NC + 1, MSG) bitmaps with a sentinel row ----------------------
-    def _bm_get(self, bmap, conns, seqs, R: _Rows):
+    # On a conn axis (``ax``, a ``ConnShard``) a bitmap is this rank's block
+    # ``(B, NC / n + 1, MSG)`` with its own drop row, and the helpers below
+    # answer for the whole axis (reference ``engine.py:858-903``); with
+    # ``ax`` None each is the dense expression it stands for.
+    def _bm_local(self, bmap, conns, ax: ConnShard):
+        """Row of ``conns`` in this rank's block (its drop row where it owns
+        none) and whether it owns it."""
+        n = bmap.shape[1] - 1
+        loc = conns - ax.rank * n
+        inr = (loc >= 0) & (loc < n)
+        return torch.where(inr, loc, n), inr
+
+    def _bm_gets(self, bmaps, conns, seqs, R: _Rows, ax: ConnShard | None = None):
         """``bmap.at[conns, seqs].get(mode="fill", fill_value=True)`` in each
-        row."""
+        row, for each of ``bmaps`` (read at the same lanes: on a conn axis
+        one all-reduce answers for all of them)."""
         NC, MSG = self.wl.n_conns, self.MSG
         ok = (conns >= 0) & (conns < NC) & (seqs >= 0) & (seqs < MSG)
-        return torch.where(ok, bmap[R.of(conns), conns.clamp(0, NC), seqs.clamp(0, MSG - 1)],
-                           True)
+        s = seqs.clamp(0, MSG - 1)
+        if ax is None:
+            return tuple(torch.where(ok, bm[R.of(conns), conns.clamp(0, NC), s], True)
+                         for bm in bmaps)
+        from repro_torch.distrib.ranks import all_reduce_sum
 
-    def _bm_or(self, bmap, conns, seqs, vals, R: _Rows):
+        loc, inr = self._bm_local(bmaps[0], conns, ax)
+        got = torch.stack([bm[R.of(conns), loc, s] & inr for bm in bmaps])
+        hit = all_reduce_sum(got, ax.group) > 0
+        return tuple(torch.where(ok, h, True) for h in hit)
+
+    def _bm_get(self, bmap, conns, seqs, R: _Rows, ax: ConnShard | None = None):
+        return self._bm_gets((bmap,), conns, seqs, R, ax)[0]
+
+    def _bm_or(self, bmap, conns, seqs, vals, R: _Rows, ax: ConnShard | None = None):
         """``bmap.at[conns, seqs].max(vals, mode="drop")`` in place, in each
         row: only the constant True is written, so repeated indices are
         harmless."""
         NC = self.wl.n_conns
         hit = vals & (conns >= 0) & (conns < NC)
-        bmap[R.of(conns), torch.where(hit, conns, NC), seqs.clamp(0, self.MSG - 1)] = self._true
+        if ax is None:
+            row = torch.where(hit, conns, NC)
+        else:
+            loc, inr = self._bm_local(bmap, conns, ax)
+            row = torch.where(hit & inr, loc, bmap.shape[1] - 1)
+        bmap[R.of(conns), row, seqs.clamp(0, self.MSG - 1)] = self._true
+
+    def _bm_rows(self, bmap, rows, conns, ax: ConnShard | None = None):
+        """``bmap[rows, conns]``: whole ``(..., MSG)`` rows of in-range
+        connections (on a conn axis, one all-reduce)."""
+        if ax is None:
+            return bmap[rows, conns]
+        from repro_torch.distrib.ranks import all_reduce_sum
+
+        loc, inr = self._bm_local(bmap, conns, ax)
+        return all_reduce_sum(bmap[rows, loc] & inr[..., None], ax.group) > 0
+
+    def _bm_set_false(self, bmap, rows, conns, seqs, mask, ax: ConnShard | None = None):
+        """``bmap.at[conns, seqs].set(False)`` where ``mask`` holds (in-range
+        connections), dropped elsewhere and on rows another rank owns."""
+        if ax is None:
+            row = torch.where(mask, conns, self.wl.n_conns)
+        else:
+            loc, inr = self._bm_local(bmap, conns, ax)
+            row = torch.where(mask & inr, loc, bmap.shape[1] - 1)
+        bmap[rows, row, seqs] = self._false
+
+    def conn_scenario(self, scn: ScenarioArrays | None, conn_axis) -> ScenarioArrays | None:
+        """``scn`` with its five connection tables at full width: gathered
+        over ``conn_axis`` where they are a rank's block (once per ``scn``
+        object, kept while it is among the newest ``SCN_TABLES``), as they
+        are where they already are full, or None for the simulator's own."""
+        if scn is None or scn is self.scn or scn.conn_src.shape[-1] == self.wl.n_conns:
+            return scn
+        hit = self._conn_scns.pop(id(scn), None)
+        if hit is None or hit[0] is not scn:
+            ax = ConnShard.of(conn_axis)
+            full = gather_conns([getattr(scn, k) for k in SCN_CONN_TABLES], ax)
+            hit = (scn, scn._replace(**dict(zip(SCN_CONN_TABLES, full))))
+            if len(self._conn_scns) >= SCN_TABLES:
+                del self._conn_scns[next(iter(self._conn_scns))]
+        self._conn_scns[id(scn)] = hit
+        return hit[1]
 
     # ------------------------------------------------------------------
     def _tables(self, scn: ScenarioArrays | None, B: int) -> _Tables:
@@ -1074,15 +1251,16 @@ class Simulator:
         row of ``tick_draws(base_key, ...)`` (drawn here when omitted);
         ``scn`` one scenario at this simulator's shapes (its own by
         default).  The tick is ``step_rows`` on one row, added and dropped
-        as views."""
-        if conn_axis is not None:
-            raise NotImplementedError(
-                "the conn-axis mesh (several cards) is not ported yet: multi-GPU, "
-                "ROADMAP.md queue 1 item 12")
+        as views.  ``conn_axis``: ``state``'s per-connection leaves and
+        ``scn``'s connection tables are this rank's block of the axis (see
+        the module docstring)."""
         now = int(tick)
+        if conn_axis is not None:
+            scn = self.conn_scenario(scn, conn_axis)
         rows = (self.tick_draws(base_key[None], now, 1, scn).row(0) if draws is None
                 else draws._rows_in())
-        out = self.step_rows(add_rows(state), now, rows, scn, events=emit_events)
+        out = self.step_rows(add_rows(state), now, rows, scn, events=emit_events,
+                             conn_axis=conn_axis)
         new_state, trace = drop_rows(out[0]), drop_rows(out[1])
         if not emit_events:
             return new_state, trace
@@ -1091,6 +1269,7 @@ class Simulator:
     def step_rows(
         self, state: SimState, tick: int, draws: TickDraws,
         scn: ScenarioArrays | None = None, trace: bool = True, events: bool = False,
+        conn_axis=None,
     ):
         """One tick of B runs at once: ``state`` has a leading row axis B on
         every leaf (its load balancer's included), ``draws`` is one tick of
@@ -1101,12 +1280,26 @@ class Simulator:
         state and their trace ``(B, ...)`` (None when ``trace`` is False),
         and with ``events`` a third element, the rows' ``TickEvents`` (the
         load balancer's traced ``step``; nothing else changes).  ``state``
-        is left unchanged."""
+        is left unchanged.  ``conn_axis``: the state's per-connection leaves
+        are this rank's block of the axis (``shard_conn_state``), and so may
+        ``scn``'s connection tables be; the returned state is laid out the
+        same way (see the module docstring)."""
         now = int(tick)
         cfg, topo = self.cfg, self.topo
         NP, NQ, NH, NC = self.NP, self.NQ, self.NH, self.wl.n_conns
         QCAP = cfg.queue_capacity
         st = state
+        ax = ConnShard.of(conn_axis)
+        if ax is not None:
+            # conn-sharded entry: the small per-connection leaves to full
+            # shape in one collective; the bitmaps stay this rank's block
+            off, n_loc = ax.block(NC)
+            if st.c_inflight.shape[-1] != n_loc or st.c_rtx.shape[1] != n_loc + 1:
+                raise ValueError(f"conn_axis: the state holds {st.c_inflight.shape[-1]} "
+                                 f"connections, this rank's block is {n_loc}")
+            st = st.replace(**dict(zip(CONN_LEAVES, gather_conns(
+                [getattr(st, k) for k in CONN_LEAVES], ax))))
+            scn = self.conn_scenario(scn, ax)
         B = st.q_len.shape[0]
         R = self._rows(B)
         T = self._tables(scn, B)
@@ -1168,10 +1361,9 @@ class Simulator:
             torch.where(e_is_ack, e_rtt, 0),
         ]
         if cfg.trimming:
-            already = self._bm_get(c_rcv, e_conn, e_seq, R)
+            already, prev_rtx = self._bm_gets((c_rcv, c_rtx), e_conn, e_seq, R, ax)
             need_rtx = e_is_nack & ~already
-            prev_rtx = self._bm_get(c_rtx, e_conn, e_seq, R)
-            self._bm_or(c_rtx, e_conn, e_seq, need_rtx, R)
+            self._bm_or(c_rtx, e_conn, e_seq, need_rtx, R, ax)
             fields += [need_rtx & ~prev_rtx, e_is_nack]
         tbl = kernel_ops.seg_sum(ridx, fields, (R_fb + 1) * (NC + 1)).view(
             B, len(fields), R_fb + 1, NC + 1
@@ -1213,9 +1405,9 @@ class Simulator:
         Rp = R.pkt_get(st.pkt, r_idx.clamp(max=NP - 1))  # (PF, B, NH)
         r_conn = torch.where(r_valid, Rp[PCONN], NC)
         r_seq = torch.where(r_valid, Rp[PSEQ], 0)
-        rto_need = r_valid & ~self._bm_get(c_rcv, r_conn, r_seq, R)
-        prev_rtx_p = self._bm_get(c_rtx, r_conn, r_seq, R)
-        self._bm_or(c_rtx, r_conn, r_seq, rto_need, R)
+        rcv_p, prev_rtx_p = self._bm_gets((c_rcv, c_rtx), r_conn, r_seq, R, ax)
+        rto_need = r_valid & ~rcv_p
+        self._bm_or(c_rtx, r_conn, r_seq, rto_need, R, ax)
         rsum_rto = kernel_ops.seg_sum(r_conn, (rto_need & ~prev_rtx_p, r_valid), NC + 1)
         c_rtx_count = c_rtx_count + rsum_rto[:, 0, :NC]
         rto_per_conn = rsum_rto[:, 1, :NC]
@@ -1264,8 +1456,8 @@ class Simulator:
         dconn = torch.where(is_final, D[PCONN], NC)
         dseq = torch.where(is_final, D[PSEQ], 0)
         was_done = _get(st.c_done, dconn, True, R.of(dconn))
-        newly = is_final & ~self._bm_get(c_rcv, dconn, dseq, R)
-        self._bm_or(c_rcv, dconn, dseq, is_final, R)
+        newly = is_final & ~self._bm_get(c_rcv, dconn, dseq, R, ax)
+        self._bm_or(c_rcv, dconn, dseq, is_final, R, ax)
         delivered_d = newly.sum(dim=-1, dtype=I32)
         deliver_ackable = is_final & ~d_orph & ~was_done
         msg_of = _get(T.msg, dconn, BIG, R.of(dconn))
@@ -1380,9 +1572,10 @@ class Simulator:
         pick_cc = pick_conn.clamp(0, NC - 1)
         hrow = R.of(pick_cc)
         use_rtx = c_rtx_count[hrow, pick_cc] > 0
-        rtx_seq = torch.argmax(c_rtx[hrow, pick_cc].to(torch.uint8), dim=-1).to(I32)
+        rtx_row = self._bm_rows(c_rtx, hrow, pick_cc, ax)
+        rtx_seq = torch.argmax(rtx_row.to(torch.uint8), dim=-1).to(I32)
         seq = torch.where(use_rtx, rtx_seq, st.c_next_new[hrow, pick_cc])
-        c_rtx[hrow, torch.where(sendh & use_rtx, pick_conn, NC), rtx_seq] = self._false
+        self._bm_set_false(c_rtx, hrow, pick_conn, rtx_seq, sendh & use_rtx, ax)
         # each host picks <= 1 conn and a conn lives on one host, so
         # per-conn injection counts are 0/1
         isum = kernel_ops.seg_sum(pick_conn, (sendh, sendh & use_rtx), NC + 1)
@@ -1453,6 +1646,15 @@ class Simulator:
             drops_cong_d, drops_fail_d, timeouts_d, delivered_d,
             ecn_marks_d, injected_d, unprocessed, alloc_fail_d,
         ], dim=-1)
+
+        if ax is not None:
+            # conn-sharded exit: this rank's block of the full-shape vectors
+            # every rank computed alike
+            blk = lambda x: x[:, off:off + n_loc].clone()
+            (c_inflight, c_next_new, c_delivered, c_rx_pending, c_done, c_done_tick,
+             c_rtx_count, c_cwnd, c_alpha) = map(blk, (
+                c_inflight, c_next_new, c_delivered, c_rx_pending, c_done, c_done_tick,
+                c_rtx_count, c_cwnd, c_alpha))
 
         new_state = SimState(
             pkt=pkt, qbuf=qbuf, q_head=q_head, q_len=q_len, q_served=q_served,

@@ -113,6 +113,9 @@ class SoakRunner:
     chunks; see the module docstring."""
 
     def __init__(self, engine: SweepEngine, config: SoakConfig | None = None):
+        if engine.mesh is not None:
+            raise ValueError("the soak runtime checkpoints one process's carries: build its "
+                             "SweepEngine with devices=None or 1 (a row mesh splits them)")
         self.engine = engine
         self.config = config or SoakConfig()
         if self.config.collect not in ("none", "summary", "full"):

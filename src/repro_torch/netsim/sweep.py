@@ -56,12 +56,25 @@ reference does:
      ``run_chunk`` and ``finalize_bucket`` are the building blocks ``run``
      drives: any chunking of ``[0, ticks)`` gives the same result.
 
-Scale mode (``SimConfig(conn_sharding=True)``: the sparse active set and
-the lifetime-sized packet table) runs through the same buckets on the one
-card (``conn_devices=1``).  Not ported yet: the row-sharded device mesh
-(``devices`` other than one card) and the connection axis sharded over
-several cards (``conn_devices > 1``), both multi-GPU; each raises
-``NotImplementedError``.
+Several ranks (reference ``sweep.py:924-960, 1259-1306``).  Under a
+``torch.distributed`` process group (``repro_torch.distrib.ranks``),
+``devices="auto"`` (or ``devices=N``) makes a ``("rows",)`` mesh of the
+group's ranks (``sharding.sweep_mesh``): the packer pads each bucket's rows
+to a multiple of the rank count, each rank steps its contiguous ``n_padded
+/ n_ranks`` rows of every bucket through the same chunks, the ranks agree
+on the early exit with one all-reduce of the quiescence flag per chunk
+boundary (so ``ticks_run``, the frozen horizons and every row equal one
+rank's run), and ``finalize_bucket`` gathers the rows, traces and carries
+onto every rank in the reference's order.  Scale mode
+(``SimConfig(conn_sharding=True)``: the sparse active set and the
+lifetime-sized packet table) also splits the connection axis over
+``conn_devices`` ranks, the minor axis of a ``(rows, conns)`` mesh
+(``sharding.sweep_conn_mesh``; ``Simulator.step_rows(conn_axis=)``): each
+rank keeps its block of the per-connection state and bitmaps, and a row is
+bit-identical to its unsharded ``serial_sim`` run.  ``conn_devices > 1``
+needs ``conn_sharding=True`` and ``collect`` other than ``"summary"`` (the
+telemetry reads full-width per-connection probes), as in the reference.
+The soak runtime takes an engine of one rank.
 
 Example (on the card; pass ``device="cpu"`` for the plain versions):
 
@@ -84,10 +97,12 @@ import torch
 from repro_torch import rng
 from repro_torch.core.load_balancers import SwitchLB, make_lb
 from repro_torch.device import resolve_device
+from repro_torch.distrib.ranks import all_gather_cat, all_true
+from repro_torch.distrib.sharding import CONN_AXIS, SWEEP_AXIS, sweep_conn_mesh, sweep_mesh
 from repro_torch.netsim.config import SimConfig
 from repro_torch.netsim.engine import (
-    FailureSchedule, ScenarioArrays, Simulator, SimState, TickTrace, Workload,
-    tree_map,
+    SCN_CONN_TABLES, ConnShard, FailureSchedule, ScenarioArrays, Simulator, SimState,
+    TickTrace, Workload, gather_conn_state, gather_conns, shard_conn_state, tree_map,
 )
 from repro_torch.netsim.failures import truncate_dead
 from repro_torch.netsim.metrics import RunSummary, summarize, summarize_sketch
@@ -858,15 +873,19 @@ class SweepResult:
 
 class SweepEngine:
     """Packs a list of SweepCases into cost-aware buckets and runs each as
-    one tick loop over its rows, on one device.
+    one tick loop over its rows.
 
-    ``device``: the card unless ``"cpu"`` is asked for (the plain versions
-    of the kernels run there).  ``devices`` takes ``"auto"``, ``None`` or 1
-    (the one device; a row mesh over several cards is not ported yet),
-    ``conn_devices`` only 1 (scale mode runs on one card), and
-    ``kernels_backend`` only ``None``: the port has one kernel path per
-    device, and the device picks it.  ``measured_costs`` feeds the packer's
-    measured-cost model, see ``pack`` / ``measured_costs_from_bench``.
+    ``device``: this rank's device, the card unless ``"cpu"`` is asked for
+    (the plain versions of the kernels run there).  ``devices``: ``"auto"``
+    is every rank of the process group when one is up and this process
+    otherwise, ``N`` the group's first ``N`` ranks, ``None`` or 1 this
+    process alone; every rank of a mesh builds the engine and runs it alike
+    (see the module docstring).  ``conn_devices > 1`` (scale mode) splits
+    the connection axis over that many ranks, the minor axis of a ``(rows,
+    conns)`` mesh; ``devices`` then bounds the ranks in all and rows take
+    the rest.  ``kernels_backend`` only ``None``: the port has one kernel
+    path per device, and the device picks it.  ``measured_costs`` feeds the
+    packer's measured-cost model, see ``pack`` / ``measured_costs_from_bench``.
     """
 
     def __init__(
@@ -891,26 +910,42 @@ class SweepEngine:
         self.cases = list(cases)
         if not self.cases:
             raise ValueError("need at least one case")
-        self.conn_devices = max(1, int(conn_devices))
-        if self.conn_devices > 1:
-            raise NotImplementedError(
-                f"conn_devices={self.conn_devices}: sharding the connection axis over "
-                "several cards (multi-GPU torch.distributed) is not ported yet; scale "
-                "mode (conn_sharding=True) runs with conn_devices=1 (ROADMAP.md, queue 1 "
-                "item 12, multi-GPU)"
-            )
-        if devices not in ("auto", None, 1):
-            raise NotImplementedError(
-                f"devices={devices!r}: the port runs a sweep on one device; a row mesh "
-                "over several cards is not ported yet (ROADMAP.md, queue 1 item 12)"
-            )
         if kernels_backend is not None:
             raise ValueError(
                 f"kernels_backend={kernels_backend!r}: the port has one kernel path per "
                 "device, and the device picks it (pass device=...)"
             )
         self.device = resolve_device(device)
-        self.n_devices = 1
+        # ``conn_devices`` > 1 (scale mode) splits the connection state axis
+        # over the minor axis of a 2-D (rows, conns) mesh; the cfg opts in
+        # with ``conn_sharding=True``.  A conn-sharded row is bit-identical
+        # to its unsharded ``serial_sim`` run.
+        self.conn_devices = max(1, int(conn_devices))
+        kind = self.device.type
+        if self.conn_devices > 1:
+            if not cfg.conn_sharding:
+                raise ValueError(
+                    "conn_devices > 1 requires SimConfig.conn_sharding=True "
+                    "(the scale mode is opt-in; see ARCHITECTURE.md §10)"
+                )
+            self.mesh = sweep_conn_mesh(
+                self.conn_devices, None if devices in ("auto", None) else int(devices), kind)
+        elif devices == "auto":
+            self.mesh = sweep_mesh(device_type=kind)
+        elif devices in (None, 1):
+            self.mesh = None
+        else:
+            self.mesh = sweep_mesh(int(devices), kind)
+        self.n_devices = self.mesh.size(0) if self.mesh is not None else 1
+        self.row_rank, self.row_group, self.conn_axis = 0, None, None
+        if self.mesh is not None:
+            coord = self.mesh.get_coordinate()
+            if coord is None:
+                raise ValueError("this rank is not in the sweep mesh (devices= or "
+                                 "conn_devices leave it out)")
+            self.row_rank, self.row_group = coord[0], self.mesh.get_group(SWEEP_AXIS)
+            if self.conn_devices > 1:
+                self.conn_axis = ConnShard.of(self.mesh.get_group(CONN_AXIS))
         self.kernels_backend = None
         self.min_conn_bucket = min_conn_bucket
         self.packer = packer or PackerConfig()
@@ -1063,6 +1098,17 @@ class SweepEngine:
         keys = torch.stack([rng.PRNGKey(s, device=dev) for _, s in row_cells])
         branch_idx = np.asarray([c.branch for c, _ in row_cells], np.int32)
         horizons = np.asarray([c.case.ticks for c, _ in row_cells], np.int32)
+        if self.mesh is not None:
+            # this rank's contiguous block of the padded rows; on a conn axis
+            # also its block of the connection tables
+            per = bp.n_padded_rows // self.n_devices
+            lo, hi = self.row_rank * per, (self.row_rank + 1) * per
+            keys, branch_idx, horizons = keys[lo:hi], branch_idx[lo:hi], horizons[lo:hi]
+            scn = tree_map(lambda t: t[lo:hi].contiguous(), scn)
+            if self.conn_axis is not None:
+                off, n = self.conn_axis.block(scn.conn_src.shape[1])
+                scn = scn._replace(**{k: getattr(scn, k)[:, off:off + n].contiguous()
+                                      for k in SCN_CONN_TABLES})
         return _Bucket(
             plan=bp, program=prog, cells=cells, n_rows=n_rows,
             keys=keys, scn=scn, branch_idx=branch_idx, horizons=horizons,
@@ -1094,7 +1140,8 @@ class SweepEngine:
         ``fold_in(key, 777)``), stacked, with each row's SwitchLB branch."""
         rows = [bucket.sim.init_state(k) for k in bucket.keys]
         states = tree_map(lambda *leaves: torch.stack(leaves), *rows)
-        return states.replace(lb_state=bucket.lb.with_branch(states.lb_state, bucket.branch_idx))
+        states = states.replace(lb_state=bucket.lb.with_branch(states.lb_state, bucket.branch_idx))
+        return states if self.conn_axis is None else shard_conn_state(states, self.conn_axis)
 
     def _spec(self, collect: str, spec: TelemetrySpec | None) -> TelemetrySpec | None:
         if collect not in ("none", "summary", "full"):
@@ -1125,6 +1172,14 @@ class SweepEngine:
         sim = prog.sim
         full = collect == "full"
         summary = collect == "summary"
+        ax = self.conn_axis
+        if ax is not None and summary:
+            raise ValueError(
+                "collect='summary' is incompatible with conn_devices > 1: "
+                "telemetry reducers consume full-width per-conn probe "
+                "vectors (done_now, fct), which are shard-local under conn "
+                "sharding.  Use collect='none' or 'full'."
+            )
         tel_prog = self._tel_prog(prog, spec) if summary else None
         trc_prog = self._trc_prog(prog, trace) if trace is not None else None
         dev = sim.device
@@ -1160,6 +1215,8 @@ class SweepEngine:
             if t0 in sets:
                 keep(t0)
             trs = []
+            if ax is not None:
+                scn = sim.conn_scenario(scn, ax)  # full-width connection tables, kept
             chunk = sim.draw_chunk(keys.shape[0])
             for c0 in range(t0, end, chunk):
                 m = min(chunk, end - c0)
@@ -1174,10 +1231,11 @@ class SweepEngine:
                         states, probe = sim.step_probe_rows(states, t, draws.row(i), scn)
                         tel_prog.update(tel, probe)
                     elif full:
-                        states, tr = sim.step_rows(states, t, draws.row(i), scn)
+                        states, tr = sim.step_rows(states, t, draws.row(i), scn, conn_axis=ax)
                         trs.append(tr)
                     else:
-                        states, _ = sim.step_rows(states, t, draws.row(i), scn, trace=False)
+                        states, _ = sim.step_rows(states, t, draws.row(i), scn, trace=False,
+                                                  conn_axis=ax)
                     if t + 1 in sets and t + 1 < end:
                         keep(t + 1)
             for old, tel_rows, trc_rows, idx, mask in kept.values():  # copy the frozen rows back
@@ -1202,10 +1260,18 @@ class SweepEngine:
         packet/conn/stat state, so the remaining chunks can be skipped
         without changing any reported result (only time-keeping LB
         internals, e.g. PLB epoch clocks, would have kept advancing).  One
-        device-to-host read per call."""
+        device-to-host read per call; on a mesh the ranks agree through one
+        all-reduce of the flag (on a conn axis after one gather of the three
+        per-connection leaves it reads)."""
         NP = prog.sim.NP
+        ax, group = self.conn_axis, self.row_group
 
         def f(states: SimState, scn: ScenarioArrays, horizon: torch.Tensor, offset: int) -> bool:
+            if ax is not None:
+                states = states.replace(**dict(zip(
+                    ("c_done", "c_rtx_count", "c_next_new"),
+                    gather_conns([states.c_done, states.c_rtx_count, states.c_next_new], ax))))
+                scn = prog.sim.conn_scenario(scn, ax)
             no_pkts = states.fl_count == NP  # (R,)
             dep = scn.conn_dep.clamp(0, scn.conn_src.shape[-1] - 1).long()
             dep_ok = (scn.conn_dep < 0) | torch.gather(states.c_done, 1, dep)
@@ -1213,7 +1279,8 @@ class SweepEngine:
             has_work = (states.c_rtx_count > 0) | (states.c_next_new < scn.conn_msg)
             active = startable & ~states.c_done & has_work
             quiet = no_pkts & ~active.any(dim=-1)
-            return bool((quiet | (horizon <= offset)).all())
+            flag = bool((quiet | (horizon <= offset)).all())
+            return flag if group is None else all_true(flag, group, states.fl_count.device)
 
         return f
 
@@ -1283,7 +1350,7 @@ class SweepEngine:
         spec = self._spec(collect, spec)
         carry = self._init_states(bucket)
         if collect == "summary":
-            rows = bucket.plan.n_padded_rows
+            rows = bucket.keys.shape[0]  # this rank's rows (all padded rows on one rank)
             tel0 = self._tel_prog(bucket.program, spec).init_rows(rows)
             carry = (carry, tel0)
             if trace is not None:
@@ -1328,16 +1395,23 @@ class SweepEngine:
         summary = collect == "summary"
         keep = bucket.n_rows
         states = carry[0] if summary else carry
-        bucket.final_state = tree_map(lambda x: x[:keep].cpu(), states)
+        if self.conn_axis is not None:
+            states = gather_conn_state(states, self.conn_axis)
+
+        def rows(x, dim=0):  # on a row mesh, every rank's rows (rank order is row order)
+            return x if self.row_group is None else all_gather_cat(x, self.row_group, dim)
+
+        bucket.final_state = tree_map(lambda x: rows(x)[:keep].cpu(), states)
         bucket.ticks_run = ticks_run
         if summary:
-            bucket.telemetry = carry[1][:keep].cpu().numpy().copy()
+            bucket.telemetry = rows(carry[1])[:keep].cpu().numpy().copy()
             bucket.tel_prog = self._tel_prog(bucket.program, self._spec(collect, spec))
             if trace is not None:
-                bucket.trace_rows = carry[2][:keep].cpu().numpy().copy()
+                bucket.trace_rows = rows(carry[2])[:keep].cpu().numpy().copy()
                 bucket.trc_prog = self._trc_prog(bucket.program, trace)
         if collect == "full" and trace_chunks:
-            bucket.traces = TickTrace(*(torch.cat(f)[:, :keep] for f in zip(*trace_chunks)))
+            bucket.traces = TickTrace(*(rows(torch.cat(f), 1)[:, :keep]
+                                        for f in zip(*trace_chunks)))
 
     def _run_bucket(self, bucket: _Bucket, collect: str, chunk: int | None,
                     early_exit: bool = False, spec: TelemetrySpec | None = None,

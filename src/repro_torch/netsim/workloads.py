@@ -216,7 +216,7 @@ def alltoall(n_hosts: int, per_pair_pkts: int, window: int = 4, seed: int = 0) -
 # Mixed traffic (fig 5): a fraction of hosts run background ECMP flows.
 # Returned as (foreground_workload, background_conn_mask); both cohorts live
 # in one conn table (the reference's MixedLB assigns "ecmp" to the background
-# conns; that wrapper is not ported yet).
+# conns; ``repro_torch.netsim.mixed``).
 # ---------------------------------------------------------------------------
 def permutation_with_background(
     n_hosts: int, msg_pkts: int, bg_fraction: float = 0.1, seed: int = 0

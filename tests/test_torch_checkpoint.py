@@ -109,10 +109,32 @@ def test_save_async_snapshots_before_returning(tmp_path):
 
 
 def test_restore_with_axes_raises(tmp_path):
+    """``restore(axes=)`` (the elastic re-shard; meshes of real ranks in
+    tests/test_torch_checkpoint_reshard.py): with no mesh the axes are not
+    read and the trees come back as plain tensors; on a mesh (a fake group
+    of 2 ranks, this process rank 0) a leaf with axes is a DTensor holding
+    this rank's block, and axes that are not a tuple of names raise."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distrib.sharding import mesh_rules
+    from repro_torch.launch.mesh import make_mesh, release
+
     p = str(tmp_path / "step_1")
     ckpt.save(p, 1, _tiny_trees())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ckpt.restore(p, _tiny_trees(), axes={"state": {"x": ("conns",)}})
+    out, _ = ckpt.restore(p, _tiny_trees(), axes={"state": {"x": ("batch",)}})
+    assert type(out["state"]["x"]) is torch.Tensor
+    assert out["state"]["x"].tolist() == [0, 1, 2, 3]
+    mesh = make_mesh((2,), ("data",))
+    try:
+        with mesh_rules(mesh):
+            out, _ = ckpt.restore(p, _tiny_trees(), axes={"state": {"x": ("batch",)}})
+            x = out["state"]["x"]
+            assert isinstance(x, DTensor) and x.shape == (4,)
+            assert x.to_local().tolist() == [0, 1]  # rank 0's block
+            with pytest.raises(TypeError, match="tuple of axis names"):
+                ckpt.restore(p, _tiny_trees(), axes={"state": {"x": "batch"}})
+    finally:
+        release()
 
 
 @pytest.mark.parametrize("lbn", ["reps", "switch", "mixed"])

@@ -205,11 +205,11 @@ def test_moe_outputs_depend_on_routing(arch):
 
 
 def test_sharded_experts_raise():
-    """Parameters holding a shard of the experts (expert parallelism) are
-    multi-GPU work, not ported: the layer raises rather than routing to
-    experts it does not hold."""
+    """Parameters holding a shard of the experts with no mesh to hold the
+    rest: the layer raises rather than routing to experts it does not hold
+    (expert parallelism runs over a mesh: tests/test_torch_moe_ep.py)."""
     cfg = reduced(get_config("qwen3-moe-235b-a22b"))
     p = mlp.init_moe_params(rng.PRNGKey(0, "cpu"), cfg)
     half = {k: v if k == "router" else v[:cfg.n_experts // 2] for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match=f"hold {cfg.n_experts // 2} of {cfg.n_experts} experts"):
         mlp.moe(torch.zeros((1, 4, cfg.d_model)), half, cfg)

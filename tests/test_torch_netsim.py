@@ -350,12 +350,18 @@ def test_entry_points_refuse_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tengine.Simulator(tpresets.FATTREE_32_CI, wl, lb)
-    # scale mode, generated fabrics and the flight recorder's events are
-    # ported; the conn-axis mesh (several cards) is not
+    # scale mode, generated fabrics, the flight recorder's events and the
+    # conn axis are ported (tests/test_torch_conn_axis.py); a conn axis
+    # names the ranks it spans (a mesh dimension or a process group), not
+    # the reference's mesh-axis string, and a state not cut to its block
+    # is refused
     sim = tengine.Simulator(tpresets.FATTREE_32_CI.replace(conn_sharding=True), wl, lb,
                             device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="not a mesh-axis name"):
         sim.step_scenario(sim.init_state(), 0, sim.base_key, conn_axis="conns")
+    with pytest.raises(ValueError, match="this rank's block"):
+        sim.step_scenario(sim.init_state(), 0, sim.base_key,
+                          conn_axis=tengine.ConnShard(group=None, rank=0, size=2))
     _, _, events = sim.step_scenario(sim.init_state(), 0, sim.base_key, emit_events=True)
     assert events.lb.shape == (8,) and events.fail_start.shape == ()
     assert isinstance(ttopo.Topology.build(tpresets.FATTREE_32_CI.replace(

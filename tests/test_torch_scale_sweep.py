@@ -70,11 +70,18 @@ def test_scale_sweep_matches_reference(collect):
 
 
 def test_conn_devices_beyond_one_raise():
+    """``conn_devices`` beyond the ranks up raises the reference's
+    ValueError (here no process group: one rank), and so does a config
+    that has not opted in to scale mode; conn-sharded runs over ranks are
+    held in tests/test_torch_conn_axis.py."""
     import repro_torch.netsim as tnet
 
     cases = _scale_cases(types.SimpleNamespace(net=tnet, cfg=TConfig(**SCALE)))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="conn_devices=2 exceeds the 1 visible devices"):
         tnet.SweepEngine(TConfig(**SCALE), cases, conn_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="conn_sharding"):
+        tnet.SweepEngine(TConfig(**dict(SCALE, conn_sharding=False)), cases, conn_devices=2,
+                         device="cpu")
 
 
 FABRIC_CFG = dict(n_hosts=16, hosts_per_tor=4, uplinks_per_tor=4, rto_ticks=120, evs_size=256)

@@ -47,8 +47,9 @@ def test_sweep_collect_contract():
     without the RunSummary channels runs and ``summaries()`` falls back to
     the state path (equal to the reference's); ``flight_for`` of a run
     without ``trace=`` raises the reference's ValueError and a traced run
-    decodes; what is not ported raises NotImplementedError: conn-sharding,
-    a row mesh."""
+    decodes; with no process group up, a row mesh of two devices is this
+    process alone (the reference's cap at the visible devices) and
+    conn-sharding over two raises the reference's ValueError."""
     def cases(m):
         return [case(m, "x", m.net.workloads.permutation(32, 32, seed=4), "ops", 100)]
 
@@ -73,9 +74,9 @@ def test_sweep_collect_contract():
         SweepEngine(T.cfg, cases(T), device="cpu").run(collect="none").telemetry_for("x")
     with pytest.raises(KeyError):
         tres.state_for("nope")
-    for kw in (dict(conn_devices=2), dict(devices=2)):
-        with pytest.raises(NotImplementedError):
-            SweepEngine(T.cfg, cases(T), device="cpu", **kw)
+    with pytest.raises(ValueError, match="conn_sharding"):
+        SweepEngine(T.cfg, cases(T), device="cpu", conn_devices=2)
+    assert SweepEngine(T.cfg, cases(T), device="cpu", devices=2).mesh is None
     with pytest.raises(ValueError, match="device picks"):
         SweepEngine(T.cfg, cases(T), device="cpu", kernels_backend="pallas")
     SweepEngine(T.cfg, cases(T), device="cpu", devices=1)  # the one device
