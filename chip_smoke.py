@@ -42,7 +42,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      version's, device time traced against untraced), and ``seg_rank`` /
      ``seg_sum`` at the balls-into-bins shapes (a recycled step, K = S = n
      for n = 8, 32, 128; an OPS run's 4000 x 128 rows; fig16's K = 2**21
-     onto S = 32 as 8 and 64 rows), with bytes and bound; then
+     onto S = 32 as 8 and 64 rows), with bytes and bound, ``seg_sum`` at
+     those and the scale shapes beside one ``index_add_`` over the rows'
+     bins flattened row-major (its result == the kernel's); then
      each is timed with
      CUDA events (median of repeated batches) at the engine's call
      (``reps_tick``: N = 128, R = 2, every class; ``seg_sum``: the feedback
@@ -247,13 +249,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      onto the (1, 2) mesh, each rank's shards bit-equal to their blocks.
      The collectives of a CUDA tensor go through the host (gloo); no run
      here covers NCCL across several cards.
+ 23. examples — the bench runner's flight recorder and the user examples
+     (``repro_torch.examples``): quickstart (ECMP / OPS / REPS at 240 ticks,
+     OPS and REPS under two uplinks down from tick 300 at 320) and
+     failover_demo (the soak runtime's injected spine at 250, read live at
+     350, horizon 400) on the card, every printed line and summary == the
+     CPU's (two helper processes, gone before the next step), quickstart's
+     launches exact; ``python -m repro_torch.bench.run --only fig03 --smoke``
+     untraced and with ``--trace 64``: every row's ``derived`` equal, rows
+     stamped ``trace`` 0 and 64, the grid walls side by side, and a traced
+     run of ``table1`` merged into the untraced file reads ``"trace":
+     "mixed"``; serve_batched with the reference's arguments (tokens in the
+     vocabulary, the prefill's logits finite); train_lm (reduced
+     mistral-nemo-12b, 8 x 128) for 20 steps checkpointed every 10 == a run
+     ``--resume``d from a copy of its step-10 checkpoint, bit for bit
+     (deterministic algorithms).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts the main path's, fig18's, the arena's, the fleet's,
 the telemetry, the sweep, the fabric, the scale, the balls-into-bins, the
 soak, the chaos and the fig15-hook phases' runs, and the channels,
-the two serve, the train and the roofline phases', which launch none, and
-the ranks phase's, summed over its ranks; the flat ``ecmp_hash`` is
+the two serve, the train and the roofline phases', which launch none, the
+ranks phase's, summed over its ranks, and the examples phase's; the flat
+``ecmp_hash`` is
 launched there no more); the last line
 is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -1138,6 +1156,33 @@ def traced_reps_cases(dev, rs, R: int) -> None:
             f"device traced {t_ms:.5f} ms against untraced {u_ms:.5f} ms")
 
 
+def index_add_ms(seg, fields, S: int, got, what: str) -> float:
+    """The library column of ``seg_sum`` at a shape: one ``index_add_``
+    (zeroing included, as at the engine's shape) over the fields stacked as
+    int32 ``(F, B * K)`` onto the rows' bins flattened row-major, ``B * (S +
+    1)`` (an id out of range onto its row's spill bin ``S``); its result
+    held against the kernel's ``got``; device ms, CUDA-graph replay, median
+    of 5."""
+    import torch
+
+    B = seg.shape[0] if seg.dim() == 2 else 1
+    seg2 = seg.reshape(B, -1)
+    K, F = seg2.shape[1], len(fields)
+    vals = torch.stack([f.reshape(B, K).to(torch.int32) for f in fields]).reshape(F, B * K)
+    off = torch.arange(B, device=seg.device)[:, None] * (S + 1)
+    idx = (torch.where((seg2 >= 0) & (seg2 < S), seg2, S) + off).reshape(-1).long()
+
+    def library():
+        return torch.zeros((F, B * (S + 1)), dtype=torch.int32,
+                           device=seg.device).index_add_(1, idx, vals)
+
+    lib = library().reshape(F, B, S + 1)[:, :, :S].permute(1, 0, 2)
+    if not torch.equal(lib, got.reshape(B, F, S)):
+        raise AssertionError(f"seg_sum {what}: index_add_ differs from the kernel")
+    inner = 50 if B * K <= 2**20 else 5
+    return time_ms(library, reps=5, inner=inner)
+
+
 def bins_kernel_shapes(dev, rs, steps: int) -> None:
     """``seg_rank`` and ``seg_sum`` at the balls-into-bins models' shapes:
     a recycled step (K = S = n for n = 8, 32, 128: the arrivals' rank and
@@ -1162,10 +1207,12 @@ def bins_kernel_shapes(dev, rs, steps: int) -> None:
         equal_all([rk, cnt], [ref.seg_rank_ref(t, n), ref.seg_sum_ref(t, [ones], n)],
                   f"balls-bins step n={n}")
         sr_b, ss_b = bound_ms(nbytes(t, rk), n), bound_ms(nbytes(t, ones, cnt), n)
+        lib = index_add_ms(t, [ones], n, cnt, f"balls-bins step n={n}")
         log(f"kernel balls-bins step n={n}: seg_rank (K=S={n}) bit-exact, {nbytes(t, rk)} B, device "
             f"{time_ms(lambda: sr_mod.seg_rank_cuda(t, n)):.5f} ms, bound {sr_b[0]:.3e} ms "
             f"({sr_b[1]}); seg_sum (K=S={n}, one bool field) {nbytes(t, ones, cnt)} B, device "
-            f"{time_ms(lambda: ss_mod.seg_sum_cuda(t, [ones], n)):.5f} ms, bound {ss_b[0]:.3e} ms")
+            f"{time_ms(lambda: ss_mod.seg_sum_cuda(t, [ones], n)):.5f} ms, library (index_add_) "
+            f"{lib:.5f} ms, bound {ss_b[0]:.3e} ms")
     for B, K, S, what in ((steps, 128, 128, "OPS run, steps x n"), (8, 2**21, 32, "fig16 chunk"),
                           (64, 2**21, 32, "fig16, all 64 trials")):
         seg = i32(rs.randint(0, S, size=(B, K)))
@@ -1174,8 +1221,10 @@ def bins_kernel_shapes(dev, rs, steps: int) -> None:
         equal_all([got], [ref.seg_sum_ref(seg, [vals], S)], f"seg_sum {what}")
         b = bound_ms(nbytes(seg, vals, got), B * K)
         ms = time_ms(lambda: ss_mod.seg_sum_cuda(seg, [vals], S), reps=3, inner=5)
+        lib = index_add_ms(seg, [vals], S, got, what)
         log(f"kernel seg_sum ({what}: B={B}, K={K}, S={S}, one bool field): bit-exact; "
-            f"{nbytes(seg, vals, got)} B, device {ms:.5f} ms, bound {b[0]:.3e} ms ({b[1]})")
+            f"{nbytes(seg, vals, got)} B, device {ms:.5f} ms, library (index_add_) {lib:.5f} ms, "
+            f"bound {b[0]:.3e} ms ({b[1]})")
         del seg, vals, got
 
 
@@ -1210,6 +1259,7 @@ def scale_kernel_shapes(dev, rs) -> None:
             equal_all([got], [ref.seg_sum_ref(seg, fields, S)], f"seg_sum NC={NC} B={B} S={S}")
             ss_b = bound_ms(nbytes(seg, *fields, got), int((seg < S).sum()) * 5)
             ss_ms = time_ms(lambda: ss_mod.seg_sum_cuda(seg, fields, S), reps=3, inner=10)
+            ss_lib = index_add_ms(seg, fields, S, got, f"NC={NC} B={B}")
             rk = rs.randint(0, NC + 1, size=(B, K))
             rk[:, ::3] = NC  # the sentinel segment, many repeats
             rk = sq(i32(rk))
@@ -1233,7 +1283,8 @@ def scale_kernel_shapes(dev, rs) -> None:
             ru_ms = time_ms(lambda: ru_mod.reps_tick_cuda(*state, *ev, 1234, 32, 800),
                             reps=3, inner=10)
             log(f"kernel at scale NC={NC} B={B}: bit-exact; seg_sum (S={S}, K={K}, five fields) "
-                f"device {ss_ms:.5f} ms, bound {ss_b[0]:.3e} ms ({ss_b[1]}); seg_rank (S={NC + 1}, "
+                f"device {ss_ms:.5f} ms, library (index_add_) {ss_lib:.5f} ms, bound "
+                f"{ss_b[0]:.3e} ms ({ss_b[1]}); seg_rank (S={NC + 1}, "
                 f"K={K}) device {sr_ms:.5f} ms, bound {sr_b[0]:.3e} ms ({sr_b[1]}); reps_tick "
                 f"(N={NC}, R=2) device {ru_ms:.5f} ms, bound {ru_b[0]:.3e} ms ({ru_b[1]})")
             del state, acks, ev, outs
@@ -4836,6 +4887,216 @@ def ranks_phase(dev, snaps: dict, row5: tuple, moe_ref: dict, scale_ticks: int) 
     return totals
 
 
+# phase 23, the bench runner's flight recorder and the user examples: the
+# smallest figure grid whose --smoke run is short on the card (fig03: two
+# rows, quiescent at 500 ticks) through ``repro_torch.bench.run`` traced and
+# untraced; quickstart and failover_demo at cut horizons, card == CPU;
+# serve_batched with its arguments; train_lm cut, checkpointed and resumed
+EX_FIG = "fig03"
+EX_TRACE = 64
+# quickstart: by tick 240 ECMP has 30 of its 32 messages done (the last two
+# wait for an RTO), OPS and REPS all 32 by 134; the uplinks fail at 300.
+# failover_demo: the spine goes down at 250 and both rows' first re-routed
+# delivery lands by 266
+EX_QUICKSTART = dict(healthy_ticks=240, failure_ticks=320)
+EX_FAILOVER = dict(ticks=400, window=100)
+EX_TRAIN = dict(arch="mistral-nemo-12b", reduced=True, batch=8, seq=128, ckpt_every=10)
+EX_TRAIN_STEPS = 20
+
+
+def example_run(name: str, dev) -> tuple:
+    """``quickstart`` or ``failover_demo`` at the phase's cut on ``dev``:
+    ``(printed lines, the summaries (and the failover's recovery) as JSON,
+    seconds)``.  On the CPU it runs in a helper process."""
+    import contextlib
+    import dataclasses
+    import io
+    import json as _json
+
+    import torch
+
+    from repro_torch.examples import failover_demo, quickstart
+
+    if torch.device(dev).type == "cpu":
+        torch.set_num_threads(2)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if name == "quickstart":
+            got = quickstart.main(dev, **EX_QUICKSTART)
+            summ = {f"{blk}/{lbn}": dataclasses.asdict(s) for (blk, lbn), s in got.items()}
+        else:
+            res = failover_demo.main(dev, **EX_FAILOVER)["result"]
+            summ = {n: {**dataclasses.asdict(s), "recovery": res.telemetry_for(n)["recovery"]}
+                    for n, (s,) in res.summaries().items()}
+    secs = time.perf_counter() - t0
+    return buf.getvalue().splitlines(), _json.dumps(summ, sort_keys=True, default=float), secs
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """(a) quickstart and failover_demo at ``EX_QUICKSTART`` / ``EX_FAILOVER``
+    on the card, every printed line and summary == the CPU's (two helper
+    processes, gone before (b)); (b) ``python -m repro_torch.bench.run
+    --only EX_FIG --smoke`` untraced and with ``--trace EX_TRACE``, each into
+    a temporary ``--out``: every row's ``derived`` equal, the stamps 0 and
+    EX_TRACE, the traced grid's wall against the untraced one's, and a traced
+    run of ``table1`` merged into the untraced file reads ``"trace":
+    "mixed"``; (c) serve_batched with the reference's arguments: tokens in
+    the vocabulary, the prefill's logits finite; (d) train_lm cut to
+    EX_TRAIN_STEPS steps checkpointed every 10, against a run
+    ``--resume``d to EX_TRAIN_STEPS from a copy of its middle checkpoint
+    (deterministic algorithms): losses finite, params, optimizer state and
+    losses bit-equal.  Returns the launches per kernel."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.bench import run as bench_run
+    from repro_torch.examples import serve_batched, train_lm
+    from repro_torch.train import make_serve_steps
+    from repro_torch.tree import tree_flatten_with_path
+
+    t_start = time.perf_counter()
+    totals = {k: 0 for k in ("seg_sum", "seg_rank", "reps_tick", "queue_tick", "ecmp_hash",
+                             "next_queue", "next_queue_table")}
+    counted = _counting(totals)
+
+    # (a) the simulator examples, card == CPU
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        cpu = {n: pool.apply_async(example_run, (n, "cpu"))
+               for n in ("quickstart", "failover_demo")}
+        card = {}
+        for name in ("quickstart", "failover_demo"):
+            out, _, counts = counted(lambda: example_run(name, dev))
+            card[name] = (*out, counts)
+        cpu = {n: p.get(timeout=600) for n, p in cpu.items()}
+    h, f = EX_QUICKSTART["healthy_ticks"], EX_QUICKSTART["failure_ticks"]
+    n = 3 * h + 2 * f  # one Simulator tick each: 3 healthy runs, 2 failure runs
+    exact_launches("quickstart", card["quickstart"][3], {
+        "seg_sum": 4 * n, "seg_rank": n, "queue_tick": n, "next_queue": n, "reps_tick": h + f})
+    if not all(card["failover_demo"][3][k] for k in ("seg_sum", "seg_rank", "reps_tick",
+                                                     "queue_tick", "next_queue")):
+        raise AssertionError(f"failover_demo: launches {card['failover_demo'][3]}")
+    for name in ("quickstart", "failover_demo"):
+        lines, summ, secs, counts = card[name]
+        c_lines, c_summ, c_secs = cpu[name]
+        if lines != c_lines or summ != c_summ:
+            raise AssertionError(f"{name}: the card's output differs from the CPU's:\n"
+                                 + "\n".join(lines) + "\n-- CPU --\n" + "\n".join(c_lines))
+        for ln in lines:
+            log(f"  {name} | {ln}")
+        log(f"{name} ({EX_QUICKSTART if name == 'quickstart' else EX_FAILOVER}) on {smi}: "
+            f"every printed line and summary == the CPU's; card {secs:.3f} s (beside the "
+            f"CPU helpers), CPU {c_secs:.3f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+
+    # (b)-(d) write into one temporary directory, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        # (b) the runner's flight recorder: no helper process runs now
+        env = {k: os.environ.get(k) for k in ("BENCH_SEEDS", "BENCH_TRACE")}
+        try:
+            outs, walls = {}, {}
+            for trace in (0, EX_TRACE):
+                out = os.path.join(tmp, f"trace{trace}.json")
+                rc, secs, counts = counted(lambda: bench_run.main(
+                    ["--only", EX_FIG, "--smoke", "--trace", str(trace), "--out", out,
+                     "--device", dev.type]))
+                if rc != 0:
+                    raise AssertionError(f"bench.run --trace {trace}: exit code {rc}")
+                with open(out) as f:
+                    outs[trace] = _json.load(f)
+                walls[trace] = outs[trace]["rows"][f"{EX_FIG}/sweep_total"]["us_per_call"] / 1e6
+                log(f"bench.run --only {EX_FIG} --smoke --trace {trace}: {secs:.3f} s, grid exec "
+                    f"{walls[trace]:.4f} s; launches {({k: v for k, v in counts.items() if v})}")
+            plain, traced = (outs[t]["rows"] for t in (0, EX_TRACE))
+            if plain.keys() != traced.keys() or len(plain) < 4:
+                raise AssertionError(f"bench.run: rows {sorted(plain)} vs {sorted(traced)}")
+            for name in plain:
+                if plain[name]["derived"] != traced[name]["derived"]:
+                    raise AssertionError(f"bench.run {name}: traced {traced[name]['derived']!r} vs "
+                                         f"untraced {plain[name]['derived']!r}")
+                if (plain[name]["trace"], traced[name]["trace"]) != (0, EX_TRACE):
+                    raise AssertionError(f"bench.run {name}: stamps {plain[name]['trace']}, "
+                                         f"{traced[name]['trace']}")
+            merged_out = os.path.join(tmp, "trace0.json")
+            rc, _, counts = counted(lambda: bench_run.main(
+                ["--only", "table1", "--trace", str(EX_TRACE), "--out", merged_out,
+                 "--device", dev.type]))
+            with open(merged_out) as f:
+                meta = _json.load(f)["meta"]
+            if rc != 0 or meta["trace"] != "mixed" \
+                    or meta["sweep_totals"] != [f"{EX_FIG}/sweep_total"]:
+                raise AssertionError(f"bench.run merge: rc {rc}, meta {meta}")
+            log(f"bench.run on {smi}: {len(plain)} rows of {EX_FIG} --smoke, traced (ring "
+                f"{EX_TRACE}) == untraced on every derived field, stamped trace 0 and {EX_TRACE}; "
+                f"grid wall traced {walls[EX_TRACE]:.4f} s against untraced {walls[0]:.4f} s "
+                f"({walls[EX_TRACE] / walls[0]:.3f}x); a traced table1 run merged into the "
+                f"untraced file: meta trace {meta['trace']!r}, sweep_totals {meta['sweep_totals']}")
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+        # (c) serve_batched with the reference's arguments
+        out, secs_c, counts = counted(lambda: serve_batched.main(dev))
+        exact_launches("serve_batched", counts, {})
+        toks, cfg = out["tokens"], out["cfg"]
+        logits = make_serve_steps(out["model"])[0](out["params"], {"tokens": out["prompts"]},
+                                                   out["prompts"].shape[1] + toks.shape[1])[0]
+        if toks.shape != (4, 16) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab \
+                or not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"serve_batched: tokens {tuple(toks.shape)}, logits finite "
+                                 f"{bool(torch.isfinite(logits.float()).all())}")
+        log(f"serve_batched on {smi}: reduced gemma3-4b, 4 x 32 prompts, 16 tokens each in the "
+            f"vocabulary, the prefill's logits finite; prefill {out['prefill_s'] * 1e3:.1f} ms, "
+            f"decode {out['decode_s'] * 1e3:.1f} ms; {secs_c:.3f} s")
+        del out, logits
+
+        # (d) train_lm cut, checkpointed and resumed
+        # the resumed run starts from a copy of the whole run's middle
+        # checkpoint (a run of fewer steps would decay its rate sooner)
+        half = EX_TRAIN_STEPS // 2
+
+        def resume():
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                whole = train_lm.main(dev, steps=EX_TRAIN_STEPS, ckpt_dir=os.path.join(tmp, "a"),
+                                      **EX_TRAIN)
+                shutil.copytree(os.path.join(tmp, "a", f"step_{half}"),
+                                os.path.join(tmp, "b", f"step_{half}"))
+                resumed = train_lm.main(dev, steps=EX_TRAIN_STEPS, ckpt_dir=os.path.join(tmp, "b"),
+                                        extra=["--resume"], **EX_TRAIN)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            return whole, resumed
+
+        (whole, resumed), secs_d, counts = counted(resume)
+        exact_launches("train_lm", counts, {})
+        if not all(map(math.isfinite, whole["losses"] + whole["grad_norms"])):
+            raise AssertionError(f"train_lm: losses {whole['losses']}")
+        if resumed["start"] != half:
+            raise AssertionError(f"train_lm resume: started at {resumed['start']}")
+        differ = [f"{name}/{k}" for name in ("params", "opt")
+                  for k, a in tree_flatten_with_path(whole[name]).items()
+                  if not torch.equal(a, tree_flatten_with_path(resumed[name])[k])]
+        if differ or resumed["losses"] != whole["losses"][half:]:
+            raise AssertionError(f"train_lm resume: leaves {differ} differ, losses "
+                                 f"{resumed['losses']} vs {whole['losses'][half:]}")
+        log(f"train_lm on {smi}: reduced {EX_TRAIN['arch']}, {EX_TRAIN['batch']} x "
+            f"{EX_TRAIN['seq']}, {EX_TRAIN_STEPS} steps checkpointed every "
+            f"{EX_TRAIN['ckpt_every']} (loss {whole['losses'][0]:.4f} -> "
+            f"{whole['losses'][-1]:.4f}, all finite); --resume from a copy of its step-{half} "
+            f"checkpoint to {EX_TRAIN_STEPS} == the whole run (deterministic algorithms): params, optimizer "
+            f"state and losses bit-equal; {secs_d:.3f} s")
+    log(f"examples phase: {time.perf_counter() - t_start:.1f} s")
+    return totals
+
+
 def same_leaves(gpu: dict, cpu: dict, what: str) -> None:
     import numpy as np
 
@@ -5102,6 +5363,9 @@ def main() -> int:
         totals[k] += n
     del snaps_1200, row5, moe_ref
     phase_done("ranks")
+    for k, n in examples_phase(dev, smi).items():
+        totals[k] += n
+    phase_done("examples")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

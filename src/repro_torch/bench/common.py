@@ -14,8 +14,11 @@ compile time to exclude.
 The settings are the reference's environment variables, read at call time
 unless passed explicitly: ``BENCH_FULL`` (paper scale: FATTREE_128's
 fabric and MiB messages), ``BENCH_SEEDS`` (seeds per cell), ``BENCH_SMOKE``
-(a figure's CI subset) and ``BENCH_COLLECT`` (``"summary"``, ``"none"`` or
-``"full"``).
+(a figure's CI subset), ``BENCH_COLLECT`` (``"summary"``, ``"none"`` or
+``"full"``) and ``BENCH_TRACE`` (the flight recorder's ring in summary-mode
+grids; 0, the default, is off).  The recorder only observes: a traced
+grid's metrics equal the untraced grid's, and every row is stamped with its
+``trace`` so that traced and untraced rows stay apart.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.core import make_lb
 from repro_torch.device import resolve_device
 from repro_torch.netsim import SimConfig, Simulator, SweepCase, SweepEngine, summarize
 from repro_torch.netsim.sweep import measured_costs_from_bench
+from repro_torch.netsim.tracer import TraceSpec
 
 COLLECTS = ("none", "summary", "full")
 
@@ -49,6 +53,20 @@ def default_collect() -> str:
     if collect not in COLLECTS:
         raise ValueError(f"BENCH_COLLECT must be one of {COLLECTS}, got {collect!r}")
     return collect
+
+
+def trace_ring() -> int:
+    return max(0, int(os.environ.get("BENCH_TRACE", "0")))
+
+
+def trace_spec(collect=None):
+    """The figure grids' flight-recorder spec: a ``TraceSpec`` with the
+    BENCH_TRACE ring when tracing is on and the grid runs in summary mode
+    (the recorder rides the telemetry carry), else None."""
+    ring = trace_ring()
+    if ring <= 0 or (collect or default_collect()) != "summary":
+        return None
+    return TraceSpec(ring=ring)
 
 
 def ci_cfg(full: bool | None = None, **kw) -> SimConfig:
@@ -136,8 +154,11 @@ def run_sweep(cfg, cases, packer=None, collect=None, device=None, trace=None):
     BENCH_COLLECT; "none" and "summary" stop at quiescence (early exit;
     reported metrics are bit-identical to the full horizon), "full" keeps
     raw trace streams and runs every tick.  ``trace`` (a ``TraceSpec``,
-    summary mode) also carries the flight recorder."""
+    summary mode) also carries the flight recorder; it defaults to
+    ``trace_spec(collect)``, BENCH_TRACE's."""
     collect = collect or default_collect()
+    if trace is None:
+        trace = trace_spec(collect)
     eng = SweepEngine(cfg, cases, packer=packer, measured_costs=measured_costs(), device=device)
     res = eng.run(collect=collect, early_exit=collect != "full", trace=trace)
     return eng, res
@@ -229,14 +250,14 @@ def figure_grid(rows, fig, cfg, cases, fmt=None, derive=None, packer=None, colle
 class Rows:
     """Benchmark rows, each printed as a CSV line when added; every record
     carries the run context it was produced under (``context``: seeds,
-    full_scale, smoke, device), so that merged BENCH files stay
+    full_scale, smoke, collect, trace, device), so that merged BENCH files stay
     attributable row by row."""
 
     def __init__(self, **context):
         self.rows: list[tuple[str, float, str]] = []
         self.records: list[dict] = []
         self.context = {"seeds": n_seeds(), "full_scale": full_scale(), "smoke": smoke(),
-                        "collect": default_collect(), **context}
+                        "collect": default_collect(), "trace": trace_ring(), **context}
 
     def add(self, name: str, us: float, derived: str, **extra):
         self.rows.append((name, us, derived))

@@ -7,14 +7,23 @@
     python -m repro_torch.bench.run --only bins --full             # fig13/14, fig16, fig17
     python -m repro_torch.bench.run --only fig18 --full            # one Simulator per cell
     python -m repro_torch.bench.run --only reps_channels           # ft/'s channel scheduler
+    python -m repro_torch.bench.run --only fig06 --trace 256       # with the flight recorder
 
 Prints ``name,us_per_call,derived`` CSV rows and merges them into
 ``build/repro_torch/BENCH_torch.json`` (``--out`` to write elsewhere): the
 rows of the figures run replace their earlier rows, the other figures'
 rows are kept.  It never writes the reference's
-``benchmarks/BENCH_netsim.json``.  ``--full``, ``--smoke``, ``--seeds`` and
-``--collect`` default to the reference's BENCH_FULL, BENCH_SMOKE,
-BENCH_SEEDS and BENCH_COLLECT.  The scale modules (``scale_smoke``: one
+``benchmarks/BENCH_netsim.json``.  ``--full``, ``--smoke``, ``--seeds``,
+``--collect`` and ``--trace`` default to the reference's BENCH_FULL,
+BENCH_SMOKE, BENCH_SEEDS, BENCH_COLLECT and BENCH_TRACE.  ``--trace N``
+folds the flight recorder, an N-slot ring per row, into every summary-mode
+figure grid; it only observes, so the rows' metrics are those of the
+untraced run, and every row is stamped with its ``trace``.  The file's
+``meta`` takes ``full_scale``, ``smoke``, ``seeds``, ``collect`` and
+``trace`` from the merged rows (``"mixed"`` where they differ) and lists
+the figures' ``sweep_totals`` and the ``failed`` modules: a module that
+raises prints ``<module>,0,ERROR=<repr>``, the others still run, the file
+is written and the process exits 1.  The scale modules (``scale_smoke``: one
 scale-mode sweep row; ``table1_footprint``: REPS's per-connection bytes)
 run only when ``--only`` names them; ``--scale-conns`` / ``--scale-ticks``
 (BENCH_SCALE_CONNS, BENCH_SCALE_TICKS; default 10**5 and 300) size them,
@@ -30,6 +39,7 @@ import json
 import os
 import platform
 import time
+import traceback
 
 from repro_torch.bench import common
 
@@ -65,6 +75,8 @@ def main(argv=None) -> int:
                     help="each figure's CI subset")
     ap.add_argument("--seeds", type=int, default=common.n_seeds(), help="seeds per cell")
     ap.add_argument("--collect", choices=common.COLLECTS, default=common.default_collect())
+    ap.add_argument("--trace", type=int, default=int(os.environ.get("BENCH_TRACE", "0")),
+                    help="flight-recorder ring of summary-mode figure grids (0 = off)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--out", default=common.bench_path(), help="the BENCH file to merge into")
     ap.add_argument("--scale-conns", type=int,
@@ -83,7 +95,10 @@ def main(argv=None) -> int:
         ap.error("--scale-conn-devices > 1 needs --scale-backend gloo or nccl")
     if args.seeds < 1:
         ap.error(f"--seeds must be >= 1, got {args.seeds}")
+    if args.trace < 0:
+        ap.error(f"--trace must be >= 0, got {args.trace}")
     os.environ["BENCH_SEEDS"] = str(args.seeds)  # sweep_case's seed axis
+    os.environ["BENCH_TRACE"] = str(args.trace)  # run_sweep's flight recorder
     keys = [k.strip() for k in args.only.split(",") if k.strip()]
     selected = [m for m in MODULES if not keys or any(m.startswith(k) for k in keys)]
     selected += [m for m in SCALE_MODULES if any(m.startswith(k) for k in keys)]
@@ -95,18 +110,27 @@ def main(argv=None) -> int:
 
         build.library()  # build (or load) the kernels before any bucket is timed
     rows = common.Rows(full_scale=args.full, smoke=args.smoke, seeds=args.seeds,
-                       collect=args.collect, device=args.device or "cuda")
+                       collect=args.collect, trace=args.trace, device=args.device or "cuda")
     print("name,us_per_call,derived")
     t0 = time.time()
+    failed = []
     for name in selected:
         mod = importlib.import_module(f"repro_torch.bench.{name}")
-        if name in SCALE_MODULES:
-            mod.main(rows, conns=args.scale_conns, ticks=args.scale_ticks, device=args.device,
-                     conn_devices=args.scale_conn_devices, backend=args.scale_backend)
-        else:
-            mod.main(rows, full=args.full, smoke=args.smoke, collect=args.collect,
-                     device=args.device)
+        n_before = len(rows.records)
+        try:
+            if name in SCALE_MODULES:
+                mod.main(rows, conns=args.scale_conns, ticks=args.scale_ticks, device=args.device,
+                         conn_devices=args.scale_conn_devices, backend=args.scale_backend)
+            else:
+                mod.main(rows, full=args.full, smoke=args.smoke, collect=args.collect,
+                         device=args.device)
+        except Exception as e:  # noqa: BLE001 - the run goes on and exits 1, as the reference's
+            del rows.rows[n_before:], rows.records[n_before:]  # a failed module leaves no rows
+            failed.append(name)
+            traceback.print_exc()
+            print(f"{name},0,ERROR={e!r}", flush=True)
     wall = time.time() - t0
+    print(f"# total_wall_s={wall:.0f} failed={len(failed)}")
     records = {r["name"]: {k: v for k, v in r.items() if k != "name"} for r in rows.records}
 
     prev = {}
@@ -116,20 +140,38 @@ def main(argv=None) -> int:
     # a figure run again replaces all its rows (its bucket rows may differ)
     ran = {n.split("/")[0] for n in records}
     kept = {k: v for k, v in prev.get("rows", {}).items() if k.split("/")[0] not in ran}
+    merged = {**kept, **records}
+
+    def consensus(key, default):
+        # a row without the stamp counts as its own value, so that a merged
+        # file of unstamped and stamped rows reads "mixed"
+        vals = {rec.get(key) for rec in merged.values()}
+        if len(vals) != 1:
+            return "mixed"
+        v = vals.pop()
+        return default if v is None else v
+
     payload = {
         "meta": {
+            "full_scale": consensus("full_scale", args.full),
+            "smoke": consensus("smoke", args.smoke),
+            "seeds": consensus("seeds", args.seeds),
+            "collect": consensus("collect", args.collect),
+            "trace": consensus("trace", args.trace),
             "modules": sorted(set(prev.get("meta", {}).get("modules", [])) | set(selected)),
+            "sweep_totals": sorted(k for k in merged if k.endswith("/sweep_total")),
+            "failed": failed,
             "total_wall_s": wall,
             "platform": platform.platform(),
             "python": platform.python_version(),
         },
-        "rows": {**kept, **records},
+        "rows": merged,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(payload, f, indent=2, sort_keys=True)
     print(f"# wrote {args.out} ({len(payload['rows'])} rows) in {wall:.1f} s")
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
